@@ -21,7 +21,7 @@ TOL = 1e-4
 
 @pytest.fixture(scope="module")
 def models():
-    return tiny_models("cap%tva", kernel_scale=8.0)
+    return tiny_models(kernel_scale=8.0)
 
 
 def _media(batch):

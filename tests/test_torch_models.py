@@ -145,8 +145,14 @@ def test_prediction_head():
     _close(tm(torch.from_numpy(x), torch.from_numpy(table)), jm.apply({"params": p}, x, table))
 
 
-def tiny_models(task="cap%tva", kernel_scale=1.0, **cfg_kw):
+PT_TASK = "pt_contra%tva%tv%ta_caption%tva%tv%ta"
+
+
+def tiny_models(task=PT_TASK, kernel_scale=1.0, **cfg_kw):
     """(jax model, jax params, torch model) holding the same weights.
+
+    flax creates the parameters of the modules that the init call runs, so
+    ``task`` has to reach every head the port builds: the pretraining task does.
 
     ``kernel_scale`` multiplies every matmul and conv kernel of the JAX init:
     at 8 the attention is sharp enough that each row's caption depends on

@@ -139,6 +139,100 @@ class TestEngine:
             eng.submit({"video_pixels": pixels[0]})
 
 
+class _SlowResult:
+    """A decode result whose read takes ``delay`` seconds, as reading a batch
+    that is still on the card does; the launch itself returns at once."""
+
+    def __init__(self, arr, delay):
+        self.arr, self.delay = arr, delay
+
+    def cpu(self):
+        time.sleep(self.delay)
+        return torch.from_numpy(self.arr)
+
+
+class _FakeGenerator:
+    def __init__(self, device_s):
+        self.device_s = device_s
+
+    def generate(self, batch, groups, max_len, **kw):
+        rows = next(iter(batch.values())).shape[0]
+        g = groups[0]
+        return {f"generated_sequences_{g}": _SlowResult(np.zeros((rows, max_len), np.int32), self.device_s),
+                f"logprobs_{g}": _SlowResult(np.zeros((rows, max_len), np.float32), 0.0)}
+
+    def stats(self):
+        return {}
+
+
+class TestEngineFaults:
+    """Two faults of the engine's batching loop, fixed in the port (ROADMAP F2)."""
+
+    def test_trickling_lane_launches_within_max_wait_plus_one_cycle(self, tiny):
+        """A hot lane kept at one full batch plus one keeps the device busy,
+        while a cold lane gets one request every 100 ms, less than one 200 ms
+        device cycle: the cold lane never stops growing and never fills its
+        16 rows, so without the age backstop it waits until the hot traffic
+        ends.  Each request must launch within max_wait_ms plus one cycle,
+        plus one cycle until the next pick, and is read two cycles after its
+        launch (double buffering)."""
+        model, pixels = tiny
+        device_s, max_wait = 0.2, 0.05
+        cfg = ServeConfig(buckets=(1, 16), max_wait_ms=max_wait * 1e3, group="tv", max_len=5)
+        eng = InferenceEngine(model, cfg)
+        eng._gen = _FakeGenerator(device_s)
+        stop = threading.Event()
+        hot, cold = [], []
+
+        def hot_queued():
+            with eng._lock:  # the hot lane's queue (max_len 5; the cold lane's is 7)
+                return sum(len(lane) for key, lane in eng._lanes.items() if key[3] == 5)
+
+        def hot_client():  # saturated, not overloaded: the lane never holds 2 batches
+            while not stop.is_set():
+                if hot_queued() < 17:
+                    hot.append(eng.submit({"video_pixels": pixels[0]}))
+                else:
+                    time.sleep(0.005)
+
+        def cold_client():
+            for _ in range(15):
+                cold.append(eng.submit({"video_pixels": pixels[1]}, max_len=7))
+                time.sleep(0.1)
+
+        threads = [threading.Thread(target=hot_client), threading.Thread(target=cold_client)]
+        try:
+            [t.start() for t in threads]
+            threads[1].join(timeout=30)
+            time.sleep(1.0)  # the hot lane stays saturated past the last cold request
+        finally:
+            stop.set()
+            threads[0].join(timeout=30)
+            eng.shutdown()
+        lat = [f.result(timeout=30)["latency_s"] for f in cold]
+        # wait, backstop cycle, pick cycle, two-cycle read, and one cycle of slack
+        bound = max_wait + 5 * device_s + 0.15
+        assert max(lat) <= bound, (max(lat), bound)
+        assert all(f.result(timeout=30)["sequences"].shape == (5,) for f in hot)
+
+    def test_thousands_of_cancelled_lanes_do_not_recurse(self, tiny):
+        """1500 single-request lanes, all cancelled while queued, then one live
+        request: the picker drops the dead lanes in a loop (a recursive retry
+        overflows Python's stack) and serves the live one."""
+        model, pixels = tiny
+        cfg = ServeConfig(buckets=(4,), max_wait_ms=300, group="tv", max_len=5, max_pending=0)
+        eng = InferenceEngine(model, cfg)
+        eng._gen = _FakeGenerator(0.0)
+        try:
+            dead = [eng.submit({"video_pixels": pixels[0]}, max_len=10 + i) for i in range(1500)]
+            assert all(f.cancel() for f in dead)
+            live = eng.submit({"video_pixels": pixels[1]})
+            assert live.result(timeout=30)["sequences"].shape == (5,)
+        finally:
+            eng.shutdown()
+        assert eng.stats()["batches"] == 1 and eng.stats()["queue_depth"] == 0
+
+
 def _post(server, payload, raw=None):
     host, port = server.server_address
     req = urllib.request.Request(

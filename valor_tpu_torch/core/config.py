@@ -17,9 +17,10 @@ the port never imports the JAX package.  Every key is accepted so that one
 JSON file configures both packages.  The knobs that only steer XLA on a TPU
 are read and ignored by the port (PERF.md lists them):
 ``attention_logits_dtype`` (the port keeps attention logits in fp32),
-``attention_layout``, ``gelu_stash_dtype``, ``prng_impl`` and
-``train_inner_steps``; the fusion pipeline knobs
-(``fusion_pipeline_*``) select nothing on one card either.
+``attention_layout``, ``gelu_stash_dtype``, ``remat_policy``, ``prng_impl``
+and ``train_inner_steps``; the fusion pipeline knobs (``fusion_pipeline_*``)
+select nothing on one card either.  ``checkpointing`` and ``remat_scope``
+are honoured: ``torch.utils.checkpoint`` per encoder layer.
 """
 
 from __future__ import annotations
@@ -142,8 +143,9 @@ class ModelConfig:
 
     # regularisation / compute policy
     dropout: float = 0.1
-    # training memory knobs of the JAX package (jax.checkpoint per encoder
-    # layer, which encoders, which policy); read and not used by the port yet
+    # activation checkpointing: torch.utils.checkpoint per layer of the
+    # encoders remat_scope names (all, vision, text, audio, fusion, none);
+    # remat_policy (a jax.checkpoint policy) is read and ignored by the port
     checkpointing: bool = False
     remat_scope: str = "all"
     remat_policy: str = ""

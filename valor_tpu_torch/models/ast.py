@@ -4,7 +4,8 @@ A 16x16 stride-16 convolution over a 1-channel [melbins, target_length]
 log-mel image gives (melbins/16) * (target_length/16) patch tokens, ordered
 row-major over (freq, time); a CLS token is prepended and a learned position
 embedding added; then pre-norm layers (exact gelu, LN eps 1e-12) and a final
-LayerNorm.  At 64 x 512 that is 129 tokens per clip.
+LayerNorm.  In training mode, dropout after the position embedding and on
+both residual branches of every layer.  At 64 x 512 that is 129 tokens per clip.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from valor_tpu_torch.ops.layers import LayerNorm, PreNormLayer, _param
+from valor_tpu_torch.ops.layers import LayerNorm, PreNormLayer, _param, dropout, run_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,7 @@ class ASTConfig:
     melbins: int = 64
     target_length: int = 512
     patch_size: int = 16
+    dropout: float = 0.1  # training mode only
 
     @property
     def tokens_per_clip(self) -> int:
@@ -36,10 +38,11 @@ class ASTConfig:
 class ASTEncoder(nn.Module):
     """[B, melbins, target_length] log-mel -> [B, 1 + tokens, hidden]."""
 
-    def __init__(self, cfg: ASTConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ASTConfig, dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         p = c.patch_size
         self.patch_embed = nn.Module()
         self.patch_embed.weight = _param((c.hidden_size, 1, p, p), device)
@@ -48,7 +51,7 @@ class ASTEncoder(nn.Module):
         self.position_embeddings = _param((c.tokens_per_clip + 1, c.hidden_size), device)
         for i in range(c.layers):
             self.add_module(f"block_{i}", PreNormLayer(
-                c.hidden_size, c.heads, c.intermediate, "gelu", 1e-12, dtype, device))
+                c.hidden_size, c.heads, c.intermediate, "gelu", 1e-12, dtype, device, c.dropout))
         self.last_layernorm = LayerNorm(c.hidden_size, 1e-12, dtype, device)
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
@@ -63,6 +66,7 @@ class ASTEncoder(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # [B, tokens, C], row-major (freq, time)
         cls = self.cls_token.to(self.dtype).expand(b, 1, c.hidden_size)
         x = torch.cat([cls, x], dim=1) + self.position_embeddings.to(self.dtype)
+        x = dropout(x, c.dropout, self.training)
         for i in range(c.layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = run_layer(getattr(self, f"block_{i}"), self.remat, x)
         return self.last_layernorm(x)

@@ -3,6 +3,8 @@
   * BertEmbeddings: word + position + token-type embeddings, LN(1e-12), with a
     one-row prompt-type embedding; in full-masker mode the mask-stream half
     reuses the first half's positions shifted by one.
+  * Dropout (training mode): after the embedding LN, on each attention's
+    output before its projection, and on the FFN output, as the JAX package.
   * Post-norm BertFusionLayer with optional per-layer cross-attention to video
     and audio in four topologies: va_concate, va_parallel, video_audio,
     audio_video.
@@ -21,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from valor_tpu_torch.ops.layers import Dense, LayerNorm, MlpBlock, MultiHeadAttention, _param
+from valor_tpu_torch.ops.layers import (
+    Dense, LayerNorm, MlpBlock, MultiHeadAttention, _param, dropout, run_layer,
+)
 from valor_tpu_torch.ops.masks import concat_key_mask, fusion_attention_bias_terms
 
 CROSS_ATTN_TYPES = ("va_concate", "va_parallel", "video_audio", "audio_video")
@@ -36,6 +40,7 @@ class BertConfig:
     intermediate: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    dropout: float = 0.1  # hidden and attention dropout, in training mode only
     has_cross_attn: bool = False
     cross_attn_type: Optional[str] = None  # one of CROSS_ATTN_TYPES
 
@@ -50,6 +55,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = _param((c.type_vocab_size, c.hidden_size), device)
         self.prompt_embedding = _param((1, c.hidden_size), device)
         self.LayerNorm = LayerNorm(c.hidden_size, 1e-12, dtype, device)
+        self.dropout = c.dropout
 
     def forward(self, input_ids: torch.Tensor, token_type: Optional[str] = None,
                 full_masker: bool = False) -> torch.Tensor:
@@ -66,15 +72,16 @@ class BertEmbeddings(nn.Module):
             x = x + self.prompt_embedding[0]
         else:
             x = x + self.token_type_embeddings[0]
-        return self.LayerNorm(x.to(self.dtype))
+        return dropout(self.LayerNorm(x.to(self.dtype)), self.dropout, self.training)
 
 
 class _ResidualAttn(nn.Module):
     """attention -> dense -> LN(residual): BertSelfOutput / BertCrossOutput."""
 
-    def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None):
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None,
+                 dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(width, num_heads, dtype, device)
+        self.attn = MultiHeadAttention(width, num_heads, dtype, device, dropout)
         self.ln = LayerNorm(width, 1e-12, dtype, device)
 
     def forward(self, x, kv, bias=None, extra_kv=None):
@@ -90,15 +97,15 @@ class BertFusionLayer(nn.Module):
         c = self.cfg = cfg
         self.dtype = dtype
         w, h = c.hidden_size, c.num_heads
-        self.self_attn = _ResidualAttn(w, h, dtype, device)
+        self.self_attn = _ResidualAttn(w, h, dtype, device, c.dropout)
         if c.has_cross_attn:
             if c.cross_attn_type not in CROSS_ATTN_TYPES:
                 raise ValueError(f"unknown cross_attn_type {c.cross_attn_type!r}")
             if c.cross_attn_type == "va_concate":
-                self.cross_attn = _ResidualAttn(w, h, dtype, device)
+                self.cross_attn = _ResidualAttn(w, h, dtype, device, c.dropout)
             else:
-                self.cross_attn_v = _ResidualAttn(w, h, dtype, device)
-                self.cross_attn_a = _ResidualAttn(w, h, dtype, device)
+                self.cross_attn_v = _ResidualAttn(w, h, dtype, device, c.dropout)
+                self.cross_attn_a = _ResidualAttn(w, h, dtype, device, c.dropout)
         self.mlp = MlpBlock(w, c.intermediate, "gelu", dtype, device)
         self.out_ln = LayerNorm(w, 1e-12, dtype, device)
 
@@ -158,16 +165,18 @@ class BertFusionLayer(nn.Module):
                     feat = video_feat if mod == "v" else audio_feat
                     if feat is not None:
                         x = getattr(self, f"cross_attn_{mod}")(x, feat)
-        return self.out_ln(x + self.mlp(x))
+        return self.out_ln(x + dropout(self.mlp(x), c.dropout, self.training))
 
 
 class BertFusionEncoder(nn.Module):
-    """Embeddings + mask construction + N fusion layers."""
+    """Embeddings + mask construction + N fusion layers; ``remat`` checkpoints
+    each layer in the backward (``ops.layers.run_layer``)."""
 
-    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.embeddings = BertEmbeddings(cfg, dtype, device)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", BertFusionLayer(cfg, dtype, device))
@@ -226,7 +235,7 @@ class BertFusionEncoder(nn.Module):
         cross_a = audio_feat.to(self.dtype) if (c.has_cross_attn and audio_feat is not None) else None
         for i, layer in enumerate(self.layers):
             kv = cross_kv_list[i] if cross_kv_list is not None else None
-            x = layer(x, bias, cross_v, cross_a, cross_kv=kv)
+            x = run_layer(layer, self.remat, x, bias, cross_v, cross_a, kv)
         return x
 
 

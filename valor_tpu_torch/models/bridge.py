@@ -11,10 +11,16 @@ as the flax tree does, so a path maps one to one; three leaves change layout:
     weight is [out, in, kh, kw];
   * a flax ``LayerNorm`` ``scale`` and an ``Embed`` ``embedding`` are torch's
     ``weight``.
+
+Raw parameters keep their name and layout: the CLIP text tower's
+``token_embedding``, ``positional_embedding`` and ``prompt_embedding``, the
+CLIP projections ``visual_proj`` and ``text_proj`` ([width, embed_dim], not
+transposed) and the scalars ``logit_scale`` and ``contra_temp``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -23,13 +29,6 @@ import torch
 from valor_tpu_torch.core.config import ModelConfig
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.ops.layers import LayerNorm
-
-# top-level entries of the JAX tree that the serving port does not build
-NOT_PORTED = (
-    "clip_text", "clip_proj", "txt_encoder", "contra_head_t", "contra_head_v",
-    "contra_head_a", "va_fusion", "text_fine_weight", "video_fine_weight",
-    "audio_fine_weight", "contra_temp",
-)
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -42,11 +41,9 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (nested dicts of numpy arrays) -> port ``state_dict``
-    (fp32 CPU tensors).  Entries in ``NOT_PORTED`` are dropped."""
+    (fp32 CPU tensors).  Also maps a gradient tree of the same structure."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
-        if path[0] in NOT_PORTED:
-            continue
         *mods, leaf = path
         if leaf == "kernel":
             leaf = "weight"
@@ -69,8 +66,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch
     seed gives the same weights on every device; then moved to ``device`` (the
     CUDA card when None).  LayerNorm scales are 1 and biases 0; matmul and
     conv weights are N(0, 1/fan_in), which keeps activations at unit scale so
-    that the attention is sharp and each caption depends on its media;
-    embeddings are N(0, 0.02)."""
+    that the attention is sharp and each caption depends on its media, and so
+    are the CLIP projections ([in, out]); embeddings are N(0, 0.02).  The
+    temperatures start where the JAX package starts them: ``logit_scale`` at
+    log(1/0.07) and ``contra_temp`` at 0.07 (a N(0, 0.02) draw would put the
+    temperature near 1 and flatten the contrastive loss)."""
     from valor_tpu_torch.models.valor import VALORModel
 
     dev = resolve_device(device)
@@ -82,6 +82,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch
             name = f"{mod_name}.{p_name}" if mod_name else p_name
             if isinstance(mod, LayerNorm):
                 t = torch.ones(p.shape) if p_name == "weight" else torch.zeros(p.shape)
+            elif p_name == "logit_scale":
+                t = torch.full(p.shape, math.log(1 / 0.07))
+            elif p_name == "contra_temp":
+                t = torch.full(p.shape, 0.07)
+            elif p_name in ("visual_proj", "text_proj"):
+                t = torch.empty(p.shape).normal_(0.0, p.shape[0] ** -0.5, generator=gen)
             elif p_name in ("bias", "decoder_bias"):
                 t = torch.zeros(p.shape)
             elif p_name == "weight":  # Dense [out, in] or conv [out, in, kh, kw]
@@ -101,3 +107,13 @@ def load_model(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor], device=
     model = VALORModel(cfg, device=device)
     model.load_state_dict(state_dict, strict=True)
     return model.eval().requires_grad_(False)
+
+
+def train_model(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor], device=None):
+    """A training-mode ``VALORModel`` on ``device`` (the CUDA card when None)
+    holding ``state_dict``, with gradients on."""
+    from valor_tpu_torch.models.valor import VALORModel
+
+    model = VALORModel(cfg, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    return model.train().requires_grad_(True)

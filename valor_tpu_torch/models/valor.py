@@ -1,20 +1,26 @@
-"""VALOR serving model (counterpart of the serving subset of ``valor_tpu/models/valor.py``).
+"""VALOR model (counterpart of ``valor_tpu/models/valor.py``).
 
-Builds the CLIP vision tower, the AST audio tower, the BERT fusion encoder and
-its prediction head, the adapters and the frame and type embeddings, and
-exposes what caption generation calls: ``encode_video``, ``encode_audio``,
+Builds the CLIP vision and text towers and their projections, the AST audio
+tower, the BERT fusion encoder and its prediction head, the contrastive heads
+and fine-grained token weights, the adapters and the frame and type
+embeddings.  Caption generation calls ``encode_video``, ``encode_audio``,
 ``video_fusion_input``, ``audio_fusion_input``, ``fusion_logits`` and
-``fusion_cross_kv``.  The contrastive heads, the text tower and the training
-forwards are not part of this module yet.
+``fusion_cross_kv``; training calls the model on a batch and a task
+(``forward_pt``: the contrastive, caption and MLM losses).  The ``ret``,
+``cap`` and ``qa`` training forwards and the device-side fbank input are not
+ported yet and raise.
 
 Batch convention: video_pixels [B, n_frames, H, W, 3] (float, or raw uint8
 normalised here), audio_spectrograms [B, n_clips, melbins, target_length],
-token ids [B, N] with pad id 0.
+bert_tokens / clip_tokens [B, N] with pad id 0.  Token masking draws from the
+"mask" stream and dropout from the "dropout" stream of the enclosing
+``ops.layers.rng_scope``; dropout runs in training mode only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,16 +28,22 @@ from torch import nn
 
 from valor_tpu_torch.core.config import ModelConfig
 from valor_tpu_torch.core.device import resolve_device, torch_dtype
+from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.data.pipeline import CLIP_MEAN, CLIP_STD
 from valor_tpu_torch.models.ast import ASTConfig, ASTEncoder
 from valor_tpu_torch.models.bert import BertConfig, BertFusionEncoder, BertPredictionHead
-from valor_tpu_torch.models.clip import CLIPVisionTransformer, vision_preset
-from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param
+from valor_tpu_torch.models.clip import (
+    CLIPProjections, CLIPTextTransformer, CLIPVisionTransformer, text_preset, vision_preset,
+)
+from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param, current_rng, remat_for
+from valor_tpu_torch.ops.masking import full_mask, lm_shift_labels, mask_tokens
+from valor_tpu_torch.tasks import losses as L
 
 # BERT special tokens (bert-base-uncased vocab)
 BOS_TOKEN = 101  # [CLS]
 EOS_TOKEN = 102  # [SEP]
 MASK_TOKEN = 103  # [MASK]
+MASK_RANGE_START = 106  # start of the random-replacement range
 
 MAX_FRAMES = 32  # frame/clip embedding rows
 
@@ -41,6 +53,18 @@ def bcast_prompt(prompt: Optional[torch.Tensor], batch: int) -> Optional[torch.T
     if prompt is None or prompt.shape[0] == batch:
         return prompt
     return prompt.expand((batch,) + tuple(prompt.shape[1:]))
+
+
+class FineWeight(nn.Module):
+    """Per-token weight MLP: dense -> relu -> dense(1)."""
+
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.fc1 = Dense(dim, dim, dtype=dtype, device=device)
+        self.fc2 = Dense(dim, 1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(x)))[..., 0]
 
 
 class VALORModel(nn.Module):
@@ -60,32 +84,68 @@ class VALORModel(nn.Module):
         if c.fusion_moe_experts or c.fusion_cross_attn_kv_heads:
             raise NotImplementedError("MoE and grouped-query fusion layers are not ported yet")
 
-        vp = vision_preset(c.video_encoder_type, c.video_resolution)
-        if c.clip_vision_layers:
-            import dataclasses
+        def remat(which: str) -> bool:
+            return remat_for(c.checkpointing, c.remat_scope, which)
 
+        self.is_clip_text = c.txt_encoder_type.startswith("clip")
+        vp = vision_preset(c.video_encoder_type, c.video_resolution)
+        tp = text_preset(c.video_encoder_type)
+        if c.clip_vision_layers:
             vp = dataclasses.replace(vp, layers=c.clip_vision_layers)
-        self.clip_vision = CLIPVisionTransformer(vp, dtype, dev)
+        if c.clip_text_layers:
+            tp = dataclasses.replace(tp, layers=c.clip_text_layers)
+        self.clip_vision = CLIPVisionTransformer(vp, dtype, dev, remat("vision"))
+        self.clip_text = CLIPTextTransformer(tp, dtype, dev, remat("text"))
+        self.clip_proj = CLIPProjections(vp.width, tp.width, tp.embed_dim, dev)
         self.video_dim = vp.width
 
         ast_cfg = ASTConfig(
             hidden_size=c.audio_hidden, layers=c.audio_layers, heads=c.audio_heads,
             intermediate=c.audio_intermediate, melbins=c.audio_melbins,
             target_length=c.audio_target_length, patch_size=c.audio_patch_size,
+            dropout=c.dropout,
         )
-        self.audio_encoder = ASTEncoder(ast_cfg, dtype, dev)
+        self.audio_encoder = ASTEncoder(ast_cfg, dtype, dev, remat("audio"))
         self.audio_dim = ast_cfg.hidden_size
 
         self.bert_cfg = BertConfig(
             vocab_size=c.fusion_vocab, hidden_size=c.fusion_hidden,
             num_layers=c.fusion_layers, num_heads=c.fusion_heads,
-            intermediate=c.fusion_intermediate,
+            intermediate=c.fusion_intermediate, dropout=c.dropout,
             has_cross_attn=c.multimodal_use_cross_attn,
             cross_attn_type=c.cross_attn_type if c.multimodal_use_cross_attn else None,
         )
-        self.multimodal_encoder = BertFusionEncoder(self.bert_cfg, dtype, dev)
+        self.multimodal_encoder = BertFusionEncoder(self.bert_cfg, dtype, dev, remat("fusion"))
         h = self.multimodal_dim = c.fusion_hidden
         self.cls_head = BertPredictionHead(h, c.fusion_vocab, dtype, dev)
+
+        # text encoder of the contrastive objective: the CLIP text tower, or a
+        # BERT without cross-attention (the fusion encoder itself when shared)
+        self.txt_dim = tp.width
+        if not self.is_clip_text:
+            self.txt_dim = h
+            if not c.share_txt_and_multimodal:
+                self.txt_encoder = BertFusionEncoder(
+                    dataclasses.replace(self.bert_cfg, has_cross_attn=False, cross_attn_type=None),
+                    dtype, dev, remat("text"))
+
+        # contrastive heads
+        self.use_clip_head = self.is_clip_text and c.init_clip_head
+        if self.use_clip_head:
+            contra_dim = tp.embed_dim
+        else:
+            contra_dim = c.contra_dim
+            self.contra_head_t = Dense(self.txt_dim, contra_dim, use_bias=False, dtype=dtype, device=dev)
+            self.contra_head_v = Dense(self.video_dim, contra_dim, use_bias=False, dtype=dtype, device=dev)
+        self.contra_dim = contra_dim
+        self.contra_head_a = Dense(self.audio_dim, contra_dim, use_bias=False, dtype=dtype, device=dev)
+        if c.contra_type == "coarse" and not c.late_fusion:
+            self.va_fusion = Dense(2 * contra_dim, contra_dim, dtype=dtype, device=dev)
+        if c.contra_type == "fine":
+            self.text_fine_weight = FineWeight(contra_dim, dtype, dev)
+            self.video_fine_weight = FineWeight(contra_dim, dtype, dev)
+            self.audio_fine_weight = FineWeight(contra_dim, dtype, dev)
+        self.contra_temp = _param((), dev)
 
         self.video_type_embeddings = _param((1, 1, h), dev)
         self.audio_type_embeddings = _param((1, 1, h), dev)
@@ -105,6 +165,13 @@ class VALORModel(nn.Module):
     def device(self) -> torch.device:
         return self.video_type_embeddings.device
 
+    @property
+    def text_encoder(self) -> nn.Module:
+        """The contrastive objective's text tower."""
+        if self.is_clip_text:
+            return self.clip_text
+        return self.multimodal_encoder if self.cfg.share_txt_and_multimodal else self.txt_encoder
+
     # -- encoders ----------------------------------------------------------
     def encode_video(self, video_pixels: torch.Tensor) -> torch.Tensor:
         """[B, n, H, W, 3] -> [B, n, 1 + g*g, C].  Raw uint8 pixels are
@@ -121,6 +188,34 @@ class VALORModel(nn.Module):
         b, n = spectrograms.shape[:2]
         out = self.audio_encoder(spectrograms.reshape((b * n,) + tuple(spectrograms.shape[2:])))
         return out.reshape(b, n, out.shape[1], out.shape[2])
+
+    def encode_text(self, tokens: torch.Tensor,
+                    task_prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
+        task_prompt = bcast_prompt(task_prompt, tokens.shape[0])
+        if self.is_clip_text:
+            out = self.clip_text(tokens, task_prompt, causal=True)
+        else:
+            out = self.text_encoder(tokens, task_prompt=task_prompt, causal=False)
+        if task_prompt is not None:
+            out = out[:, : tokens.shape[1]]
+        return out
+
+    # -- pooling -------------------------------------------------------------
+    def pool_text(self, feature, tokens, contra_type=None):
+        if (contra_type or self.cfg.contra_type) == "coarse":
+            if self.is_clip_text:  # the EOT token: CLIP's largest id
+                idx = torch.argmax(tokens, dim=-1)
+                return feature[torch.arange(tokens.shape[0], device=feature.device), idx]
+            return feature[:, 0]
+        return feature
+
+    def pool_video(self, feature, contra_type=None):
+        feature = feature[:, :, 0]
+        return feature.mean(1) if (contra_type or self.cfg.contra_type) == "coarse" else feature
+
+    def pool_audio(self, feature, contra_type=None):
+        feature = feature[:, :, 0]
+        return feature.mean(1) if (contra_type or self.cfg.contra_type) == "coarse" else feature
 
     # -- fusion-space inputs -----------------------------------------------
     def video_fusion_input(self, video_output: torch.Tensor) -> torch.Tensor:
@@ -166,3 +261,173 @@ class VALORModel(nn.Module):
     def fusion_cross_kv(self, video_input, audio_input) -> list:
         """Per-layer cross-attention K/V for decoding."""
         return self.multimodal_encoder.precompute_cross_kv(video_input, audio_input)
+
+    # -- contrastive features and losses ---------------------------------------
+    def project_text(self, pooled):
+        return self.clip_proj.project_text(pooled) if self.use_clip_head else self.contra_head_t(pooled)
+
+    def project_video(self, pooled):
+        return self.clip_proj.project_visual(pooled) if self.use_clip_head else self.contra_head_v(pooled)
+
+    def temperature(self) -> torch.Tensor:
+        """CLIP's learned logit scale (the video tower is always CLIP here)."""
+        return self.clip_proj.temperature()
+
+    def contra_features(self, txt_tokens, video_output, audio_output,
+                        prompt_tokens=None) -> Dict[str, Any]:
+        """Pooled, projected, L2-normalised per-modality features."""
+        out: Dict[str, Any] = {"feat_t": None, "feat_v": None, "feat_a": None,
+                               "txt_tokens": txt_tokens}
+        if txt_tokens is not None:
+            pooled = self.pool_text(self.encode_text(txt_tokens, prompt_tokens), txt_tokens)
+            out["feat_t"] = L.l2_normalize(self.project_text(pooled))
+        if video_output is not None:
+            out["feat_v"] = L.l2_normalize(self.project_video(self.pool_video(video_output)))
+        if audio_output is not None:
+            out["feat_a"] = L.l2_normalize(self.contra_head_a(self.pool_audio(audio_output)))
+        return out
+
+    def _fine_parts(self, feats, txt_tokens):
+        parts = {}
+        if feats["feat_t"] is not None:
+            ft = feats["feat_t"]
+            parts["t"] = (ft, (txt_tokens != 0).float(), self.text_fine_weight(ft))
+        for k, mod in (("v", self.video_fine_weight), ("a", self.audio_fine_weight)):
+            f = feats[f"feat_{k}"]
+            if f is not None:
+                parts[k] = (f, torch.ones(f.shape[:2], device=f.device), mod(f))
+        return parts
+
+    def group_score_matrix(self, group: str, feats: Dict[str, Any], txt_tokens) -> torch.Tensor:
+        """Score matrix of one modality group ('tv', 'ta', 'tva', 'va', 'vta', 'atv')."""
+        c = self.cfg
+        if c.contra_type == "coarse":
+            ft, fv, fa = feats["feat_t"], feats["feat_v"], feats["feat_a"]
+            if group == "tv":
+                return L.coarse_score(ft, fv)
+            if group == "ta":
+                return L.coarse_score(ft, fa)
+            if group == "tva":
+                if c.late_fusion:
+                    return L.coarse_score(ft, fv) + L.coarse_score(ft, fa)
+                return L.coarse_score(ft, L.l2_normalize(self.va_fusion(torch.cat([fv, fa], -1))))
+            raise ValueError(f"coarse contra does not support group {group!r}")
+
+        parts = self._fine_parts(feats, txt_tokens)
+
+        def cat(keys):
+            return tuple(torch.cat([parts[k][i] for k in keys], dim=1) for i in range(3))
+
+        if group == "tva" and c.late_fusion:
+            t, v, a = parts["t"], parts["v"], parts["a"]
+            ones = lambda p: torch.ones_like(p[2])  # noqa: E731
+            return (L.fine_score(t[0], v[0], t[1], v[1], ones(t), ones(v))
+                    + L.fine_score(t[0], a[0], t[1], a[1], ones(t), ones(a)))
+        pairs = {"tv": ("t", "v"), "ta": ("t", "a"), "va": ("v", "a"),
+                 "tva": ("t", "va"), "vta": ("v", "ta"), "atv": ("a", "tv")}
+        if group not in pairs:
+            raise ValueError(group)
+        ka, kb = pairs[group]
+        a = parts[ka]
+        b = parts[kb] if len(kb) == 1 else cat(kb)
+        if group == "tva" and c.fineweight_type == "none":
+            a = (a[0], a[1], torch.ones_like(a[2]))
+            b = (b[0], b[1], torch.ones_like(b[2]))
+        return L.fine_score(a[0], b[0], a[1], b[1], a[2], b[2])
+
+    def contra_loss_over_groups(self, groups, feats, txt_tokens) -> torch.Tensor:
+        temp = self.temperature()
+        ls = [L.contrastive_loss(self.group_score_matrix(g, feats, txt_tokens), temp)
+              for g in groups]
+        return sum(ls) / len(ls)
+
+    # -- caption and MLM inputs ------------------------------------------------
+    def caption_inputs(self, txt_tokens: torch.Tensor, train: bool = True):
+        """(input tokens, labels) of the caption objective."""
+        c = self.cfg
+        if c.caption_type == "unimlm":
+            if c.full_masker:
+                return full_mask(txt_tokens, MASK_TOKEN)
+            gen = current_rng("token masking").generator(txt_tokens.device, "mask")
+            return mask_tokens(gen, txt_tokens, 0.6, MASK_TOKEN, MASK_RANGE_START, c.fusion_vocab)
+        return txt_tokens, lm_shift_labels(txt_tokens)
+
+    # -- task forwards ---------------------------------------------------------
+    def forward(self, batch: Dict[str, Any], task: TaskSpec, compute_loss: bool = True,
+                train: bool = True):
+        """The losses (or features) of ``task`` on ``batch``, a dict of tensors
+        on the model's device.  Dropout follows ``self.training``."""
+        if batch.get("audio_waveforms") is not None:
+            raise NotImplementedError(
+                "audio_waveforms (the device fbank) comes with the data-path slice; "
+                "pass audio_spectrograms")
+        if task.family == "pt":
+            return self.forward_pt(batch, task, compute_loss, train)
+        waits = {"ret": "the retrieval-evaluation slice", "cap": "the caption-finetuning slice",
+                 "qa": "the QA slice"}
+        if task.family in waits:
+            raise NotImplementedError(f"{task.family} training comes with {waits[task.family]}")
+        raise ValueError(task.family)
+
+    def _text_for(self, batch, encoder_type):
+        return batch.get("clip_tokens" if encoder_type.startswith("clip") else "bert_tokens")
+
+    def forward_pt(self, batch, task: TaskSpec, compute_loss: bool = True, train: bool = True):
+        c = self.cfg
+        video_output = self.encode_video(batch["video_pixels"]) if task.uses_video else None
+        audio_output = (self.encode_audio(batch["audio_spectrograms"])
+                        if task.uses_audio else None)
+        out: Dict[str, Any] = {}
+
+        if task.contra_groups:
+            txt_contra = self._text_for(batch, c.txt_encoder_type)
+            feats = self.contra_features(txt_contra, video_output, audio_output,
+                                         batch.get("prompt_tokens_contra"))
+            if compute_loss:
+                out["contra_loss"] = (self.contra_loss_over_groups(
+                    task.contra_groups, feats, txt_contra) * c.contra_loss_ratio)
+            else:
+                out.update(feats)
+
+        txt_tokens = self._text_for(batch, c.multimodal_encoder_type)
+        video_input = self.video_fusion_input(video_output) if video_output is not None else None
+        audio_input = self.audio_fusion_input(audio_output) if audio_output is not None else None
+
+        def group_logits(g, tokens, prompt, causal, full_masker=False):
+            return self.fusion_logits(tokens, prompt, video_input if "v" in g else None,
+                                      audio_input if "a" in g else None, causal, full_masker)
+
+        if task.caption_groups:
+            txt_input, txt_labels = self.caption_inputs(txt_tokens, train)
+            ls = []
+            for g in task.caption_groups:
+                logits = group_logits(g, txt_input, batch.get("prompt_tokens_caption"), True,
+                                      c.full_masker)
+                if compute_loss:
+                    ls.append(L.masked_cross_entropy(logits, txt_labels, c.label_smoothing))
+                else:
+                    out[f"caption_scores_{g}"] = logits
+            if compute_loss:
+                out["caption_loss"] = sum(ls) / len(ls)
+            else:
+                out["txt_labels_caption"] = txt_labels
+
+        if task.mlm_groups:
+            gen = current_rng("token masking").generator(txt_tokens.device, "mask")
+            txt_input, txt_labels = mask_tokens(gen, txt_tokens, 0.15, MASK_TOKEN,
+                                                MASK_RANGE_START, c.fusion_vocab)
+            ls = []
+            for g in task.mlm_groups:
+                prompt = batch.get(f"prompt_tokens_mlm_{g}")
+                if prompt is None:
+                    prompt = batch.get("prompt_tokens_mlm")
+                logits = group_logits(g, txt_input, prompt, False)
+                if compute_loss:
+                    ls.append(L.masked_cross_entropy(logits, txt_labels))
+                else:
+                    out[f"mlm_scores_{g}"] = logits
+            if compute_loss:
+                out["mlm_loss"] = sum(ls) / len(ls)
+            else:
+                out["txt_labels_mlm"] = txt_labels
+        return out

@@ -5,25 +5,148 @@ Parameters are stored fp32 and allocated uninitialised: they are loaded from
 the module's compute dtype; every matmul casts its input and its fp32
 parameters to that dtype where the JAX package does.  Attention scores and the
 softmax stay fp32 and the probabilities are cast back to the compute dtype.
-Every LayerNorm goes through ``ops/kernels/layernorm.py``: the CUDA kernel on
-the card, its plain version on the CPU.  Dropout is an identity: the port
-serves in eval mode.
+Every LayerNorm goes through ``ops/kernels/layernorm.py``: the CUDA kernels on
+the card, their plain versions on the CPU.
+
+Training mode (``module.train()``) turns on dropout where the JAX package has
+``maybe_dropout``.  Its masks come from the seeded streams of the enclosing
+``rng_scope`` (the counterpart of flax's ``rngs={"dropout": ..., "mask": ...}``),
+never from torch's global generator.  ``run_layer`` runs one encoder layer,
+under ``torch.utils.checkpoint`` where the config's ``checkpointing`` and
+``remat_scope`` ask for it (``remat_for``); each layer draws from a stream of its
+own, so the recompute of the backward draws the same masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple, Union
+import threading
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from valor_tpu_torch.ops.kernels.layernorm import layernorm
 
 NEG_INF = -1e4  # the attention mask value: (1 - mask) * -10000
 
 BiasTerms = Union[None, torch.Tensor, Sequence[torch.Tensor]]
+
+
+_MASK64 = (1 << 63) - 1
+
+
+def _mix(*vals: int) -> int:
+    """A 63-bit seed from integers (splitmix64 over each in turn)."""
+    h = 0x9E3779B97F4A7C15
+    for v in vals:
+        h = (h + (v & _MASK64) + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h & _MASK64
+
+
+class RNGStreams:
+    """Named random streams ("dropout", "mask") of one forward, from one seed.
+
+    Each draw seeds a ``torch.Generator`` on the tensor's device from (seed,
+    stream, draw count), so a seed gives the same draws in every run; ``fork``
+    gives an independent set of streams (one per checkpointed layer)."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+        self._counts: Dict[str, int] = {}
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def _next(self, stream: str) -> int:
+        n = self._counts.get(stream, 0)
+        self._counts[stream] = n + 1
+        return n
+
+    def generator(self, device, stream: str = "dropout") -> torch.Generator:
+        device = torch.device(device)
+        g = self._gens.get(device)
+        if g is None:
+            g = self._gens[device] = torch.Generator(device=device)
+        n = self._next(stream)
+        return g.manual_seed(_mix(self.seed, sum(map(ord, stream)), n))
+
+    def fork(self) -> "RNGStreams":
+        return RNGStreams(_mix(self.seed, 0x666F726B, self._next("fork")))
+
+
+_RNG = threading.local()  # .streams: the enclosing rng_scope's, per thread
+
+
+@contextlib.contextmanager
+def rng_scope(streams: Optional[RNGStreams]) -> Iterator[Optional[RNGStreams]]:
+    """Make ``streams`` the source of dropout and token-mask draws inside the
+    block, in this thread (a checkpointed layer's recompute sets its own)."""
+    prev = getattr(_RNG, "streams", None)
+    _RNG.streams = streams
+    try:
+        yield streams
+    finally:
+        _RNG.streams = prev
+
+
+def current_rng(what: str) -> RNGStreams:
+    rng = getattr(_RNG, "streams", None)
+    if rng is None:
+        raise RuntimeError(f"{what} needs random streams: run the forward inside ops.layers.rng_scope")
+    return rng
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """``maybe_dropout``: keep each element w.p. 1 - rate and scale it by
+    1 / (1 - rate); an identity when not training or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    g = current_rng("dropout").generator(x.device, "dropout")
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+REMAT_TOKENS = ("all", "vision", "text", "audio", "fusion", "none")
+
+
+def remat_for(checkpointing: bool, remat_scope: str, which: str) -> bool:
+    """Whether encoder ``which`` checkpoints its layers (``valor_tpu/models/valor.py:105-123``)."""
+    if not checkpointing:
+        return False
+    tokens = {s.strip() for s in remat_scope.split(",") if s.strip()}
+    bad = tokens - set(REMAT_TOKENS)
+    if bad or not tokens:
+        raise ValueError(
+            f"checkpointing=True with remat_scope={remat_scope!r}"
+            f"{' (unknown token(s) ' + repr(sorted(bad)) + ')' if bad else ''}; "
+            "valid tokens: " + ", ".join(REMAT_TOKENS)
+        )
+    if tokens == {"none"}:
+        return False
+    return "all" in tokens or which in tokens
+
+
+def run_layer(layer: nn.Module, remat: bool, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is set
+    and autograd records.  A training layer draws its dropout from streams of
+    its own, forked here, which the recompute draws again."""
+    rng = getattr(_RNG, "streams", None)
+    fn = layer
+    if layer.training and rng is not None:
+        seed = rng.fork().seed
+
+        def fn(*a):
+            with rng_scope(RNGStreams(seed)):
+                return layer(*a)
+
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _param(shape, device) -> nn.Parameter:
@@ -134,10 +257,12 @@ class MultiHeadAttention(nn.Module):
     values projected from ``kv_in``; with ``kv_in=None`` the keys and values
     come from ``extra_kv`` alone (the decode path's cross-attention cache)."""
 
-    def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None):
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.dropout = dropout
         self.query = Dense(width, width, dtype=dtype, device=device)
         self.key = Dense(width, width, dtype=dtype, device=device)
         self.value = Dense(width, width, dtype=dtype, device=device)
@@ -163,7 +288,7 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("cache-only attention needs extra_kv")
             kh, vh = (t.to(qh.dtype) for t in extra_kv)
         out = dot_product_attention(qh, kh, vh, bias=bias, dtype=self.dtype)
-        return self.out(merge_heads(out))
+        return self.out(dropout(merge_heads(out), self.dropout, self.training))
 
     def compute_kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Project and split K/V for caching (no attention)."""
@@ -192,8 +317,9 @@ class PreNormLayer(nn.Module):
 
     def __init__(self, width: int, num_heads: int, intermediate: int,
                  activation: str = "gelu", ln_eps: float = 1e-12,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.ln1 = LayerNorm(width, ln_eps, dtype, device)
         self.attn = MultiHeadAttention(width, num_heads, dtype, device)
         self.ln2 = LayerNorm(width, ln_eps, dtype, device)
@@ -201,5 +327,5 @@ class PreNormLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: BiasTerms = None) -> torch.Tensor:
         h = self.ln1(x)
-        x = x + self.attn(h, h, bias)
-        return x + self.mlp(self.ln2(x))
+        x = x + dropout(self.attn(h, h, bias), self.dropout, self.training)
+        return x + dropout(self.mlp(self.ln2(x)), self.dropout, self.training)

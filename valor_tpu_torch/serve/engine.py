@@ -17,7 +17,9 @@ resolves per-request futures.
   * One worker thread owns the device.  It enters ``torch.inference_mode()``
     itself (the mode is thread-local).
   * Latency budget.  A batch launches as soon as it is full, or when its
-    oldest request has waited ``max_wait_ms``.
+    oldest request has waited ``max_wait_ms``; while another batch is on the
+    device, at the latest once it has waited ``max_wait_ms`` plus one batch
+    cycle (``_pick``).
   * Double buffering.  Kernel launches are asynchronous, so the worker
     launches batch N+1 (host assembly, host-to-device copy, the decode's
     kernel launches) before it waits for batch N's results.  Rows are
@@ -139,6 +141,8 @@ class InferenceEngine:
             collections.OrderedDict()
         )
         self._stopping = False
+        self._cycle_s = 0.0  # the last batch's device cycle (the age backstop's margin)
+        self._last_launch = 0.0
         self._stats = self._fresh_stats()
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="valor-serve-worker")
@@ -273,37 +277,45 @@ class InferenceEngine:
 
         inflight_since: launch time of the batch currently on the device, or
         None if the device is idle.  While a batch is in flight, the overlap
-        slot takes (a) any FULL top-bucket lane, or (b) an aged partial lane
+        slot takes (a) any FULL top-bucket lane, (b) an aged partial lane
         whose NEWEST request predates the in-flight launch (the lane stopped
-        growing a whole device cycle ago).  A partial lane still receiving
-        traffic is skipped; it launches the moment the device would
-        otherwise go idle."""
+        growing a whole device cycle ago), or (c) a partial lane whose oldest
+        request has waited ``max_wait_ms`` plus one batch cycle (from the last
+        finished batch's launch to the next launch, or to its result if
+        nothing launched after it): a lane that receives a request every
+        cycle would otherwise wait until it fills.  Other partial lanes still
+        receiving traffic are skipped; they launch the moment the device would
+        otherwise go idle.  Lanes whose requests were all cancelled are
+        dropped in a loop, however many there are."""
         c = self.cfg
-        now = time.monotonic()
-        best_key, best_age = None, -1.0
-        for key, lane in self._lanes.items():
+        while True:
+            now = time.monotonic()
+            best_key, best_age = None, -1.0
+            for key, lane in self._lanes.items():
+                if not lane:
+                    continue
+                age = now - lane[0].t_submit
+                full = len(lane) >= c.buckets[-1]
+                aged = c.max_wait_ms >= 0 and age * 1e3 >= c.max_wait_ms
+                overdue = aged and age >= c.max_wait_ms / 1e3 + self._cycle_s
+                if (inflight_since is not None and not full and not self._stopping
+                        and lane[-1].t_submit >= inflight_since and not overdue):
+                    continue
+                if full or self._stopping or aged:
+                    if age > best_age:
+                        best_key, best_age = key, age
+            if best_key is None:
+                return None
+            lane = self._lanes[best_key]
+            n = min(len(lane), c.buckets[-1])
+            self._pending -= n
+            out = [lane.popleft() for _ in range(n)]
             if not lane:
-                continue
-            age = now - lane[0].t_submit
-            full = len(lane) >= c.buckets[-1]
-            if (inflight_since is not None and not full
-                    and not self._stopping
-                    and lane[-1].t_submit >= inflight_since):
-                continue
-            if full or self._stopping or (c.max_wait_ms >= 0 and age * 1e3 >= c.max_wait_ms):
-                if age > best_age:
-                    best_key, best_age = key, age
-        if best_key is None:
-            return None
-        lane = self._lanes[best_key]
-        n = min(len(lane), c.buckets[-1])
-        self._pending -= n
-        out = [lane.popleft() for _ in range(n)]
-        # requests cancelled while queued never occupy batch rows
-        live = [r for r in out if not r.future.cancelled()]
-        if not live:
-            return self._pick(inflight_since)
-        return live
+                del self._lanes[best_key]
+            # requests cancelled while queued never occupy batch rows
+            live = [r for r in out if not r.future.cancelled()]
+            if live:
+                return live
 
     def _deadline(self) -> Optional[float]:
         """Under the lock: seconds until the oldest pending request matures."""
@@ -411,7 +423,7 @@ class InferenceEngine:
         _, group, caption_type, max_len, beam_size, mode = reqs[0].key
         n = len(reqs)
         bucket = next((b for b in c.buckets if b >= n), c.buckets[-1])
-        t_q = time.monotonic()
+        t_q = self._last_launch = time.monotonic()
         host = self._assemble(reqs, bucket)
         if "question_prompt" not in host:
             p = self.prompts.get(group)
@@ -434,6 +446,7 @@ class InferenceEngine:
         seqs = out[f"generated_sequences_{group}"].cpu().numpy()
         logps = out[f"logprobs_{group}"].cpu().numpy()
         t1 = time.monotonic()
+        self._cycle_s = (self._last_launch if self._last_launch > t_q else t1) - t_q
         with self._lock:
             s = self._stats
             s["batches"] += 1

@@ -1,0 +1,231 @@
+"""Grouped Adam(W) for the port (counterpart of ``valor_tpu/train/optimizer.py``).
+
+Five learning-rate groups (basic, new, clip_visual, clip_text, decoder), each
+split into weight decay and no decay, plus frozen parameters.  Labels are
+given by the JAX package's parameter path of each parameter (``flax_path``),
+so the port labels exactly what the JAX package labels: the port calls a
+LayerNorm's scale ``weight``, and a label taken from the port's own names would
+decay it.
+
+One update, in the JAX package's order:
+
+  1. frozen gradients are zeroed (before the clip, so they do not count in the
+     norm);
+  2. every gradient is scaled by min(1, grad_norm / global L2 norm), keeping
+     its dtype;
+  3. adam/adamax only: the coupled L2 term ``wd * p`` is added to the
+     gradients of the decayed groups;
+  4. the moments update and give the step ``u`` as optax computes it
+     (bias correction by 1 - b**count in float32; eps 1e-6 for adamw, 1e-8
+     for adam and adamax; the moments are stored in ``adam_mu_dtype`` and
+     ``adam_nu_dtype`` and read in float32);
+  5. each group moves by ``-lr(step) * (u + wd * p)`` (adamw decays here).
+
+With ``gradient_accumulation_steps`` k > 1 the optimizer follows
+``optax.MultiSteps``: the running mean of k micro-batch gradients, one update
+every k calls.  The arithmetic is plain tensor code over lists
+(``torch._foreach_*``), updating parameters and moments in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from valor_tpu_torch.core.config import TrainConfig
+from valor_tpu_torch.core.device import torch_dtype
+from valor_tpu_torch.ops.layers import Embed, LayerNorm
+from valor_tpu_torch.train.schedule import make_schedule
+
+_F = np.float32
+
+
+def param_group(path_str: str, new_params_name: Sequence[str]) -> str:
+    """Group name of a parameter path (``/``-separated, as the JAX package's)."""
+    p = path_str
+    if "clip" in p and ("vision" in p or "visual" in p):
+        return "clip_visual"
+    if "clip" in p:
+        return "clip_text"
+    if "multimodal_encoder/decoder" in p:
+        return "decoder"
+    if any(n in p for n in new_params_name):
+        return "new"
+    return "basic"
+
+
+def is_no_decay(path_str: str) -> bool:
+    """Biases and LayerNorm scales and biases."""
+    last = path_str.rsplit("/", 1)[-1]
+    return last in ("bias", "scale") or last.endswith("_bias")
+
+
+def is_frozen(path_str: str, frozen_vision: bool, frozen_multimodal: bool) -> bool:
+    p = path_str
+    if frozen_vision and ("clip_vision" in p or p.startswith("video_encoder")):
+        return True
+    if frozen_multimodal:
+        if p.startswith("cls_head"):
+            return True
+        if p.startswith("multimodal_encoder") and "cross" not in p:
+            return True
+    return False
+
+
+def flax_path(module: nn.Module, module_name: str, param_name: str) -> str:
+    """The JAX package's path of a port parameter: ``models.bridge.params_from_jax``
+    inverted (a LayerNorm's ``weight`` is ``scale``, an ``Embed``'s is
+    ``embedding``, any other ``weight`` is a ``kernel``)."""
+    leaf = param_name
+    if param_name == "weight":
+        if isinstance(module, LayerNorm):
+            leaf = "scale"
+        elif isinstance(module, Embed):
+            leaf = "embedding"
+        else:
+            leaf = "kernel"
+    return "/".join([*module_name.split("."), leaf] if module_name else [leaf])
+
+
+def label_params(model: nn.Module, new_params_name: Sequence[str] = (),
+                 frozen_vision: bool = False, frozen_multimodal: bool = False) -> Dict[str, str]:
+    """Port parameter name -> "frozen" or "<group>_wd" / "<group>_nd"."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, _ in mod.named_parameters(recurse=False):
+            path = flax_path(mod, mod_name, p_name)
+            name = f"{mod_name}.{p_name}" if mod_name else p_name
+            if is_frozen(path, frozen_vision, frozen_multimodal):
+                out[name] = "frozen"
+            else:
+                out[name] = f"{param_group(path, new_params_name)}_{'nd' if is_no_decay(path) else 'wd'}"
+    return out
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm over every element of every tensor, accumulated in float32."""
+    if not tensors:
+        return torch.zeros(())
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class GroupedAdam:
+    """The optimizer of ``build_optimizer``; ``update(grads)`` takes one
+    gradient per parameter, in ``params`` order, and returns whether the
+    parameters moved (False on the first k - 1 of k accumulated calls)."""
+
+    def __init__(self, named_params: Sequence, labels: Dict[str, str],
+                 schedules: Dict[str, Callable], cfg: TrainConfig):
+        if cfg.optim not in ("adam", "adamax", "adamw"):
+            raise ValueError(f"invalid optimizer {cfg.optim!r} (adam|adamax|adamw)")
+        self.names = [n for n, _ in named_params]
+        self.params: List[torch.Tensor] = [p for _, p in named_params]
+        self.labels = [labels[n] for n in self.names]
+        self.schedules = schedules
+        self.optim = cfg.optim
+        self.b1, self.b2 = (float(b) for b in cfg.betas)
+        self.eps = 1e-6 if cfg.optim == "adamw" else 1e-8
+        self.weight_decay = cfg.weight_decay
+        self.max_norm = cfg.grad_norm
+        self.accum = max(cfg.gradient_accumulation_steps, 1)
+        self.live = [i for i, lbl in enumerate(self.labels) if lbl != "frozen"]
+        mu_dtype = torch_dtype(cfg.adam_mu_dtype) if cfg.optim != "adamax" else torch.float32
+        nu_dtype = torch_dtype(cfg.adam_nu_dtype) if cfg.optim == "adamw" else torch.float32
+        self.mu = [torch.zeros_like(self.params[i], dtype=mu_dtype) for i in self.live]
+        self.nu = [torch.zeros_like(self.params[i], dtype=nu_dtype) for i in self.live]
+        self.count = 0  # moment updates made (optax's count)
+        self.mini_step = 0  # micro-batches accumulated toward the next update
+        self.gradient_step = 0  # updates made (optax.MultiSteps' gradient_step)
+        self.acc = ([torch.zeros_like(p) for p in self.params] if self.accum > 1 else None)
+        self.by_label: Dict[str, List[int]] = {}
+        for j, i in enumerate(self.live):
+            self.by_label.setdefault(self.labels[i], []).append(j)
+
+    def lr(self, label: str, step: int) -> float:
+        return float(self.schedules[label](step))
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        if self.acc is not None:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):  # Welford mean, as optax.MultiSteps
+                a.add_((g.float() - a) / (n + 1))
+            self.mini_step = (n + 1) % self.accum
+            if self.mini_step:
+                return False
+            grads = self.acc
+        self._inner(list(grads))
+        if self.acc is not None:
+            torch._foreach_zero_(self.acc)
+        self.gradient_step += 1
+        return True
+
+    def _inner(self, grads: List[torch.Tensor]) -> None:
+        # 1-2: frozen grads out of the norm, then the flat global-norm clip
+        live_g = [grads[i] for i in self.live]
+        norm = global_norm(live_g)
+        scale = torch.clamp(self.max_norm / norm.clamp_min(1e-9), max=1.0)
+        g32 = [(g * scale).to(g.dtype).float() for g in live_g]
+        params = [self.params[i] for i in self.live]
+        wd = self.weight_decay
+        # 3: coupled L2 for adam and adamax
+        if self.optim in ("adam", "adamax") and wd:
+            for lbl, idx in self.by_label.items():
+                if lbl.endswith("_wd"):
+                    torch._foreach_add_([g32[j] for j in idx], [params[j] for j in idx], alpha=wd)
+        # 4: the moments and the step u
+        self.count += 1
+        c1 = float(_F(1.0) - _F(self.b1) ** _F(self.count))
+        mu32 = [m.float() for m in self.mu]
+        torch._foreach_mul_(mu32, self.b1)
+        torch._foreach_add_(mu32, g32, alpha=1.0 - self.b1)
+        nu32 = [v.float() for v in self.nu]
+        if self.optim == "adamax":
+            torch._foreach_mul_(nu32, self.b2)
+            torch._foreach_maximum_(nu32, torch._foreach_add(torch._foreach_abs(g32), self.eps))
+            u = torch._foreach_div(mu32, c1)
+            torch._foreach_div_(u, nu32)
+        else:
+            c2 = float(_F(1.0) - _F(self.b2) ** _F(self.count))
+            torch._foreach_mul_(nu32, self.b2)
+            torch._foreach_addcmul_(nu32, g32, g32, value=1.0 - self.b2)
+            denom = torch._foreach_div(nu32, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            u = torch._foreach_div(mu32, c1)
+            torch._foreach_div_(u, denom)
+        for store, full in ((self.mu, mu32), (self.nu, nu32)):
+            for s, f in zip(store, full):
+                if s.data_ptr() != f.data_ptr():
+                    s.copy_(f)
+        # 5: -lr * (u + wd * p) per group; adamw decays here
+        step = self.gradient_step
+        for lbl, idx in self.by_label.items():
+            ps, us = [params[j] for j in idx], [u[j] for j in idx]
+            if self.optim == "adamw" and wd and lbl.endswith("_wd"):
+                torch._foreach_add_(us, ps, alpha=wd)
+            torch._foreach_add_(ps, us, alpha=-self.lr(lbl, step))
+
+
+def build_optimizer(model: nn.Module, cfg: TrainConfig, frozen_vision: bool = False,
+                    frozen_multimodal: bool = False) -> GroupedAdam:
+    decoder_lr = cfg.decoder_lr if cfg.decoder_lr != -1 else cfg.learning_rate
+    group_lr = {
+        "basic": cfg.learning_rate,
+        "new": cfg.new_lr if cfg.new_lr > 0 else cfg.learning_rate,
+        "clip_visual": cfg.clip_lr,
+        "clip_text": cfg.clip_lr_text,
+        "decoder": decoder_lr,
+    }
+    schedules: Dict[str, Callable] = {}
+    for g, lr in group_lr.items():
+        sched = make_schedule(cfg.scheduler, lr, cfg.num_train_steps, cfg.warmup_ratio)
+        schedules[f"{g}_wd"] = schedules[f"{g}_nd"] = sched
+    labels = label_params(model, cfg.new_params_name, frozen_vision, frozen_multimodal)
+    return GroupedAdam(list(model.named_parameters()), labels, schedules, cfg)

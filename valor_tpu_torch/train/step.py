@@ -1,0 +1,78 @@
+"""One training step (counterpart of ``valor_tpu/train/step.py``).
+
+``train_step`` runs the loss-dict forward of one (task, batch) pair in the
+seeded random streams of its micro-step, sums the losses in float32, takes
+every parameter's gradient, casts the gradients to ``grad_dtype`` and hands
+them to the optimizer.  The JAX step returns a new state; this one updates the
+model, the optimizer and ``state.step`` in place.  Its three parts run in
+``torch.profiler.record_function`` ranges (``RANGES``), which a profiler trace
+reads (``tools/profile_training.py``) and which do nothing otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from valor_tpu_torch.core.device import torch_dtype
+from valor_tpu_torch.core.tasks import TaskSpec
+from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope
+from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
+
+RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``step`` counts micro-batches (the JAX ``TrainState.step``); the
+    optimizer counts its own updates."""
+
+    model: nn.Module
+    optimizer: GroupedAdam
+    step: int = 0
+
+
+def cast_grads(grads, grad_dtype: Optional[str]):
+    """The optional bf16 gradient regime (``TrainConfig.grad_dtype``)."""
+    if not grad_dtype or grad_dtype == "float32":
+        return list(grads)
+    dt = torch_dtype(grad_dtype)
+    return [g.to(dt) for g in grads]
+
+
+def param_grads(total: torch.Tensor, params) -> list:
+    """d total / d p for every parameter; zeros where a parameter took no part
+    (as ``jax.grad`` gives them)."""
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def train_step(
+    state: TrainState, batch: Dict[str, Any], task: TaskSpec, seed: int,
+    grad_dtype: Optional[str] = None, moe_aux_weight: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """Forward, backward and optimizer update of one micro-batch.  Returns the
+    losses, ``total_loss`` and the gradients' global norm, as device scalars:
+    nothing here waits for the device."""
+    if moe_aux_weight:
+        raise NotImplementedError("the MoE load-balancing loss: MoE layers are not ported yet")
+    model = state.model
+    params = [p for p in model.parameters()]
+    fwd, bwd, upd = RANGES
+    with rng_scope(RNGStreams(_mix(seed, state.step))):
+        with record_function(fwd):
+            losses = model(batch, task, True, True)
+            total = sum(v.float() for v in losses.values())
+        with record_function(bwd):
+            grads = cast_grads(param_grads(total, params), grad_dtype)
+    with record_function(upd):
+        state.optimizer.update(grads)
+    state.step += 1
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["total_loss"] = total.detach()
+    metrics["grad_norm"] = global_norm(grads)
+    return metrics

@@ -1,0 +1,159 @@
+"""Training loop of the port (counterpart of ``valor_tpu/train/trainer.py``).
+
+``Trainer.run`` walks a list or an iterator of ``(task, batch)`` pairs, one
+``train_step`` each, until ``num_train_steps`` optimizer updates are made or
+the pairs run out.  Steps are counted per optimizer update, as the reference
+counts its global step: with gradient accumulation k, k micro-batches make one
+step.  Per-task ``RunningMeter``s see every step's losses; the loop reads the
+device once per log interval (every 100 steps), not once per step.  Batches
+are dicts of numpy arrays or tensors in the collate layout; host-only keys are
+dropped and the rest moved to the model's device.
+
+SCST finetuning (``scst_finetuning`` on a ``cap`` task) is not ported and
+raises; ``train_inner_steps`` (steps fused into one compiled call on a TPU) is
+read and ignored.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from valor_tpu_torch.core.config import Config
+from valor_tpu_torch.core.logging import LOGGER, RunningMeter
+from valor_tpu_torch.core.tasks import TaskSpec, parse_task
+from valor_tpu_torch.train.step import TrainState, train_step
+
+HOST_KEYS = ("ids", "ids_txt", "sample_num", "answers", "question_ids")
+
+
+class Trainer:
+    """``validate_fn(model, step) -> {name: report}`` and ``saver.save(state,
+    step, best_name=...)`` / ``saver.finish()`` may be None.  ``step_hook(step,
+    task_name, metrics)`` is called after every micro-step with that step's
+    device metrics (a measurement hook; None by default)."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        state: TrainState,
+        meta_loader,
+        *,
+        validate_fn: Optional[Callable[[Any, int], Dict[str, Dict[str, float]]]] = None,
+        saver=None,
+        step_hook: Optional[Callable[[int, str, Dict[str, torch.Tensor]], None]] = None,
+    ):
+        self.cfg = cfg
+        self.state = state
+        self.meta_loader = meta_loader
+        self.validate_fn = validate_fn
+        self.saver = saver
+        self.step_hook = step_hook
+        self.device = next(state.model.parameters()).device
+        self.meters: Dict[str, RunningMeter] = {}
+        self.best: Dict[str, float] = {}
+        # (micro-step, task, {metric: float}) of the last 10000 steps, read at log points
+        self.history: collections.deque = collections.deque(maxlen=10000)
+        self._task_cache: Dict[str, TaskSpec] = {}
+        self._pending: list = []
+
+    def _meter(self, name: str) -> RunningMeter:
+        if name not in self.meters:
+            self.meters[name] = RunningMeter(name)
+        return self.meters[name]
+
+    def _spec(self, task: str) -> TaskSpec:
+        if task not in self._task_cache:
+            self._task_cache[task] = parse_task(task)
+        return self._task_cache[task]
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        out = {}
+        for k, v in batch.items():
+            if k in HOST_KEYS or v is None:
+                continue
+            out[k] = torch.as_tensor(v).to(self.device, non_blocking=True)
+        return out
+
+    def _drain_metrics(self) -> None:
+        """One device read for every step since the last one."""
+        if not self._pending:
+            return
+        keys = [(m, t, list(d)) for m, t, d in self._pending]
+        flat = torch.stack([v.float() for _, _, d in self._pending for v in d.values()]).tolist()
+        i = 0
+        for micro, task_name, names in keys:
+            vals = dict(zip(names, flat[i : i + len(names)]))
+            i += len(names)
+            self.history.append((micro, task_name, vals))
+            for k, v in vals.items():
+                self._meter(f"{task_name}/{k}")(v)
+        self._pending = []
+
+    def run(self) -> TrainState:
+        t = self.cfg.train
+        accum = max(t.gradient_accumulation_steps, 1)
+        micro = self.state.step
+        step = micro // accum
+        last_logged = last_evaled = step
+        t_start = t_window = time.time()
+        data_wait = 0.0  # host time blocked on the input pipeline
+        loader_it = iter(self.meta_loader)
+        while True:
+            t0 = time.perf_counter()
+            item = next(loader_it, None)
+            data_wait += time.perf_counter() - t0
+            if item is None or step >= t.num_train_steps:
+                break
+            task_name, batch = item
+            spec = self._spec(task_name.split("--")[0])
+            if self.cfg.model.scst_finetuning and spec.family == "cap":
+                raise NotImplementedError("SCST finetuning comes with the QA and SCST slice")
+            metrics = train_step(self.state, self._to_device(batch), spec, t.seed,
+                                 grad_dtype=t.grad_dtype)
+            micro += 1
+            self._pending.append((micro, task_name, metrics))
+            if self.step_hook is not None:
+                self.step_hook(micro, task_name, metrics)
+            step = micro // accum
+            if step // 100 > last_logged // 100:
+                last_logged = step
+                self._drain_metrics()
+                now = time.time()
+                window = max(now - t_window, 1e-9)
+                stall = data_wait / window
+                t_window, data_wait = now, 0.0
+                ms = {k: m.val for k, m in self.meters.items() if m.val is not None}
+                LOGGER.info(
+                    f"step {step}/{t.num_train_steps} "
+                    f"({step / max(now - t_start, 1e-9):.2f} it/s, data_stall={stall:.1%}) "
+                    + " ".join(f"{k}={v:.4f}" for k, v in ms.items()))
+            if t.valid_steps and step // t.valid_steps > last_evaled // t.valid_steps:
+                last_evaled = step
+                self._drain_metrics()
+                self.evaluate_and_save(step)
+            if step >= t.num_train_steps:
+                break
+        self._drain_metrics()
+        self.evaluate_and_save(micro // accum)
+        if self.saver is not None:
+            self.saver.finish()
+        return self.state
+
+    def evaluate_and_save(self, step: int) -> None:
+        best_name = None
+        if self.validate_fn is not None:
+            for val_name, report in self.validate_fn(self.state.model, step).items():
+                LOGGER.info(f"eval {val_name} @ {step}: {report}")
+                for metric in ("ravg", "CIDEr", "accuracy"):
+                    if metric in report:
+                        key = f"{val_name}/{metric}"
+                        if report[metric] > self.best.get(key, -1e9):
+                            self.best[key] = report[metric]
+                            if self.cfg.train.save_best:
+                                best_name = val_name
+        if self.saver is not None:
+            self.saver.save(self.state, step, best_name=best_name)
