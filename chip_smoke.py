@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a traceback and a non-zero
-exit code, and no result line:
+Phases, in the order 1-8, 10-12, 9; any failure ends the run with a traceback
+and a non-zero exit code, and no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-     and the build of every kernel from ``valor_tpu_torch/csrc`` with nvcc;
+     and the build of every kernel from ``valor_tpu_torch/csrc``: one nvcc a
+     source, all started together;
   2. the LayerNorm kernel against its plain version at the shapes the serving
      and pretraining paths give it, bf16 -> bf16 and f32 -> f32 (and the mixed
      pairs at the fusion shape), with its device time (from CUDA graph
@@ -38,9 +39,30 @@ exit code, and no result line:
      steps on one repeated synthetic batch; every loss finite, the last
      step's total loss below the first's, and the forward and backward kernel
      launches equal to the LayerNorms each step runs;
-  9. every (rows, cols, eps, dtypes) that the main paths of phases 4 and 8
-     handed each kernel is held against the plain version: listed where
-     phase 2 or 6 compared it, compared here where they did not.
+  10. the fine-score kernel (K2) against its plain version at the MSR-VTT
+     1k-A shapes of the four fine groups (tva, tv, vta, atv; 1000 x 1000) and
+     the MSCOCO 5k gallery (25000 captions x 5000 images, V = 1), fp32 and tva
+     also bf16, plus the three edge cases of tests/test_pallas.py at D = 512,
+     with its device time (CUDA graph replays) beside the plain version's, the
+     fp32 GEMM of the same product (``torch.matmul``, TF32 off; a yardstick,
+     not the same function), both bounds, and the wrapper's host cost a call;
+  11. the tiny config on the card against the CPU, fp32 with TF32 off: one
+     ``ret%tva%tv`` training step (losses, gradients and updated parameters to
+     phase 7's tolerances) and ``validate_ret`` over a 12-item gallery (score
+     matrices within phase 10's tolerance, reports equal);
+  12. full-width VALOR-base retrieval (``configs/retrieval-msrvtt.json``,
+     ``ret%tva%tv``, bf16, seeded random weights) through ``Trainer.run`` at
+     the train flow's batch 64, 4 frames and 2 clips: one warm-up step and ten timed steps on one repeated synthetic
+     batch, then the trainer's final evaluation, ``validate_ret`` over a
+     seeded synthetic gallery of 1000 items (MSR-VTT 1k-A's size; 8 frames,
+     2 clips, 32 tokens); every loss finite, the contrastive loss falling,
+     every report key finite, K2 launched once a fine group, the report and
+     the score matrices equal to those of the chunked plain path on the same
+     features, the LayerNorm launches those of the towers the path runs, and
+     ``va`` self-retrieval at R@1 = 100 through K2;
+  9. every shape that the main paths of phases 4, 8 and 12 handed each
+     kernel is held against the plain version: listed where phase 2, 6 or 10
+     compared it, compared here where they did not.
 
 It prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -92,6 +114,22 @@ LN_BWD_SHAPES = [  # name, rows, cols, eps: what the pretraining step at batch 3
 MATCHED = [("bfloat16", "bfloat16"), ("float32", "float32")]
 MIXED = [("float32", "bfloat16"), ("bfloat16", "float32")]
 PT_TASK = "pt_contra%tva%tv%ta_caption%tva%tv%ta"
+RET_TASK = "ret%tva%tv"
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores (fp32 accumulation), dense
+FS_SHAPES = [  # name, A, B, T, V, D: what the retrieval evaluation hands the fine-score kernel
+    ("msrvtt_tva", 1000, 1000, 32, 10, 512),  # captions x (8 frames + 2 clips)
+    ("msrvtt_tv", 1000, 1000, 32, 8, 512),
+    ("msrvtt_vta", 1000, 1000, 8, 34, 512),  # frames x (32 tokens + 2 clips)
+    ("msrvtt_atv", 1000, 1000, 2, 40, 512),  # clips x (32 tokens + 8 frames)
+    ("mscoco_5k", 25000, 5000, 32, 1, 512),  # 5 captions an image, one image token
+]
+FS_EDGES = [  # name, A, B, T, V: the cases of tests/test_pallas.py::TestFineScoreFused, at D = 512
+    ("unaligned", 9, 21, 7, 5), ("negative_rows", 4, 4, 3, 2), ("masked_tokens_zero", 5, 6, 4, 3),
+]
+# kernel against plain version: fp32 FMAs in another order on unit-norm features
+# (|dot| <= 1); bf16 features are upcast exactly on both sides, so the same holds
+FS_TOL = "abs 1e-5 + rel 1e-5"
 
 
 def log(msg: str) -> None:
@@ -181,6 +219,85 @@ def record_ln_calls():
         K._fwd, K.layernorm_bwd = fwd0, bwd0
 
 
+@contextlib.contextmanager
+def record_fine_calls():
+    """Yields a list that fills, inside the block, with ([A, B, T, V, D,
+    dtype], host ms between two synchronisations) of every fine-score kernel
+    wrapper call.  It wraps the wrapper where ``tasks.losses`` looks it up, and
+    launches nothing and counts nothing itself."""
+    import torch
+
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+
+    calls = []
+    fn0 = K2.fine_score_fused
+
+    def fn1(fa, fb, ma, mb, wa, wb):
+        sync = torch.cuda.synchronize if fa.is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = fn0(fa, fb, ma, mb, wa, wb)
+        sync()
+        sig = [fa.shape[0], fb.shape[0], fa.shape[1], fb.shape[1], fa.shape[2], str(fa.dtype)[6:]]
+        calls.append((sig, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    K2.fine_score_fused = fn1
+    try:
+        yield calls
+    finally:
+        K2.fine_score_fused = fn0
+
+
+@contextlib.contextmanager
+def record_scores():
+    """Yields a list that fills, inside the block, with (group, features,
+    score matrix, host time at entry after a synchronisation) of every
+    ``retrieval_scores`` call that ``validate_ret`` makes."""
+    import torch
+
+    from valor_tpu_torch.eval import validate as V
+
+    calls = []
+    fn0 = V.retrieval_scores
+
+    def fn1(model, feats, group, contra_type):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn0(model, feats, group, contra_type)
+        calls.append((group, feats, out, t0))
+        return out
+
+    V.retrieval_scores = fn1
+    try:
+        yield calls
+    finally:
+        V.retrieval_scores = fn0
+
+
+def chunked_scores(model, feats, group, contra_type):
+    """``retrieval_scores`` with the gallery scored by ``fine_score_chunked``,
+    the plain path, on whatever device the features are."""
+    from valor_tpu_torch.eval import validate as V
+    from valor_tpu_torch.tasks import losses as L
+
+    gallery = L.fine_score_gallery
+    L.fine_score_gallery = L.fine_score_chunked
+    try:
+        return V.retrieval_scores(model, feats, group, contra_type)
+    finally:
+        L.fine_score_gallery = gallery
+
+
+def check_scores(got, ref, what: str) -> float:
+    """``got`` within ``FS_TOL`` of ``ref`` (fp32 tensors on one device); the max abs err."""
+    diff = (got.float() - ref.float()).abs()
+    if not bool((diff <= 1e-5 + 1e-5 * ref.float().abs()).all()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} exceeds {FS_TOL}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 # -- phase 1 ------------------------------------------------------------------
 def phase_card_and_build():
     import torch
@@ -195,8 +312,8 @@ def phase_card_and_build():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.monotonic()
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    for name in names:
-        _build.load_library(name)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, side by side
+        list(pool.map(_build.load_library, names))
     log(f"build: {names} in {time.monotonic() - t0:.1f} s")
     return smi
 
@@ -561,9 +678,10 @@ def phase_layernorm_bwd():
 
 
 # -- phase 7 ------------------------------------------------------------------
-def phase_train_card_vs_cpu(device: str = "cuda"):
-    """One pretraining step of the tiny config (fp32, caption_type lm, dropout
-    0: no random draws) on the card and on the CPU from the same weights.
+def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
+    """One training step of ``task_name`` on the tiny config (fp32,
+    caption_type lm, dropout 0: no random draws) on the card and on the CPU
+    from the same weights.
     Losses within 1e-4; gradients within 1e-4 absolute and relative (fp32
     sums in another order); updated parameters: every element within one
     learning-rate step and 99.9 % within 2 % of one (Adam turns a relative
@@ -586,7 +704,7 @@ def phase_train_card_vs_cpu(device: str = "cuda"):
     tcfg = TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr, num_train_steps=10, grad_norm=0.5)
     sd = init_params(cfg, seed=0, device="cpu")
     data = pretrain_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=1)
-    task = parse_task(PT_TASK)
+    task = parse_task(task_name)
     res = {}
     for dev in ("cpu", device):
         model = train_model(cfg, {k: v.to(dev) for k, v in sd.items()}, dev)
@@ -617,7 +735,7 @@ def phase_train_card_vs_cpu(device: str = "cuda"):
     if device == "cuda" and (launches[0] <= 0 or launches[0] != launches[1]):
         raise AssertionError(f"card training step launched {launches} layernorm kernels (fwd, bwd)")
     grad_err = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
-    out = {"losses_cuda": l_gpu, "losses_cpu": l_cpu, "max_loss_diff": loss_err,
+    out = {"task": task_name, "losses_cuda": l_gpu, "losses_cpu": l_cpu, "max_loss_diff": loss_err,
            "max_grad_diff": grad_err, "max_param_diff": float(diff.max()),
            "params_within_2pct_step": within, "layernorm_launches_fwd_bwd": launches}
     log("card vs cpu training step " + json.dumps(out))
@@ -626,10 +744,13 @@ def phase_train_card_vs_cpu(device: str = "cuda"):
 
 # -- phase 8 ------------------------------------------------------------------
 def expected_train_ln_launches(model, spec) -> int:
-    """LayerNorms one pretraining step runs (each once forward and once
-    backward): the towers the task's groups use, the adapters, and the fusion
+    """LayerNorms one training step runs (each once forward and once
+    backward): the towers the task's groups use, the adapters (pretraining
+    only: the retrieval forward builds no fusion input), and the fusion
     encoder with its head once per caption and MLM group.  26 ViT + 25 CLIP
-    text + 25 AST + 3 x 38 fusion = 190 for VALOR-base on pt_contra%tva%tv%ta_caption%tva%tv%ta."""
+    text + 25 AST + 3 x 38 fusion = 190 for VALOR-base on
+    pt_contra%tva%tv%ta_caption%tva%tv%ta; 26 + 25 + 25 = 76 on ret%tva%tv,
+    also what one evaluation forward of ret%tva%tv runs."""
     from valor_tpu_torch.ops.layers import LayerNorm
 
     def count(mod, skip_cross=False):
@@ -638,11 +759,11 @@ def expected_train_ln_launches(model, spec) -> int:
         return sum(isinstance(x, LayerNorm) and not (skip_cross and "cross_attn" in name)
                    for name, x in mod.named_modules())
 
-    n = 0
+    n, adapters = 0, spec.family == "pt"
     if spec.uses_video:
-        n += count(model.clip_vision) + count(getattr(model, "video_adapter_ln", None))
+        n += count(model.clip_vision) + adapters * count(getattr(model, "video_adapter_ln", None))
     if spec.uses_audio:
-        n += count(model.audio_encoder) + count(getattr(model, "audio_adapter_ln", None))
+        n += count(model.audio_encoder) + adapters * count(getattr(model, "audio_adapter_ln", None))
     if spec.contra_groups and any("t" in g for g in spec.contra_groups):
         n += count(model.text_encoder, skip_cross=True)
     fusion = count(model.multimodal_encoder) + count(model.cls_head)
@@ -721,19 +842,286 @@ def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str 
     return summary
 
 
+# -- phase 10 -----------------------------------------------------------------
+def _fs_inputs(a, b, t, v, d, dtype, gen, edge=None) -> list:
+    """Fine-score inputs on the generator's device: unit-norm token features (as
+    the eval path's are), query masks with a valid first token, all-ones
+    gallery masks, N(0, 1) raw weights; ``edge`` as in tests/test_pallas.py."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = gen.device
+    fa = F.normalize(torch.randn(a, t, d, device=dev, generator=gen), dim=-1)
+    fb = F.normalize(torch.randn(b, v, d, device=dev, generator=gen), dim=-1)
+    ma = (torch.rand(a, t, device=dev, generator=gen) > 0.3).float()
+    ma[:, 0] = 1.0
+    mb = torch.ones(b, v, device=dev)
+    if edge == "negative_rows":  # every dot negative: padding may not inject a 0
+        fa, fb, ma = fa.abs(), -fb.abs(), torch.ones_like(ma)
+    elif edge == "masked_tokens_zero":  # a masked token adds a literal 0 to the maxes
+        fa, fb = -fa.abs(), fb.abs()
+        ma[:, 1] = 0.0
+    wa = torch.randn(a, t, device=dev, generator=gen)
+    wb = torch.randn(b, v, device=dev, generator=gen)
+    return [fa.to(dtype), fb.to(dtype), ma, mb, wa, wb]
+
+
+def check_fine(args, what: str) -> float:
+    """The fine-score kernel against its plain version on ``args``; the max abs err."""
+    import torch
+
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+
+    got = K2.fine_score_fused(*args)
+    ref = K2.fine_score_fused_plain(*args)
+    torch.cuda.synchronize()
+    return check_scores(got, ref, what)
+
+
+def fine_bounds(a, b, t, v, d, feat_dtype) -> dict:
+    """The least time of the fine score on the card: 2*A*B*T*V*D flops at the
+    card's peak for the feature type (bf16 products are exact in fp32, so the
+    tensor cores' bf16 rate; fp32 outside the tensor cores, since TF32 would
+    miss the tolerance), against the bytes of every input read once
+    (features, masks, raw weights) and the output written once."""
+    import torch
+
+    flop = 2 * a * b * t * v * d
+    peak = BF16_FLOPS_PER_S if feat_dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    nbytes = (a * t + b * v) * (d * feat_dtype.itemsize + 8) + a * b * 4
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flop": flop, "bytes": nbytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_fine_score():
+    import torch
+
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the GEMM yardstick in full fp32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, a, b, t, v, d in FS_SHAPES:
+        big = a * b * t * v * d > 1e12  # the MSCOCO gallery: about 0.1 s a call
+        iters, reps = (2, 2) if big else (5, 3)
+        for dt in ("float32", "bfloat16") if name == "msrvtt_tva" else ("float32",):
+            args = _fs_inputs(a, b, t, v, d, getattr(torch, dt), gen)
+            err = check_fine(args, f"fine_score {name} {dt}")
+            qa, gb = args[0].float().reshape(a * t, d), args[1].float().reshape(b * v, d)
+            prod = torch.empty(a * t, b * v, device="cuda")
+            row = {
+                "shape": f"{name} A={a} B={b} T={t} V={v} D={d} {dt}", "sig": [a, b, t, v, d, dt],
+                "max_abs_err": err, "tol": FS_TOL,
+                "kernel_ms": graph_ms(lambda: K2.fine_score_fused(*args), iters, reps),
+                "plain_ms": graph_ms(lambda: K2.fine_score_fused_plain(*args), iters, reps),
+                "gemm_ms": graph_ms(lambda: torch.matmul(qa, gb.t(), out=prod), iters, reps),
+                "kernel_host_us": host_us(lambda: K2.fine_score_fused(*args), 5 if big else 20),
+                **fine_bounds(a, b, t, v, d, args[0].dtype),
+            }
+            rows.append(row)
+            log("fine_score " + json.dumps(row))
+            del args, qa, gb, prod
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name, a, b, t, v in FS_EDGES:
+        args = _fs_inputs(a, b, t, v, 512, torch.float32, gen, edge=name)
+        err = check_fine(args, f"fine_score edge case {name}")
+        if name == "negative_rows" and not float(K2.fine_score_fused(*args).max()) < 0:
+            raise AssertionError("negative_rows: the edge case is not live (a score is >= 0)")
+        row = {"shape": f"{name} A={a} B={b} T={t} V={v} D=512 float32",
+               "sig": [a, b, t, v, 512, "float32"], "max_abs_err": err, "tol": FS_TOL}
+        rows.append(row)
+        log("fine_score " + json.dumps(row))
+    return rows
+
+
+# -- phase 11 -----------------------------------------------------------------
+def phase_ret_card_vs_cpu(device: str = "cuda"):
+    """The tiny config's ``ret%tva%tv`` training step (phase 7's comparison) and
+    its ``validate_ret`` over a 12-item gallery, on the card and on the CPU
+    from the same weights, fp32 with TF32 off: score matrices within
+    ``FS_TOL``, reports equal, and K2 launched once a fine group on the card."""
+    import torch
+
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.synthetic import retrieval_batch
+    from valor_tpu_torch.eval.validate import validate_ret
+    from valor_tpu_torch.models.bridge import init_params, load_model
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.train.step import eval_step
+
+    train = phase_train_card_vs_cpu(device, RET_TASK)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_config()
+    sd = init_params(cfg, seed=0, device="cpu")
+    gallery = [retrieval_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=40 + i, id_offset=4 * i)
+               for i in range(3)]
+    spec = parse_task(RET_TASK)
+    res = {}
+    for dev in ("cpu", device):
+        model = load_model(cfg, {k: v.to(dev) for k, v in sd.items()}, dev)
+        k2 = K2.LAUNCHES
+        with record_scores() as calls:
+            report = validate_ret(model, eval_step, gallery, spec, cfg.contra_type)
+        res[dev] = (report, {g: s.cpu() for g, _, s, _ in calls}, K2.LAUNCHES - k2)
+    torch.backends.cudnn.allow_tf32 = True
+    (rep_cpu, s_cpu, _), (rep_dev, s_dev, k2) = res["cpu"], res[device]
+    errs = {g: check_scores(s_dev[g], s_cpu[g], f"tiny validate_ret {g}: card vs cpu") for g in s_cpu}
+    if rep_dev != rep_cpu:
+        raise AssertionError(f"tiny validate_ret reports differ: card {rep_dev} cpu {rep_cpu}")
+    if device == "cuda" and k2 != len(spec.contra_groups):
+        raise AssertionError(f"tiny validate_ret launched K2 {k2} times for {spec.contra_groups}")
+    out = {"train_step": train, "score_max_abs_err": errs, "report": rep_dev, "fine_score_launches": k2}
+    log("card vs cpu retrieval " + json.dumps(out))
+    return out
+
+
+# -- phase 12 -----------------------------------------------------------------
+def phase_retrieval(batch_size: int = 64, steps: int = 10, items: int = 1000, eval_batch: int = 64,
+                    cfg=None, device: str = "cuda"):
+    """``cfg`` None is VALOR-base; a CPU rehearsal passes a tiny config, small
+    sizes and device "cpu"."""
+    import torch
+    import torch.nn.functional as F
+
+    from valor_tpu_torch.core.config import Config, load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.synthetic import retrieval_batch
+    from valor_tpu_torch.eval.retrieval import retrieval_report
+    from valor_tpu_torch.eval.validate import retrieval_scores, validate_ret
+    from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState, eval_step
+    from valor_tpu_torch.train.trainer import Trainer
+
+    full = load_config(str(ROOT / "configs" / "retrieval-msrvtt.json"))
+    cfg = cfg or full.model
+    # the schedule spans this run; the only evaluation is the trainer's final one
+    tcfg = dataclasses.replace(full.train, num_train_steps=steps + 1, valid_steps=0)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.monotonic()
+    model = train_model(cfg, init_params(cfg, seed=0, device=device), device)
+    state = TrainState(model, build_optimizer(model, tcfg, cfg.frozen_vision, cfg.frozen_multimodal))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"VALOR-base retrieval model ({cfg.dtype}, {n_params / 1e6:.1f} M params, contra "
+        f"{cfg.contra_type}) built in {time.monotonic() - t0:.1f} s")
+    spec = parse_task(RET_TASK)
+    t0 = time.monotonic()
+    data = retrieval_batch(cfg, batch_size, frames=4, clips=2, n_txt=32, seed=0)  # the train flow's
+    gallery = [retrieval_batch(cfg, min(eval_batch, items - i), frames=8, clips=2, n_txt=32,
+                               seed=1000 + i, id_offset=i) for i in range(0, items, eval_batch)]
+    ids = [i for b in gallery for i in b["ids"]]
+    gallery_s = time.monotonic() - t0
+    stamps, evals, peaks = [], [], []
+
+    def hook(micro, task_name, metrics):
+        sync()
+        stamps.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() if cuda else 0)
+
+    def validate(m, step):
+        sync()
+        start = time.perf_counter()
+        with record_scores() as calls:
+            report = validate_ret(m, eval_step, gallery, spec, cfg.contra_type)
+        sync()
+        evals.append({"report": report, "calls": calls, "start": start, "end": time.perf_counter()})
+        return {"msrvtt_ret": report}
+
+    trainer = Trainer(Config(model=cfg, train=tcfg), state, [(RET_TASK, data)] * (steps + 1),
+                      validate_fn=validate, step_hook=hook)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with record_ln_calls() as (sigs_fwd, sigs_bwd), record_fine_calls() as fine_calls:
+        K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+        t_start = time.perf_counter()
+        trainer.run()
+        launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+
+    step_s = np.diff([t_start] + stamps)
+    contra = [h[2]["contra_loss"] for h in trainer.history]
+    if len(contra) != steps + 1 or state.optimizer.gradient_step != steps + 1:
+        raise AssertionError(f"{len(contra)} steps logged, {state.optimizer.gradient_step} updates")
+    if not all(np.isfinite(v) for h in trainer.history for v in h[2].values()):
+        raise AssertionError(f"non-finite loss: {trainer.history}")
+    if not contra[-1] < contra[0]:
+        raise AssertionError(f"contrastive loss did not fall on the repeated batch: {contra}")
+    if len(evals) != 1:
+        raise AssertionError(f"{len(evals)} evaluations, expected the final one")
+    ev, fine_groups = evals[0], spec.contra_groups if cfg.contra_type == "fine" else ()
+    report = ev["report"]
+    keys = [f"{g}_forward_{k}" for g in spec.contra_groups
+            for k in ("r1", "r5", "r10", "ravg", "medianR", "meanR")] + ["ravg"]
+    if not all(k in report and np.isfinite(report[k]) for k in keys):
+        raise AssertionError(f"report lacks a key or has a non-finite value: {report}")
+    expected_k2 = sum(2 if g == "tva" and cfg.late_fusion else 1 for g in fine_groups) if cuda else 0
+    per_step = expected_train_ln_launches(model, spec)
+    expected_ln = ((per_step * (steps + 1 + len(gallery)), per_step * (steps + 1)) if cuda else (0, 0))
+    if launches != expected_ln + (expected_k2,):
+        raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != "
+                             f"{expected_ln + (expected_k2,)}")
+    # the same features through the plain chunked path on the same device
+    temp = float(model.temperature().detach())
+    score_err = {}
+    for g, feats, score, _ in ev["calls"]:
+        plain = chunked_scores(model, feats, g, cfg.contra_type)
+        score_err[g] = check_scores(score, plain, f"retrieval {g}: kernel vs chunked")
+        want = {f"{g}_{k}": v for k, v in retrieval_report(plain.cpu().numpy(), ids, ids, False, temp).items()}
+        if {k: report[k] for k in want} != want:
+            raise AssertionError(f"retrieval {g}: report from the kernel's scores {report} != "
+                                 f"report from the chunked scores {want}")
+    # va self-retrieval through the kernel: identical unit-norm audio and video
+    # tokens put each item's self-score (1) above every other
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = F.normalize(torch.randn(items, 8, model.contra_dim, device=device, generator=gen), dim=-1)
+    k2 = K2.LAUNCHES
+    self_rep = retrieval_report(retrieval_scores(
+        model, {"feat_t": None, "feat_v": x, "feat_a": x.clone(), "txt_tokens": None},
+        "va", "fine").cpu().numpy(), ids, ids)
+    if self_rep["forward_r1"] != 100.0 or K2.LAUNCHES - k2 != int(cuda):
+        raise AssertionError(f"va self-retrieval: {self_rep}, {K2.LAUNCHES - k2} launches")
+
+    median = float(np.median(step_s[1:]))
+    extract_s = ev["calls"][0][3] - ev["start"]
+    summary = {
+        "batch": batch_size, "timed_steps": steps, "median_step_s": median,
+        "samples_per_s": batch_size / median, "warmup_step_s": float(step_s[0]),
+        "step_s": [float(v) for v in step_s], "train_max_memory_allocated_gib": peaks[-1] / 2**30,
+        "params_m": n_params / 1e6, "contra_loss": contra,
+        "grad_norm": [h[2]["grad_norm"] for h in trainer.history],
+        "gallery_items": items, "gallery_batches": len(gallery), "gallery_made_s": gallery_s,
+        "eval_s": ev["end"] - ev["start"], "extract_s": extract_s, "items_per_s": items / extract_s,
+        "fine_score_ms_by_call": [ms for _, ms in fine_calls], "score_max_abs_err": score_err,
+        "report": report, "va_self_forward_r1": self_rep["forward_r1"],
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_forward": per_step,
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+        "fine_score_calls": sorted({tuple(s) for s, _ in fine_calls}),
+    }
+    log("retrieval " + json.dumps(summary))
+    return summary
+
+
 # -- phase 9 ------------------------------------------------------------------
-def phase_path_shapes(serving, pretrain, ln_rows, bwd_rows):
-    """Every (rows, cols, eps, dtypes) that the main paths of phases 4 and 8
-    handed each kernel, held against its plain version: those that phases 2
-    and 6 compared are listed as such, the others are compared here (on new
-    seeded inputs, with the same tolerances, untimed)."""
+def phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows):
+    """Every shape that the main paths of phases 4, 8 and 12 handed each
+    kernel, held against its plain version: those that phases 2, 6 and 10
+    compared are listed as such, the others are compared here (on new seeded
+    inputs, with the same tolerances, untimed)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for kind, sigs, rows in (
-        ("fwd", serving["layernorm_calls"] + pretrain["layernorm_calls"], ln_rows),
-        ("bwd", pretrain["layernorm_bwd_calls"], bwd_rows),
+        ("fwd", serving["layernorm_calls"] + pretrain["layernorm_calls"]
+         + retrieval["layernorm_calls"], ln_rows),
+        ("bwd", pretrain["layernorm_bwd_calls"] + retrieval["layernorm_bwd_calls"], bwd_rows),
     ):
         done = {tuple(r["sig"]) for r in rows}
         extra = []
@@ -749,6 +1137,12 @@ def phase_path_shapes(serving, pretrain, ln_rows, bwd_rows):
             extra.append({"sig": [n, c, eps, xd, od], "max_abs_err": err})
             done.add((n, c, eps, xd, od))
         out[kind] = {"path_shapes": len({tuple(s) for s in sigs}), "compared_here": extra}
+    done = {tuple(r["sig"]) for r in fs_rows}
+    sigs = {tuple(s) for s in retrieval["fine_score_calls"]}
+    extra = [{"sig": list(s), "max_abs_err": check_fine(
+        _fs_inputs(*s[:5], getattr(torch, s[5]), gen), f"fine_score path shape {s}")}
+             for s in sorted(sigs - done)]
+    out["fine_score"] = {"path_shapes": len(sigs), "compared_here": extra}
     log("path shapes " + json.dumps(out))
     return out
 
@@ -780,10 +1174,22 @@ def main() -> int:
     bwd_rows = phase_layernorm_bwd()
     phase_train_card_vs_cpu()
     pretrain = phase_pretrain()
-    shapes = phase_path_shapes(serving, pretrain, ln_rows, bwd_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fs_rows = phase_fine_score()
+    phase_ret_card_vs_cpu()
+    retrieval = phase_retrieval()
+    shapes = phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
-    by_path = {"serving": serving["layernorm_launches"], "pretraining": pretrain["layernorm_launches_fwd_bwd"][0]}
+    fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
+    by_path = {"serving": serving["layernorm_launches"],
+               "pretraining": pretrain["layernorm_launches_fwd_bwd"][0],
+               "retrieval": retrieval["layernorm_launches_fwd_bwd"][0]}
+    bwd_by_path = {"serving": 0, "pretraining": pretrain["layernorm_launches_fwd_bwd"][1],
+                   "retrieval": retrieval["layernorm_launches_fwd_bwd"][1]}
+    fs_by_path = {"serving": 0, "pretraining": 0, "retrieval": retrieval["fine_score_launches"]}
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",
@@ -797,12 +1203,20 @@ def main() -> int:
         "name": "layernorm_bwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",
         "replaces": "valor_tpu/ops/pallas/layernorm.py:45",
-        "launches": pretrain["layernorm_launches_fwd_bwd"][1],
-        "launches_by_path": {"serving": 0, "pretraining": pretrain["layernorm_launches_fwd_bwd"][1]},
+        "launches": sum(bwd_by_path.values()), "launches_by_path": bwd_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows + shapes["bwd"]["compared_here"]),
         "ms": bwd_row["kernel_ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": "bytes",
         "library_ms": bwd_row["library_ms"], "shape": bwd_row["shape"],
+    }, {
+        "name": "fine_score", "route": "cuda",
+        "source": "valor_tpu_torch/csrc/fine_score.cu",
+        "replaces": "valor_tpu/ops/pallas/fine_score.py:43",
+        "launches": sum(fs_by_path.values()), "launches_by_path": fs_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in fs_rows + shapes["fine_score"]["compared_here"]),
+        "ms": fs_row["kernel_ms"], "plain_ms": fs_row["plain_ms"],
+        "bound_ms": fs_row["bound_ms"], "bound_by": fs_row["bound_by"],
+        "library_ms": None, "gemm_ms": fs_row["gemm_ms"], "shape": fs_row["shape"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -220,7 +220,9 @@ class TestEngineFaults:
         request: the picker drops the dead lanes in a loop (a recursive retry
         overflows Python's stack) and serves the live one."""
         model, pixels = tiny
-        cfg = ServeConfig(buckets=(4,), max_wait_ms=300, group="tv", max_len=5, max_pending=0)
+        # max_wait_ms outlasts submitting and cancelling the 1500 lanes on a loaded
+        # machine: a lane that aged out before its cancel would launch a batch
+        cfg = ServeConfig(buckets=(4,), max_wait_ms=5000, group="tv", max_len=5, max_pending=0)
         eng = InferenceEngine(model, cfg)
         eng._gen = _FakeGenerator(0.0)
         try:

@@ -189,7 +189,7 @@ def test_mlm_branch_and_other_tasks_raise(lm_models):
     with rng_scope(RNGStreams(3)):
         out = tm(_tensors(tiny_batch(seed=3)), tparse(task))
     assert set(out) == {"contra_loss", "mlm_loss"} and bool(torch.isfinite(out["mlm_loss"]))
-    for t in ("ret%tva", "cap%tva", "qa%tva"):
+    for t in ("cap%tva", "qa%tva"):
         with pytest.raises(NotImplementedError, match="slice"):
             tm(_tensors(tiny_batch()), tparse(t))
     with pytest.raises(NotImplementedError, match="audio_waveforms"):

@@ -1,4 +1,4 @@
-"""Seeded synthetic pretraining batches in the collate layout.
+"""Seeded synthetic pretraining and retrieval batches in the collate layout.
 
 The port trains on these until the disk data path is ported: numpy arrays
 shaped as the JAX package's collate gives them (``bert_tokens`` and
@@ -6,11 +6,13 @@ shaped as the JAX package's collate gives them (``bert_tokens`` and
 raw uint8, ``audio_spectrograms`` [B, clips, melbins, target_length] float32).
 Each row's text has its own length; BERT rows run [CLS] ... [SEP], CLIP rows
 start-of-text ... end-of-text (the two largest ids of the CLIP vocabulary).
+A retrieval batch also carries the host-only id lists ``ids`` (one per item)
+and ``ids_txt`` (one per caption; one caption per item, as in MSR-VTT 1k-A).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
@@ -38,3 +40,13 @@ def pretrain_batch(cfg: ModelConfig, batch: int, frames: int = 4, clips: int = 1
         "audio_spectrograms": rng.randn(
             batch, clips, cfg.audio_melbins, cfg.audio_target_length).astype(np.float32),
     }
+
+
+def retrieval_batch(cfg: ModelConfig, batch: int, frames: int = 8, clips: int = 2,
+                    n_txt: int = 32, seed: int = 0, id_offset: int = 0) -> Dict[str, Any]:
+    """A pretraining batch plus ``ids`` ``video{id_offset} ...`` and the same
+    ``ids_txt``: item i's caption is row i."""
+    out: Dict[str, Any] = dict(pretrain_batch(cfg, batch, frames, clips, n_txt, seed))
+    out["ids"] = [f"video{id_offset + i}" for i in range(batch)]
+    out["ids_txt"] = list(out["ids"])
+    return out

@@ -6,9 +6,10 @@ and fine-grained token weights, the adapters and the frame and type
 embeddings.  Caption generation calls ``encode_video``, ``encode_audio``,
 ``video_fusion_input``, ``audio_fusion_input``, ``fusion_logits`` and
 ``fusion_cross_kv``; training calls the model on a batch and a task
-(``forward_pt``: the contrastive, caption and MLM losses).  The ``ret``,
-``cap`` and ``qa`` training forwards and the device-side fbank input are not
-ported yet and raise.
+(``forward_pt``: the contrastive, caption and MLM losses; ``forward_ret``: the
+contrastive loss of the retrieval groups, or with ``compute_loss=False`` the
+features that retrieval evaluation scores).  The ``cap`` and ``qa`` forwards
+and the device-side fbank input are not ported yet and raise.
 
 Batch convention: video_pixels [B, n_frames, H, W, 3] (float, or raw uint8
 normalised here), audio_spectrograms [B, n_clips, melbins, target_length],
@@ -363,8 +364,9 @@ class VALORModel(nn.Module):
                 "pass audio_spectrograms")
         if task.family == "pt":
             return self.forward_pt(batch, task, compute_loss, train)
-        waits = {"ret": "the retrieval-evaluation slice", "cap": "the caption-finetuning slice",
-                 "qa": "the QA slice"}
+        if task.family == "ret":
+            return self.forward_ret(batch, task, compute_loss)
+        waits = {"cap": "the caption-finetuning slice", "qa": "the QA slice"}
         if task.family in waits:
             raise NotImplementedError(f"{task.family} training comes with {waits[task.family]}")
         raise ValueError(task.family)
@@ -431,3 +433,19 @@ class VALORModel(nn.Module):
             else:
                 out["txt_labels_mlm"] = txt_labels
         return out
+
+    def forward_ret(self, batch, task: TaskSpec, compute_loss: bool = True):
+        """The in-batch contrastive loss over the task's groups, or (with
+        ``compute_loss=False``) the contrastive features and text tokens."""
+        groups = task.contra_groups
+        txt_tokens = (self._text_for(batch, self.cfg.txt_encoder_type)
+                      if any("t" in g for g in groups) else None)
+        video_output = (self.encode_video(batch["video_pixels"])
+                        if any("v" in g for g in groups) else None)
+        audio_output = (self.encode_audio(batch["audio_spectrograms"])
+                        if any("a" in g for g in groups) else None)
+        feats = self.contra_features(txt_tokens, video_output, audio_output,
+                                     batch.get("prompt_tokens_contra"))
+        if not compute_loss:
+            return feats
+        return {"contra_loss": self.contra_loss_over_groups(groups, feats, txt_tokens)}

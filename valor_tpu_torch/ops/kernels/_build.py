@@ -3,8 +3,10 @@
 Each ``valor_tpu_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 for Hopper (``sm_90a``) into ``valor_tpu_torch/_build/lib<name>-<hash>.so`` at
 first use; the hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import
-time: the CPU tests import every module on machines without ``nvcc``.
+rebuilt and an unchanged one is loaded as it is.  Each source has its own lock,
+so two sources build side by side in two threads while two requests for one
+source build it once.  Nothing here runs at import time: the CPU tests import
+every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LOCK = threading.Lock()
+_LOCKS_GUARD = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _lock(name: str) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -39,7 +47,7 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
+    with _lock(name):
         lib = _LIBS.get(name)
         if lib is None:
             src = CSRC_DIR / f"{name}.cu"

@@ -2,16 +2,18 @@
 
 ``labels == -1`` marks ignored positions.  The reductions run in fp32 on
 whatever dtype the logits and features come in, as the JAX functions do with
-``preferred_element_type=float32``.  ``fine_score_chunked`` and
-``fine_score_gallery`` (the retrieval-evaluation path and its kernel) and the
-QA-weighted cross entropy are not ported yet.
+``preferred_element_type=float32``.  Retrieval evaluation scores its gallery
+with ``fine_score_gallery``: the hand-written fine-score kernel on the card,
+``fine_score_chunked`` on the CPU; training scores its batch with
+``fine_score``, which autograd differentiates (the kernel is forward-only).  The
+QA-weighted cross entropy is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-NEG_INF = -1e9
+from valor_tpu_torch.ops.kernels import fine_score as K2
 
 
 def masked_cross_entropy(
@@ -61,13 +63,42 @@ def fine_score(
     each side's tokens, then the weighted sums averaged."""
     mask_a = mask_a.float()
     mask_b = mask_b.float()
-    wa = torch.softmax(torch.where(mask_a > 0, weight_a.float(), torch.full_like(mask_a, NEG_INF)), -1)
-    wb = torch.softmax(torch.where(mask_b > 0, weight_b.float(), torch.full_like(mask_b, NEG_INF)), -1)
+    wa, wb = K2.masked_softmax(weight_a, mask_a), K2.masked_softmax(weight_b, mask_b)
     logits = torch.einsum("atd,bvd->abtv", feat_a.float(), feat_b.float())
     logits = logits * mask_a[:, None, :, None] * mask_b[None, :, None, :]
     a2b = torch.einsum("abt,at->ab", torch.amax(logits, dim=-1), wa)
     b2a = torch.einsum("abv,bv->ab", torch.amax(logits, dim=-2), wb)
     return 0.5 * (a2b + b2a)
+
+
+def fine_score_chunked(feat_a, feat_b, mask_a, mask_b, weight_a, weight_b,
+                       chunk: int = 100) -> torch.Tensor:
+    """:func:`fine_score` over chunks of ``chunk`` rows of A, which bounds the
+    [chunk, B, T, V] logits; A is padded with masked zero rows up to a multiple
+    of ``chunk`` and the result sliced back, as the JAX ``lax.map`` does."""
+    a = feat_a.shape[0]
+    pad = (-a) % chunk
+    if pad:
+        feat_a = torch.cat([feat_a, feat_a.new_zeros((pad,) + tuple(feat_a.shape[1:]))])
+        mask_a = torch.cat([mask_a, mask_a.new_zeros((pad, mask_a.shape[1]))])
+        weight_a = torch.cat([weight_a, weight_a.new_zeros((pad, weight_a.shape[1]))])
+    out = [fine_score(feat_a[i : i + chunk], feat_b, mask_a[i : i + chunk], mask_b,
+                      weight_a[i : i + chunk], weight_b)
+           for i in range(0, feat_a.shape[0], chunk)]
+    if not out:
+        return torch.zeros((0, feat_b.shape[0]), dtype=torch.float32, device=feat_b.device)
+    return torch.cat(out)[:a]
+
+
+def fine_score_gallery(feat_a, feat_b, mask_a, mask_b, weight_a, weight_b,
+                       chunk: int = 100) -> torch.Tensor:
+    """The evaluation gallery's fine score: CUDA tensors go through the fused
+    kernel (``ops/kernels/fine_score.py``), which never holds the [A, B, T, V]
+    logits, so the gallery needs no slicing; CPU tensors through
+    :func:`fine_score_chunked`."""
+    if feat_a.device.type == "cuda":
+        return K2.fine_score_fused(feat_a, feat_b, mask_a, mask_b, weight_a, weight_b)
+    return fine_score_chunked(feat_a, feat_b, mask_a, mask_b, weight_a, weight_b, chunk)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

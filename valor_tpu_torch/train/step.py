@@ -7,6 +7,7 @@ them to the optimizer.  The JAX step returns a new state; this one updates the
 model, the optimizer and ``state.step`` in place.  Its three parts run in
 ``torch.profiler.record_function`` ranges (``RANGES``), which a profiler trace
 reads (``tools/profile_training.py``) and which do nothing otherwise.
+``eval_step`` is the loss-free forward of evaluation (``make_eval_step``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope
 from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
 RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
+HOST_KEYS = ("ids", "ids_txt", "sample_num", "answers", "question_ids")
 
 
 @dataclasses.dataclass
@@ -34,6 +36,13 @@ class TrainState:
     model: nn.Module
     optimizer: GroupedAdam
     step: int = 0
+
+
+def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A collate-layout batch (numpy arrays or tensors) as tensors on
+    ``device``, without its host-only keys."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items() if k not in HOST_KEYS and v is not None}
 
 
 def cast_grads(grads, grad_dtype: Optional[str]):
@@ -76,3 +85,17 @@ def train_step(
     metrics["total_loss"] = total.detach()
     metrics["grad_norm"] = global_norm(grads)
     return metrics
+
+
+def eval_step(model: nn.Module, batch: Dict[str, Any], task: TaskSpec) -> Dict[str, Any]:
+    """The loss-free forward of ``task`` on ``batch`` (``compute_loss=False``,
+    ``train=False``): the model in eval mode, without autograd, with the fixed
+    random streams of seed 0 (the JAX step's fixed ``PRNGKey(0)`` mask stream),
+    and its training mode restored afterwards."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), rng_scope(RNGStreams(0)):
+            return model(to_device(batch, model.device), task, False, False)
+    finally:
+        model.train(was_training)

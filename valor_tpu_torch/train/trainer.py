@@ -25,9 +25,7 @@ import torch
 from valor_tpu_torch.core.config import Config
 from valor_tpu_torch.core.logging import LOGGER, RunningMeter
 from valor_tpu_torch.core.tasks import TaskSpec, parse_task
-from valor_tpu_torch.train.step import TrainState, train_step
-
-HOST_KEYS = ("ids", "ids_txt", "sample_num", "answers", "question_ids")
+from valor_tpu_torch.train.step import TrainState, to_device, train_step
 
 
 class Trainer:
@@ -70,14 +68,6 @@ class Trainer:
             self._task_cache[task] = parse_task(task)
         return self._task_cache[task]
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        out = {}
-        for k, v in batch.items():
-            if k in HOST_KEYS or v is None:
-                continue
-            out[k] = torch.as_tensor(v).to(self.device, non_blocking=True)
-        return out
-
     def _drain_metrics(self) -> None:
         """One device read for every step since the last one."""
         if not self._pending:
@@ -112,7 +102,7 @@ class Trainer:
             spec = self._spec(task_name.split("--")[0])
             if self.cfg.model.scst_finetuning and spec.family == "cap":
                 raise NotImplementedError("SCST finetuning comes with the QA and SCST slice")
-            metrics = train_step(self.state, self._to_device(batch), spec, t.seed,
+            metrics = train_step(self.state, to_device(batch, self.device), spec, t.seed,
                                  grad_dtype=t.grad_dtype)
             micro += 1
             self._pending.append((micro, task_name, metrics))
