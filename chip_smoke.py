@@ -13,7 +13,7 @@ and a non-zero exit code, and no result line:
      and pretraining paths give it, bf16 -> bf16 and f32 -> f32 (and the mixed
      pairs at the fusion shape), with its device time (from CUDA graph
      replays) beside the plain version's, ``F.layer_norm``'s and the bytes
-     bound, and the wrapper's host cost a call;
+     bound, and the host cost a call of the wrapper and of ``F.layer_norm``;
   3. the whole port on the card against the whole port on the CPU: the tiny
      config in fp32 (TF32 off), greedy and beam-3 ``cap%tva`` sequences equal
      token for token, decoder logits within 1e-4;
@@ -29,7 +29,9 @@ and a non-zero exit code, and no result line:
      one), bf16 and f32 (and x and dy in different types at the fusion
      shape), with its device time beside the plain version's,
      the ATen backward of ``F.layer_norm`` (``library_ms``) and the bytes
-     bound, and the wrapper's host cost a call;
+     bound, the host cost a call of the wrapper and of the ATen backward,
+     the grid (one launch a call, one [2, C] partial a block), and dw and db
+     the same bits over two calls;
   7. one training step of the tiny config on the card against the same step
      on the CPU, fp32 with TF32 off: losses within 1e-4, every parameter
      gradient and every updated parameter within the stated tolerances;
@@ -371,6 +373,7 @@ def phase_layernorm():
                 "plain_ms": graph_ms(lambda: K.layernorm_plain(x, w, b, eps, dtype)),
                 "library_ms": graph_ms(lambda: F.layer_norm(xl, (c,), wl, bl, eps)),
                 "kernel_host_us": host_us(lambda: K.layernorm(x, w, b, eps, dtype)),
+                "library_host_us": host_us(lambda: F.layer_norm(xl, (c,), wl, bl, eps)),
                 "bound_ms": (n * c * (x.element_size() + dtype.itemsize) + 2 * c * 4)
                 / HBM_BYTES_PER_S * 1e3,
             }
@@ -655,9 +658,25 @@ def phase_layernorm_bwd():
             x, w, _ = _ln_inputs(n, c, xd, gen)
             dy = torch.randn(n, c, device="cuda", generator=gen).to(getattr(torch, gd))
             ex, ew, eb = check_bwd(x, w, eps, dy)
+            launches = K.LAUNCHES_BWD
+            first, second = K.layernorm_bwd(x, w, eps, dy), K.layernorm_bwd(x, w, eps, dy)
+            launches = (K.LAUNCHES_BWD - launches) // 2
+            if not (torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])):
+                raise AssertionError(f"layernorm_bwd [{n}, {c}] {xd} dy {gd}: dw or db differ "
+                                     "between two calls on the same inputs")
+            plan = K.bwd_plan(x, w, dy, first[0])
+            if launches != 1 or plan["launches"] != 1:
+                raise AssertionError(f"layernorm_bwd [{n}, {c}]: {launches} wrapper launches a "
+                                     f"call, {plan['launches']} kernels a launch")
+            del first, second
             wl, bl = w.to(x.dtype), torch.zeros(c, device="cuda", dtype=x.dtype)
             _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], wl, bl, eps)
             dyl = dy.to(x.dtype)
+
+            def aten_bwd():
+                return torch.ops.aten.native_layer_norm_backward(
+                    dyl, x, [c], mean, rstd, wl, bl, [True, True, True])
+
             row = {
                 "shape": f"{name} [{n}, {c}] {xd}" + (f" dy {gd}" if gd != xd else ""),
                 "sig": [n, c, eps, xd, gd], "max_abs_err": max(ex, ew, eb),
@@ -665,9 +684,11 @@ def phase_layernorm_bwd():
                 "tol": "dx 1 ulp + 1e-5 max|dx|; dw, db 1e-5 sum|terms|",
                 "kernel_ms": graph_ms(lambda: K.layernorm_bwd(x, w, eps, dy)),
                 "plain_ms": graph_ms(lambda: K.layernorm_bwd_plain(x, w, eps, dy)),
-                "library_ms": graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                    dyl, x, [c], mean, rstd, wl, bl, [True, True, True])),
+                "library_ms": graph_ms(aten_bwd),
                 "kernel_host_us": host_us(lambda: K.layernorm_bwd(x, w, eps, dy)),
+                "library_host_us": host_us(aten_bwd),
+                "deterministic": True, "one_launch": True, "partials": plan["partials"],
+                "rows_per_group": plan["steps"], "wave": plan["wave"],
                 "bound_ms": (n * c * (2 * x.element_size() + dy.element_size()) + 3 * c * 4)
                 / HBM_BYTES_PER_S * 1e3,
             }
