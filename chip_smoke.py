@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-12, 9; any failure ends the run with a traceback
+Phases, in the order 1-8, 10-14, 9; any failure ends the run with a traceback
 and a non-zero exit code, and no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
@@ -62,7 +62,25 @@ and a non-zero exit code, and no result line:
      the score matrices equal to those of the chunked plain path on the same
      features, the LayerNorm launches those of the towers the path runs, and
      ``va`` self-retrieval at R@1 = 100 through K2;
-  9. every shape that the main paths of phases 4, 8 and 12 handed each
+  13. exact resume on the card: the tiny config trained for 6 updates of 2
+     micro-batches in one run, and in a run stopped after micro-batch 5, saved,
+     restored and continued, under ``torch.use_deterministic_algorithms``
+     (warn_only): the restored state equal to the saved one, and the two runs'
+     final parameters and optimizer state the same bits unless an op without a
+     deterministic version is named (then listed, and the bits reported);
+  14. training from disk through ``python -m valor_tpu_torch.cli.train``'s
+     ``main`` at the full width of ``configs/retrieval-msrvtt.json`` (batch 64,
+     4 frames, 2 clips, crop_flip, device fbank, uint8 pixels, bf16; seeded
+     random weights): a seeded MSR-VTT-shaped dataset written to a temporary
+     directory (640 training ids, 256 evaluation ids, 40 JPEG frames of 320 x
+     240 and a 10 s 22050 Hz WAV an id, one in ten without audio), run 1 of ten
+     steps with its evaluations and save, run 2 resumed to step 20; the
+     restored state equal to the saved one bit for bit, losses finite, reports
+     finite, the kernel launches those of the path, and the device fbank of a
+     batch against ``fbank_np``; it prints samples/s from disk against phase
+     12's synthetic rate, the data-stall share, peak memory, save and restore
+     seconds and validation items/s;
+  9. every shape that the main paths of phases 4, 8, 12 and 14 handed each
      kernel is held against the plain version: listed where phase 2, 6 or 10
      compared it, compared here where they did not.
 
@@ -1129,9 +1147,409 @@ def phase_retrieval(batch_size: int = 64, steps: int = 10, items: int = 1000, ev
     return summary
 
 
+# -- phase 13 -----------------------------------------------------------------
+def phase_resume_tiny(device: str = "cuda"):
+    """Exact resume on the card: the tiny config trains ``pt_contra%tv_caption%tv``
+    (dropout and token masks on) for 6 updates of 2 micro-batches in one run, and
+    in a second run that stops after micro-batch 5, saves, restores into a fresh
+    model and optimizer, and goes on.  Under ``torch.use_deterministic_algorithms``
+    (warn_only, so that every op without a deterministic version is named) the
+    two end with the same bits in every parameter and optimizer tensor; where an
+    op is named, the bits are reported and not required."""
+    import os
+    import warnings
+
+    import torch
+
+    from valor_tpu_torch.core.config import Config, TrainConfig
+    from valor_tpu_torch.data.synthetic import pretrain_batch
+    from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.train import checkpoints as C
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState
+    from valor_tpu_torch.train.trainer import Trainer
+
+    task, steps, accum, kill = "pt_contra%tv_caption%tv", 6, 2, 5
+    cfg = tiny_config()
+    tcfg = TrainConfig(num_train_steps=steps, gradient_accumulation_steps=accum, learning_rate=1e-3,
+                       clip_lr=1e-3, clip_lr_text=1e-3, valid_steps=0, seed=0)
+    sd = init_params(cfg, seed=0, device="cpu")
+    batches = [(task, pretrain_batch(cfg, 4, frames=1, clips=1, n_txt=8, seed=100 + i))
+               for i in range(steps * accum)]
+
+    def build():
+        model = train_model(cfg, {k: v.to(device) for k, v in sd.items()}, device)
+        return TrainState(model, build_optimizer(model, tcfg))
+
+    def tensors(state):
+        opt = state.optimizer.state_dict()
+        return ([v.cpu() for v in state.model.state_dict().values()]
+                + [t.cpu() for t in opt["mu"] + opt["nu"] + (opt["acc"] or [])],
+                (state.step, opt["count"], opt["mini_step"], opt["gradient_step"]))
+
+    prev_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory() as tmp:
+            warnings.simplefilter("always")
+            run = Config(model=cfg, train=tcfg)
+            a = Trainer(run, build(), list(batches)).run()
+            saver = C.ModelSaver(tmp)
+            killed = Trainer(run, build(), list(batches[:kill]), saver=saver).run()
+            fresh = build()
+            C.load_state(fresh, saver.restore())
+            restored_equal = tensors(fresh)[1] == tensors(killed)[1] and all(
+                torch.equal(x, y) for x, y in zip(tensors(fresh)[0], tensors(killed)[0]))
+            b = Trainer(run, fresh, list(batches[kill:])).run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cfg
+    (ta, ca), (tb, cb) = tensors(a), tensors(b)
+    differing = sum(not torch.equal(x, y) for x, y in zip(ta, tb))
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    if not restored_equal:
+        raise AssertionError("tiny resume: the restored state differs from the saved one")
+    if ca != cb or (not ops and differing):
+        raise AssertionError(f"tiny resume: {differing} of {len(ta)} tensors differ, counters {ca} vs {cb}, "
+                             f"with no op lacking a deterministic version")
+    out = {"device": device, "micro_steps": steps * accum, "stopped_after": kill,
+           "restored_state_bit_equal": restored_equal, "counters": list(ca),
+           "tensors": len(ta), "tensors_differing": differing, "bit_identical": differing == 0,
+           "ops_without_deterministic_version": ops}
+    log("tiny exact resume " + json.dumps(out))
+    return out
+
+
+# -- phase 14 -----------------------------------------------------------------
+@contextlib.contextmanager
+def record_trainers(sync, cuda: bool):
+    """Yields a list that fills with one record a ``Trainer`` built inside the
+    block: the trainer, host stamps after a synchronisation at every step, the
+    run's data wait at each stamp, and the peak device memory since the trainer
+    was built (after any evaluation before training).  It swaps the class where
+    ``cli/train.py`` looks it up, and launches nothing itself."""
+    import torch
+
+    from valor_tpu_torch.train import trainer as T
+
+    runs, base = [], T.Trainer
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec = {"trainer": self, "stamps": [], "waits": [], "peak": 0}
+            runs.append(rec)
+
+            def hook(micro, task_name, metrics):
+                sync()
+                rec["stamps"].append(time.perf_counter())
+                rec["waits"].append(self.data_wait_s)
+
+            self.step_hook = hook
+
+        def run(self):
+            rec = runs[-1]
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            rec["start"] = time.perf_counter()
+            try:
+                return super().run()
+            finally:
+                rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+
+    T.Trainer = Recorded
+    try:
+        yield runs
+    finally:
+        T.Trainer = base
+
+
+@contextlib.contextmanager
+def record_validations(sync):
+    """Yields a list that fills with (items, seconds between two
+    synchronisations, report) of every ``validate_ret`` call."""
+    from valor_tpu_torch.eval import validate as V
+
+    calls, fn0 = [], V.validate_ret
+
+    def fn1(model, step_fn, loader, *a, **kw):
+        items = [0]
+
+        def counted(it):
+            for b in it:
+                items[0] += len(b["ids"])
+                yield b
+
+        sync()
+        t0 = time.perf_counter()
+        report = fn0(model, step_fn, counted(loader), *a, **kw)
+        sync()
+        calls.append((items[0], time.perf_counter() - t0, report))
+        return report
+
+    V.validate_ret = fn1
+    try:
+        yield calls
+    finally:
+        V.validate_ret = fn0
+
+
+@contextlib.contextmanager
+def record_checkpoints(sync, on_restore):
+    """Yields a dict that fills with the seconds of every save and of every
+    restore (read from disk and copied into the model and the optimizer);
+    ``on_restore(state)`` runs on each restored state."""
+    from valor_tpu_torch.train import checkpoints as C
+
+    times = {"save_s": [], "restore_s": []}
+    save0, restore0, load0 = C.ModelSaver.save, C.ModelSaver.restore, C.load_state
+    pending = {}
+
+    def save1(self, state, step, best_name=None):
+        sync()
+        t0 = time.perf_counter()
+        save0(self, state, step, best_name)
+        times["save_s"].append(time.perf_counter() - t0)
+
+    def restore1(self, step=None):
+        sync()
+        pending["t0"] = time.perf_counter()
+        return restore0(self, step)
+
+    def load1(state, payload):
+        load0(state, payload)
+        sync()
+        times["restore_s"].append(time.perf_counter() - pending.pop("t0"))
+        on_restore(state)
+
+    C.ModelSaver.save, C.ModelSaver.restore, C.load_state = save1, restore1, load1
+    try:
+        yield times
+    finally:
+        C.ModelSaver.save, C.ModelSaver.restore, C.load_state = save0, restore0, load0
+
+
+def snapshot_state(state) -> dict:
+    """A CPU copy of what a checkpoint holds: parameters, optimizer tensors and counters."""
+    opt = state.optimizer.state_dict()
+    return {"params": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "tensors": [t.cpu().clone() for t in opt["mu"] + opt["nu"] + (opt["acc"] or [])],
+            "counters": (state.step, opt["count"], opt["mini_step"], opt["gradient_step"]),
+            "acc": opt["acc"] is not None}
+
+
+def check_same_state(state, saved: dict) -> dict:
+    """``state`` equal to ``saved`` (``snapshot_state``) bit for bit, or raise."""
+    now = snapshot_state(state)
+    if now["counters"] != saved["counters"] or now["acc"] != saved["acc"]:
+        raise AssertionError(f"restored counters {now['counters']} != saved {saved['counters']}")
+    bad = [k for k, v in saved["params"].items() if not torch_equal(now["params"][k], v)]
+    bad += [f"optimizer tensor {i}" for i, (x, y) in enumerate(zip(now["tensors"], saved["tensors"]))
+            if not torch_equal(x, y)]
+    if bad or len(now["tensors"]) != len(saved["tensors"]):
+        raise AssertionError(f"restored state differs from the saved one: {bad[:10]}")
+    return {"params": len(saved["params"]), "optimizer_tensors": len(saved["tensors"]),
+            "counters_step_count_mini_gradient": list(saved["counters"]), "acc": saved["acc"]}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def check_device_fbank(batch, cfg, device: str) -> dict:
+    """The device fbank of a collated batch's clip spans against ``fbank_np`` of
+    the same spans (masked and normalised as the host path), 1e-4 absolute and
+    relative, with TF32 switched on around the call (the function must not
+    depend on it); and its device time a batch."""
+    import torch
+
+    from valor_tpu_torch.data.fbank import fbank_clips_from_spans, fbank_np
+
+    wavs, valid = batch["audio_waveforms"], batch["audio_valid_frames"]
+    kw = dict(melbins=cfg.audio_melbins, target_length=cfg.audio_target_length)
+    w, v = torch.as_tensor(wavs).to(device), torch.as_tensor(valid).to(device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = fbank_clips_from_spans(w, v, **kw).cpu().numpy()
+        ms = graph_ms(lambda: fbank_clips_from_spans(w, v, **kw), iters=5, reps=3) \
+            if device == "cuda" else None
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t, mean, std = cfg.audio_target_length, cfg.audio_mean, cfg.audio_std
+    err = 0.0
+    for b in range(wavs.shape[0]):
+        for c in range(wavs.shape[1]):
+            n = int(valid[b, c])
+            ref = fbank_np(np.asarray(wavs[b, c]), 22050, cfg.audio_melbins)
+            ref = np.where(np.arange(t)[:, None] < max(n, 0), ref, 0.0)
+            ref = ((ref - mean) / (2 * std) * (n >= 0)).T
+            diff = np.abs(out[b, c] - ref)
+            if not (diff <= 1e-4 + 1e-4 * np.abs(ref)).all():
+                raise AssertionError(f"device fbank of span ({b}, {c}): max abs err {diff.max()}")
+            if n < 0 and out[b, c].any():
+                raise AssertionError(f"device fbank of missing audio ({b}, {c}) is not exactly zero")
+            err = max(err, float(diff.max()))
+    return {"spans": int(np.prod(wavs.shape[:2])), "missing": int((valid < 0).sum()),
+            "max_abs_err": err, "tol": "abs 1e-4 + rel 1e-4", "device_ms_a_batch": ms}
+
+
+def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixture=None, overrides=None,
+                    device: str = "cuda", synthetic=None):
+    """``valor_tpu_torch.cli.train`` from disk at the full width of
+    ``configs/retrieval-msrvtt.json`` (only the dataset paths, ``output_dir``,
+    ``num_train_steps`` and ``valid_steps`` changed): a seeded MSR-VTT-shaped
+    dataset written to a temporary directory (``data/synthetic.py``), run 1 of
+    ``steps`` steps, run 2 resumed to twice that.  ``fixture`` and ``overrides``
+    shrink the dataset and the model for a CPU rehearsal (device "cpu");
+    ``synthetic`` is phase 12's summary, whose samples/s this run's is set against."""
+    import os
+    import shutil
+
+    import torch
+
+    from valor_tpu_torch.cli.build import build_dataset, build_tokenizers
+    from valor_tpu_torch.cli.train import main
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.pipeline import valor_collate
+    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dev_args = [] if cuda else ["--device", device]
+    saved, restored = {}, {}
+    env0 = {k: os.environ.get(k) for k in ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")}
+    with tempfile.TemporaryDirectory(prefix="valor_cli_train_") as tmp:
+        t0 = time.monotonic()
+        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=n_train, n_val=n_val,
+                                        **(fixture or {}))
+        fixture_s = time.monotonic() - t0
+        data_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+        raw = json.loads((ROOT / "configs" / "retrieval-msrvtt.json").read_text())
+        for split in ("train", "val"):
+            for flow in raw["data_cfg"][split]:
+                for ds in flow["datasets"]:
+                    ds.update(ids_path=paths[f"{split}_ids"], txt=paths[f"{split}_txt"],
+                              video=paths["frames"], audio=paths["audio"])
+        raw.update(output_dir=os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
+                   **(overrides or {}))
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
+                          VALOR_PRETRAINED_DIR=os.path.join(tmp, "no_public_weights"))
+        try:
+            cfg = load_config(cfg_path)
+            spec = parse_task(cfg.data_train[0].task)
+            with record_trainers(sync, cuda) as runs, record_validations(sync) as evals, \
+                    record_checkpoints(sync, lambda st: restored.update(check_same_state(st, saved))) as ck, \
+                    record_ln_calls() as (sigs_fwd, sigs_bwd), record_fine_calls() as fine_calls:
+                K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+                first = main(["--config", cfg_path, *dev_args])
+                saved.update(snapshot_state(first.state))
+                run1 = {"step": first.state.step, "updates": first.state.optimizer.gradient_step,
+                        "history": list(first.history)}
+                del first, runs[0]["trainer"]  # run 1's model leaves the card before run 2
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                second = main(["--config", cfg_path, "--resume", "true", "--num_train_steps", str(2 * steps),
+                               *dev_args])
+                launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+            disk = shutil.disk_usage(tmp)
+            ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(os.path.join(tmp, "out", "ckpt")) for f in fs)
+            # one collated training batch of clip spans through the device fbank
+            ds = build_dataset(cfg.data_train[0], cfg.model, build_tokenizers(cfg.model), training=True)
+            batch = valor_collate([ds[i] for i in range(cfg.data_train[0].batch_size)])
+            fbank = check_device_fbank(batch, cfg.model, device)
+        finally:
+            for k, v in env0.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    r1, r2 = runs
+    t2 = second
+    if run1["step"] != steps or run1["updates"] != steps:
+        raise AssertionError(f"run 1 ended at micro-step {run1['step']}, {run1['updates']} updates")
+    resumed_first = t2.history[0][0]
+    if resumed_first != steps + 1 or t2.state.optimizer.gradient_step != 2 * steps \
+            or t2.state.optimizer.count != 2 * steps:
+        raise AssertionError(f"run 2 began at micro-step {resumed_first}, ended with "
+                             f"{t2.state.optimizer.gradient_step} updates")
+    if not restored:
+        raise AssertionError("run 2 restored nothing")
+    for history in (run1["history"], t2.history):
+        if len(history) != steps or not all(np.isfinite(v) for h in history for v in h[2].values()):
+            raise AssertionError(f"{len(history)} steps logged, or a non-finite loss: {history}")
+    eval_batches = -(-n_val // cfg.data_val[0].batch_size)
+    if len(evals) != 4 or any(n != n_val for n, _, _ in evals):
+        raise AssertionError(f"validations (items) {[n for n, _, _ in evals]}, expected 4 of {n_val}")
+    for _, _, report in evals:
+        if not all(np.isfinite(v) for v in report.values()) or "ravg" not in report:
+            raise AssertionError(f"validation report {report}")
+    per_step = expected_train_ln_launches(t2.state.model, spec)
+    fine_groups = spec.contra_groups if cfg.model.contra_type == "fine" else ()
+    expected = ((per_step * (2 * steps + len(evals) * eval_batches), per_step * 2 * steps,
+                 len(evals) * len(fine_groups)) if cuda else (0, 0, 0))
+    if launches != expected:
+        raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+
+    def timing(rec):
+        step_s = np.diff([rec["start"]] + rec["stamps"])
+        wait_s = np.diff([0.0] + rec["waits"])
+        return step_s, wait_s
+
+    (s1, w1), (s2, w2) = timing(r1), timing(r2)
+    timed = np.concatenate([s1[2:], s2[2:]])  # the first two steps of each run are warm-up
+    stall = float((w1[2:].sum() + w2[2:].sum()) / timed.sum())
+    batch_size = cfg.data_train[0].batch_size
+    median = float(np.median(timed))
+    summary = {
+        "config": "configs/retrieval-msrvtt.json", "task": cfg.data_train[0].task, "batch": batch_size,
+        "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
+        "train_items": n_train, "val_items": n_val, "dataset_written_s": fixture_s,
+        "dataset_bytes": data_bytes, "steps_per_run": steps, "timed_steps": int(len(timed)),
+        "median_step_s": median, "samples_per_s": batch_size / median,
+        "step_s_run1": [float(v) for v in s1], "step_s_run2": [float(v) for v in s2],
+        "data_wait_s_run1": [float(v) for v in w1], "data_wait_s_run2": [float(v) for v in w2],
+        "data_stall_share": stall, "device_idle_share": "not measured (no profiler trace in this phase)",
+        "max_memory_allocated_gib": [r1["peak"] / 2**30, r2["peak"] / 2**30],
+        "save_s": ck["save_s"], "restore_s": ck["restore_s"], "checkpoint_bytes_on_disk": ckpt_bytes,
+        "disk_free_bytes": disk.free, "restored_equals_saved": restored,
+        "validation_s": [s_ for _, s_, _ in evals], "validation_items_per_s": [n / s_ for n, s_, _ in evals],
+        "resumed_first_step": resumed_first, "resumed_update_count": t2.state.optimizer.gradient_step,
+        "contra_loss_run1": [h[2]["contra_loss"] for h in run1["history"]],
+        "contra_loss_run2": [h[2]["contra_loss"] for h in t2.history],
+        "report_final": evals[-1][2], "device_fbank": fbank,
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_forward": per_step,
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+    }
+    if synthetic:
+        summary["synthetic_samples_per_s"] = synthetic["samples_per_s"]
+        summary["disk_over_synthetic"] = summary["samples_per_s"] / synthetic["samples_per_s"]
+    log("cli_train " + json.dumps(summary))
+    return summary
+
+
 # -- phase 9 ------------------------------------------------------------------
-def phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows):
-    """Every shape that the main paths of phases 4, 8 and 12 handed each
+def phase_path_shapes(serving, pretrain, retrieval, cli, ln_rows, bwd_rows, fs_rows):
+    """Every shape that the main paths of phases 4, 8, 12 and 14 handed each
     kernel, held against its plain version: those that phases 2, 6 and 10
     compared are listed as such, the others are compared here (on new seeded
     inputs, with the same tolerances, untimed)."""
@@ -1141,8 +1559,9 @@ def phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows):
     out = {}
     for kind, sigs, rows in (
         ("fwd", serving["layernorm_calls"] + pretrain["layernorm_calls"]
-         + retrieval["layernorm_calls"], ln_rows),
-        ("bwd", pretrain["layernorm_bwd_calls"] + retrieval["layernorm_bwd_calls"], bwd_rows),
+         + retrieval["layernorm_calls"] + cli["layernorm_calls"], ln_rows),
+        ("bwd", pretrain["layernorm_bwd_calls"] + retrieval["layernorm_bwd_calls"]
+         + cli["layernorm_bwd_calls"], bwd_rows),
     ):
         done = {tuple(r["sig"]) for r in rows}
         extra = []
@@ -1159,7 +1578,7 @@ def phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows):
             done.add((n, c, eps, xd, od))
         out[kind] = {"path_shapes": len({tuple(s) for s in sigs}), "compared_here": extra}
     done = {tuple(r["sig"]) for r in fs_rows}
-    sigs = {tuple(s) for s in retrieval["fine_score_calls"]}
+    sigs = {tuple(s) for s in retrieval["fine_score_calls"] + cli["fine_score_calls"]}
     extra = [{"sig": list(s), "max_abs_err": check_fine(
         _fs_inputs(*s[:5], getattr(torch, s[5]), gen), f"fine_score path shape {s}")}
              for s in sorted(sigs - done)]
@@ -1201,16 +1620,26 @@ def main() -> int:
     fs_rows = phase_fine_score()
     phase_ret_card_vs_cpu()
     retrieval = phase_retrieval()
-    shapes = phase_path_shapes(serving, pretrain, retrieval, ln_rows, bwd_rows, fs_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_resume_tiny()
+    cli = phase_cli_train(synthetic=retrieval)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = phase_path_shapes(serving, pretrain, retrieval, cli, ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
     by_path = {"serving": serving["layernorm_launches"],
                "pretraining": pretrain["layernorm_launches_fwd_bwd"][0],
-               "retrieval": retrieval["layernorm_launches_fwd_bwd"][0]}
+               "retrieval": retrieval["layernorm_launches_fwd_bwd"][0],
+               "cli_train": cli["layernorm_launches_fwd_bwd"][0]}
     bwd_by_path = {"serving": 0, "pretraining": pretrain["layernorm_launches_fwd_bwd"][1],
-                   "retrieval": retrieval["layernorm_launches_fwd_bwd"][1]}
-    fs_by_path = {"serving": 0, "pretraining": 0, "retrieval": retrieval["fine_score_launches"]}
+                   "retrieval": retrieval["layernorm_launches_fwd_bwd"][1],
+                   "cli_train": cli["layernorm_launches_fwd_bwd"][1]}
+    fs_by_path = {"serving": 0, "pretraining": 0, "retrieval": retrieval["fine_score_launches"],
+                  "cli_train": cli["fine_score_launches"]}
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

@@ -192,8 +192,22 @@ def test_mlm_branch_and_other_tasks_raise(lm_models):
     for t in ("cap%tva", "qa%tva"):
         with pytest.raises(NotImplementedError, match="slice"):
             tm(_tensors(tiny_batch()), tparse(t))
-    with pytest.raises(NotImplementedError, match="audio_waveforms"):
-        tm({"audio_waveforms": torch.zeros(3, 1, 100)}, tparse(PT_TASK))
+    # clip-span waveforms (the device fbank) give the losses of their log-mel clips
+    from valor_tpu_torch.data.fbank import clip_span_samples, fbank_clips_from_spans
+
+    wav_batch = _tensors(tiny_batch(seed=3))
+    del wav_batch["audio_spectrograms"]
+    wav_batch["audio_waveforms"] = torch.from_numpy(
+        np.random.RandomState(4).randn(3, 1, clip_span_samples(32)).astype(np.float32))
+    wav_batch["audio_valid_frames"] = torch.tensor([[32], [5], [-1]], dtype=torch.int32)
+    spec_batch = dict(wav_batch, audio_spectrograms=fbank_clips_from_spans(
+        wav_batch["audio_waveforms"], wav_batch["audio_valid_frames"], melbins=16, target_length=32))
+    del spec_batch["audio_waveforms"], spec_batch["audio_valid_frames"]
+    with rng_scope(RNGStreams(3)):
+        from_wavs = tm(wav_batch, tparse(task))
+    with rng_scope(RNGStreams(3)):
+        from_spec = tm(spec_batch, tparse(task))
+    assert {k: float(v) for k, v in from_wavs.items()} == {k: float(v) for k, v in from_spec.items()}
     with pytest.raises(RuntimeError, match="rng_scope"):  # unimlm needs the mask stream
         load_model(torch_config(tiny_model_config()),
                    init_params(torch_config(tiny_model_config()), device="cpu"), "cpu")(

@@ -1,4 +1,5 @@
-"""VALOR serving and pretraining on PyTorch and CUDA (Hopper).
+"""VALOR serving, training (from disk, through ``cli/train.py``) and retrieval
+evaluation on PyTorch and CUDA (Hopper).
 
 The PyTorch counterpart of ``valor_tpu``: same module layout and names,
 PyTorch idiom inside.  It imports neither JAX nor ``valor_tpu``; the JAX

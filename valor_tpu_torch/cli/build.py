@@ -1,0 +1,201 @@
+"""From a config to the port's parts: tokenizers, datasets, loaders, model and
+training state (counterpart of ``valor_tpu/cli/build.py``; the reference's
+train_utils.py glue: create_train_dataloaders :415-516,
+create_val_dataloaders :519-576).
+
+One process, one card: every loader is shard 0 of 1 and no mesh is read.  The
+tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
+when the tokenizers are built), public encoder weights from
+``$VALOR_PRETRAINED_DIR``.  Not ported yet, and raising: QA flows (``data/vqa.py``)
+and task prompts (``use_task_prompt``, ``data/prompts.py``), both waiting for
+the QA and SCST slice; loading public encoder weights (the released-weights
+slice).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Tuple
+
+from valor_tpu_torch.core.config import Config, DataFlowConfig, ModelConfig
+from valor_tpu_torch.core.logging import LOGGER
+from valor_tpu_torch.core.tasks import parse_task
+from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSampler
+from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
+
+QA_SLICE = "the QA and SCST slice"
+WEIGHTS_SLICE = "the released-weights slice"
+
+
+def bert_vocab_path() -> str:
+    return os.environ.get("VALOR_BERT_VOCAB", "pretrained_weights/bert-base-uncased-vocab.txt")
+
+
+def clip_bpe_path() -> str:
+    return os.environ.get("VALOR_CLIP_BPE", "pretrained_weights/bpe_simple_vocab_16e6.txt.gz")
+
+
+def build_tokenizers(cfg: ModelConfig):
+    """(bert_tokenizer | None, clip_tokenizer | None) per encoder types."""
+    bert_tok = clip_tok = None
+    needs_bert = cfg.txt_encoder_type.startswith("bert") or cfg.multimodal_encoder_type.startswith("bert")
+    needs_clip = cfg.txt_encoder_type.startswith("clip") or cfg.multimodal_encoder_type.startswith("clip")
+    if needs_bert:
+        from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
+
+        bert_tok = BertTokenizer(bert_vocab_path())
+    if needs_clip:
+        from valor_tpu_torch.data.tokenizers.clip_bpe import ClipBPETokenizer
+
+        clip_tok = ClipBPETokenizer(clip_bpe_path())
+    return bert_tok, clip_tok
+
+
+def _check_flow(task: str) -> None:
+    if parse_task(task).family == "qa":
+        raise NotImplementedError(f"QA data flows ({task}) come with {QA_SLICE}")
+
+
+def build_dataset(flow: DataFlowConfig, mcfg: ModelConfig, tokenizers, training: bool) -> VALORDataset:
+    _check_flow(flow.task)
+    bert_tok, clip_tok = tokenizers
+    ds = flow.datasets[0]
+    spec = parse_task(flow.task)
+    txt_mapper = TxtMapper(ds.txt, flow.max_txt_len, bert_tok, clip_tok, training) if ds.txt else None
+    video_mapper = (
+        VideoMapper(
+            ds.video,
+            resolution=mcfg.video_resolution,
+            sample_num=flow.video_sample_num if ds.datatype.startswith("video") else 1,
+            datatype=ds.datatype,
+            transforms=ds.video_transforms,
+            encoder_type=mcfg.video_encoder_type,
+            training=training,
+            output_uint8=mcfg.uint8_pixels,
+        )
+        if ds.video and spec.uses_video
+        else None
+    )
+    audio_mapper = (
+        AudioMapper(
+            ds.audio,
+            sample_num=flow.audio_sample_num,
+            melbins=mcfg.audio_melbins,
+            target_length=mcfg.audio_target_length,
+            frame_shift_ms=mcfg.audio_frame_shift,
+            mean=mcfg.audio_mean,
+            std=mcfg.audio_std,
+            training=training,
+            device_fbank=mcfg.device_fbank,
+        )
+        if ds.audio and spec.uses_audio
+        else None
+    )
+    return VALORDataset(ds.ids_path, txt_mapper, video_mapper, audio_mapper, training)
+
+
+def collate_for(task: str, training: bool):
+    """The collate function of a flow (the non-QA branch)."""
+    _check_flow(task)
+    return valor_collate
+
+
+def _check_prompts(cfg: ModelConfig) -> None:
+    if cfg.use_task_prompt:
+        raise NotImplementedError(f"task prompts (use_task_prompt) come with {QA_SLICE}")
+
+
+def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:
+    """The train flows' loaders behind one ``MetaLoader`` (the JAX package's
+    seeds and mixing order).  ``pin_memory`` pins each batch in the loader's
+    background thread, for a CUDA prefetcher."""
+    _check_prompts(cfg.model)
+    loaders: Dict[str, Tuple[Any, int]] = {}
+    for i, flow in enumerate(cfg.data_train):
+        dataset = build_dataset(flow, cfg.model, tokenizers, training=True)
+        sampler = ShardedBatchSampler(len(dataset), batch_size=max(flow.batch_size, 1),
+                                      shuffle=True, seed=seed)
+        loader = DataLoader(dataset, sampler, collate_for(flow.task, True),
+                            n_workers=max(flow.n_workers, 1), pin_memory=pin_memory)
+        name = f"{flow.task}--{flow.datasets[0].name or i}"
+        loaders[name] = (loader, max(flow.epoch, 1))
+        LOGGER.info(f"train flow {name}: {len(dataset)} items, batch {flow.batch_size}, ratio {flow.epoch}")
+    return MetaLoader(loaders, accum_steps=cfg.train.gradient_accumulation_steps,
+                      seed=cfg.train.seed, mix_type=cfg.train.dataset_mix_type)
+
+
+def build_val_loaders(cfg: Config, tokenizers) -> List[Tuple[str, DataLoader, Any]]:
+    """[(name, loader, task spec)] of the evaluation flows, in order."""
+    _check_prompts(cfg.model)
+    out = []
+    for i, flow in enumerate(cfg.data_val):
+        dataset = build_dataset(flow, cfg.model, tokenizers, training=False)
+        sampler = ShardedBatchSampler(len(dataset), batch_size=flow.batch_size, shuffle=False)
+        loader = DataLoader(dataset, sampler, collate_for(flow.task, False),
+                            n_workers=max(flow.n_workers, 1))
+        name = flow.name or (flow.datasets[0].name if flow.datasets else str(i))
+        out.append((name, loader, parse_task(flow.task)))
+    return out
+
+
+# public-checkpoint filenames the reference hardcodes
+# (model/modeling.py:514,560-598,621)
+_CLIP_WEIGHTS = {
+    "clip_vit_base_16": "clip-vit-base-16.pt",
+    "clip_vit_base_32": "clip-vit-base-32.pt",
+    "clip_vit_large_14": "clip-vit-large-14.pt",
+    "clip_vit_large_14_336": "clip-vit-large-14-336px.pt",
+}
+_SWIN_WEIGHTS = {
+    "videoswin": "ckpt_video-swin.pt",
+    "videoswin_base_k400_1k": "videoswin_base_k400_1k.pth",
+    "videoswin_base_k400_22k": "videoswin_base_k400_22k.pth",
+    "videoswin_base_k600_22k": "videoswin_base_k600_22k.pth",
+}
+_AST_WEIGHTS = "audioset_10_10_0.4593.pth"
+_BERT_WEIGHTS = "bert-base-uncased.bin"
+
+
+def initialize_encoder_weights(mcfg: ModelConfig, state_dict):
+    """The JAX package's public-checkpoint lookup (reference
+    model/modeling.py:560-660): ``initial_vision`` gates CLIP/VideoSwin and
+    AST, ``initial_multimodal`` BERT, each a file under
+    ``$VALOR_PRETRAINED_DIR`` (default ``pretrained_weights/``).  With no such
+    file the encoders stay random-init, as there.  Converting a file that is
+    there is not ported yet: it raises rather than train from random weights
+    the caller meant to replace."""
+    pdir = os.environ.get("VALOR_PRETRAINED_DIR", "pretrained_weights")
+    wanted = []
+    if mcfg.initial_vision:
+        if mcfg.video_encoder_type.startswith("clip") or mcfg.txt_encoder_type.startswith("clip"):
+            name = (mcfg.video_encoder_type if mcfg.video_encoder_type.startswith("clip")
+                    else mcfg.txt_encoder_type)
+            wanted.append(_CLIP_WEIGHTS.get(name, ""))
+        if mcfg.video_encoder_type.startswith("videoswin"):
+            wanted.append(_SWIN_WEIGHTS.get(mcfg.video_encoder_type, ""))
+        wanted.append(_AST_WEIGHTS)
+    if mcfg.initial_multimodal:
+        wanted.append(_BERT_WEIGHTS)
+    found = [f for f in wanted if f and os.path.exists(os.path.join(pdir, f))]
+    if found:
+        raise NotImplementedError(
+            f"public encoder weights {found} under {pdir!r}: loading them comes with {WEIGHTS_SLICE}")
+    LOGGER.info(f"no public encoder weights under {pdir!r}; encoders random-init")
+    return state_dict
+
+
+def build_model_and_state(cfg: Config, device):
+    """A training ``TrainState`` on ``device``: seeded weights
+    (``models/bridge.py:init_params`` from ``cfg.train.seed``), the encoder
+    weight lookup, and ``GroupedAdam`` over the model's parameters."""
+    from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState
+
+    sd = initialize_encoder_weights(cfg.model, init_params(cfg.model, seed=cfg.train.seed, device=device))
+    model = train_model(cfg.model, sd, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    LOGGER.info(f"model has {n_params / 1e6:.1f}M params")
+    optimizer = build_optimizer(model, cfg.train, frozen_vision=cfg.model.frozen_vision,
+                                frozen_multimodal=cfg.model.frozen_multimodal)
+    return TrainState(model, optimizer)

@@ -1,0 +1,179 @@
+"""Training entry point of the port (counterpart of ``valor_tpu/cli/train.py``).
+
+    python -m valor_tpu_torch.cli.train --config configs/retrieval-msrvtt.json \
+        --output_dir out/ret-msrvtt [--flag value ...] [--device cpu]
+
+Any flat config key can be overridden on the command line (CLI wins over
+JSON, JSON over defaults — reference: utils/misc.py:26-36).  The run takes
+the CUDA card unless ``--device`` names another device; with no card and no
+``--device`` it raises.  It writes ``hps.json``, ``log/train.log``, TensorBoard
+scalars under ``tb/`` (when a writer imports) and checkpoints under ``ckpt/``
+into ``output_dir``.  ``--resume true`` restarts from the latest checkpoint
+there, at its micro-step; ``--checkpoint <dir>`` (one of the port's own run
+directories) and ``--pretrain_dir <dir>`` (with ``--pretrain_step``) load
+weights, shape-adapted; ``--zero_shot true`` evaluates and stops;
+``--first_eval`` evaluates before training.
+
+One process on one card: the JAX package's device mesh, ``jax.distributed``,
+``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.  Not
+ported yet, and raising before any work: caption, QA and pretraining
+validation (``validate_cap``, ``validate_qa``, ``validate_pt``), SCST
+finetuning, QA flows and task prompts (the QA and SCST slice), and a
+``--checkpoint`` that is a file (a converted torch artifact: the
+released-weights slice).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import sys
+from typing import Any, Dict, Optional
+
+from valor_tpu_torch.cli.build import QA_SLICE, WEIGHTS_SLICE
+from valor_tpu_torch.core.config import Config, config_to_json, load_config
+from valor_tpu_torch.core.device import resolve_device
+from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
+
+
+def parse_cli(argv=None) -> Config:
+    parser = argparse.ArgumentParser(description="VALOR trainer (PyTorch)")
+    parser.add_argument("--config", type=str, default=None)
+    args, unknown = parser.parse_known_args(argv)
+    overrides: Dict[str, Any] = {}
+    key = None
+    for tok in unknown:
+        if tok.startswith("--"):
+            key = tok[2:]
+            overrides[key] = True  # bare flag
+        elif key is not None:
+            prev = overrides[key]
+            if prev is True:
+                overrides[key] = _parse_value(tok)
+            elif isinstance(prev, list):
+                prev.append(_parse_value(tok))
+            else:
+                overrides[key] = [prev, _parse_value(tok)]
+    return load_config(args.config, overrides)
+
+
+def _parse_value(s: str):
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    return s
+
+
+def make_validate_fn(cfg: Config, tokenizers):
+    """``run(model, step) -> {name: report}`` over the evaluation flows.
+    Retrieval flows go through ``eval.validate.validate_ret``; any other
+    family raises here, before training starts."""
+    from valor_tpu_torch.cli.build import build_val_loaders
+    from valor_tpu_torch.eval import validate as V
+    from valor_tpu_torch.train.step import eval_step
+
+    val_loaders = build_val_loaders(cfg, tokenizers)
+    for name, _, task in val_loaders:
+        if task.family != "ret":
+            raise NotImplementedError(f"{task.family} validation ({name}) comes with {QA_SLICE}")
+
+    def run(model, step: int):
+        return {
+            name: V.validate_ret(model, eval_step, iter(loader), task, cfg.model.contra_type,
+                                 cfg.model.dual_softmax, cfg.model.evaluate_ret_text)
+            for name, loader, task in val_loaders
+        }
+
+    return run
+
+
+def _adapted(state, params) -> Dict[str, Any]:
+    from valor_tpu_torch.train.checkpoints import adapt_pretrained_params
+
+    return adapt_pretrained_params(params, state.model.state_dict())
+
+
+def main(argv=None):
+    """Train (or, with ``--zero_shot``, evaluate) as the config says.  Returns
+    the ``Trainer`` after its run (None after a zero-shot evaluation)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default=None)
+    dev_args, argv = pre.parse_known_args(argv)
+    device = resolve_device(dev_args.device)
+    cfg = parse_cli(argv)
+    if cfg.model.scst_finetuning:
+        raise NotImplementedError(f"SCST finetuning comes with {QA_SLICE}")
+    if cfg.train.pretrain_dir:
+        from valor_tpu_torch.core.config import inherit_pretrain_config
+
+        inherited = inherit_pretrain_config(cfg)
+        if inherited:
+            LOGGER.info(f"inherited from pretrain hps.json: {inherited}")
+    random.seed(cfg.train.seed)
+    out_dir = cfg.train.output_dir or "output"
+    if is_main_process():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "hps.json"), "w") as f:
+            f.write(config_to_json(cfg))
+        add_log_to_file(os.path.join(out_dir, "log", "train.log"))
+        TB_LOGGER.create(os.path.join(out_dir, "tb"))
+
+    from valor_tpu_torch.cli.build import build_model_and_state, build_tokenizers, build_train_loaders
+    from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
+    from valor_tpu_torch.train.trainer import Trainer
+
+    tokenizers = build_tokenizers(cfg.model)
+    validate_fn = make_validate_fn(cfg, tokenizers) if cfg.data_val else None
+    meta = (build_train_loaders(cfg, tokenizers, seed=cfg.train.seed, pin_memory=device.type == "cuda")
+            if not cfg.train.zero_shot else None)
+    state = build_model_and_state(cfg, device)
+
+    saver = ModelSaver(out_dir, cfg.train.remove_before_ckpt, use_async=cfg.train.async_checkpoint)
+    restored: Optional[Dict[str, Any]] = None
+    if cfg.train.resume:
+        restored = saver.restore()
+        if restored:
+            load_state(state, restored)
+    elif cfg.train.pretrain_dir:
+        # --pretrain_step selects a checkpoint other than the latest
+        # (reference train_utils.py:120-121)
+        restored = ModelSaver(cfg.train.pretrain_dir, remove_before_ckpt=False).restore(
+            step=cfg.train.pretrain_step)
+        if restored:
+            state.model.load_state_dict(_adapted(state, restored["params"]))
+    elif cfg.train.checkpoint:
+        path = cfg.train.checkpoint
+        if not os.path.isdir(path):
+            raise NotImplementedError(
+                f"--checkpoint {path!r} is not a run directory of this package; converting "
+                f"torch artifacts comes with {WEIGHTS_SLICE}")
+        restored = ModelSaver(path, remove_before_ckpt=False).restore()
+        if restored:
+            state.model.load_state_dict(_adapted(state, restored["params"]))
+    del restored  # a full-width payload holds 4.5 GB on the host
+
+    if cfg.train.zero_shot:
+        if validate_fn:
+            for name, rep in validate_fn(state.model, 0).items():
+                LOGGER.info(f"zero-shot {name}: {rep}")
+        return None
+    if cfg.train.first_eval and validate_fn:
+        for name, rep in validate_fn(state.model, 0).items():
+            LOGGER.info(f"first-eval {name}: {rep}")
+
+    trainer = Trainer(cfg, state, meta, validate_fn=validate_fn, saver=saver,
+                      prefetch=cfg.train.prefetch)
+    trainer.run()
+    for loader in meta.name2loader.values():
+        loader.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

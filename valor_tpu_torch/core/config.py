@@ -19,7 +19,8 @@ are read and ignored by the port (PERF.md lists them):
 ``attention_logits_dtype`` (the port keeps attention logits in fp32),
 ``attention_layout``, ``gelu_stash_dtype``, ``remat_policy``, ``prng_impl``
 and ``train_inner_steps``; the fusion pipeline knobs (``fusion_pipeline_*``)
-select nothing on one card either.  ``checkpointing`` and ``remat_scope``
+select nothing on one card either, and ``async_checkpoint`` is accepted and
+the checkpoint written synchronously.  ``checkpointing`` and ``remat_scope``
 are honoured: ``torch.utils.checkpoint`` per encoder layer.
 """
 
@@ -159,9 +160,8 @@ class ModelConfig:
     attention_logits_dtype: str = "bfloat16"
     attention_layout: str = "bshd"
     gelu_stash_dtype: str = "none"
-    # split input pipeline of the JAX package: ship clip-span waveforms
-    # (mel on the device) and raw uint8 frames (normalised on the device).
-    # The port takes uint8 frames; the device fbank is not ported yet.
+    # split input pipeline: ship clip-span waveforms (mel on the device,
+    # data/fbank.py) and raw uint8 frames (normalised on the device)
     device_fbank: bool = True
     uint8_pixels: bool = True
 
@@ -243,9 +243,8 @@ class TrainConfig:
     submit_format: str = ""
     save_best: bool = False
     remove_before_ckpt: bool = True
-    # orbax AsyncCheckpointer: the save commits in a background thread
-    # while training continues (the reference blocks on torch.save);
-    # bookkeeping is deferred until the write is durable
+    # the JAX package's orbax AsyncCheckpointer; the port accepts it and
+    # writes synchronously (train/checkpoints.py)
     async_checkpoint: bool = False
     resume: bool = False
     zero_shot: bool = False
@@ -409,3 +408,51 @@ def _apply_convenience_overrides(cfg: Config, extra: Dict[str, Any]) -> None:
                 for ds in fl.datasets:
                     setattr(ds, _VAL_DS_MAP[k], v)
         # unknown keys ignored (parity with argparse ignoring unknowns in JSON)
+
+
+# architecture keys copied from a pretrain run's hps.json when finetuning
+# from --pretrain_dir (reference: train_utils.py:136-144 cover_cfg; the two
+# reference keys with no counterpart here — has_vafusion_encoder,
+# task_pormpt_as_text [sic] — are dead in the reference as well)
+PRETRAIN_COVER_KEYS = (
+    "audio_melbins", "audio_patch_size", "audio_mean", "audio_std",
+    "audio_frame_shift", "audio_target_length", "video_encoder_type",
+    "txt_encoder_type", "multimodal_encoder_type", "audio_encoder_type",
+    "caption_type", "share_txt_and_multimodal", "contra_type",
+    "multimodal_use_cross_attn", "fineweight_type", "late_fusion",
+    "cross_attn_type", "use_task_prompt",
+)
+
+
+def inherit_pretrain_config(cfg: Config) -> list:
+    """Copy architecture keys from the pretrain run's hps.json onto cfg.model
+    so a finetune cannot silently build a mismatched architecture.  Returns
+    the list of keys actually inherited (for logging)."""
+    import os
+
+    pdir = cfg.train.pretrain_dir
+    if not pdir:
+        return []
+    for cand in (os.path.join(pdir, "hps.json"), os.path.join(pdir, "log", "hps.json")):
+        if os.path.exists(cand):
+            with open(cand) as f:
+                hps = json.load(f)
+            model_hps = hps.get("model", hps)  # our nested dump or flat
+            inherited = []
+            for k in PRETRAIN_COVER_KEYS:
+                if k in model_hps and getattr(cfg.model, k, None) != model_hps[k]:
+                    setattr(cfg.model, k, model_hps[k])
+                    inherited.append(k)
+            return inherited
+    return []
+
+
+def config_to_json(cfg: Config) -> str:
+    """Serialize for the `hps.json` dump (reference: train.py:70-71)."""
+
+    def enc(o):
+        if dataclasses.is_dataclass(o):
+            return dataclasses.asdict(o)
+        raise TypeError(type(o))
+
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=enc)

@@ -1,17 +1,43 @@
-"""Process logger and metric meter of the PyTorch port (its copy of the parts
-of ``valor_tpu.core.logging`` it uses: ``LOGGER`` and ``RunningMeter``)."""
+"""Logging, metric meters and TensorBoard scalars of the PyTorch port (its copy of
+``valor_tpu.core.logging``).
+
+  * ``LOGGER``, with an optional file handler (``add_log_to_file``);
+  * ``is_main_process``: the port runs one process, so always true;
+  * ``RunningMeter``, an EMA meter (smooth 0.99) that skips NaN and inf;
+  * ``TB_LOGGER``, a TensorBoard writer with an internal global step that is a
+    silent no-op when neither tensorboardX nor ``torch.utils.tensorboard``
+    imports.
+"""
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Optional
+import os
+from typing import Dict, Optional
 
 _LOG_FMT = "%(asctime)s - %(levelname)s - %(name)s -   %(message)s"
 _DATE_FMT = "%m/%d/%Y %H:%M:%S"
 
 logging.basicConfig(format=_LOG_FMT, datefmt=_DATE_FMT, level=logging.INFO)
 LOGGER = logging.getLogger("valor_tpu_torch")
+LOGGER.setLevel(logging.INFO)  # whatever level the root logger was given before
+
+
+def add_log_to_file(log_path: str) -> None:
+    """Also write LOGGER's records to ``log_path`` (once per path)."""
+    path = os.path.abspath(log_path)
+    if any(getattr(h, "baseFilename", None) == path for h in LOGGER.handlers):
+        return
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fh = logging.FileHandler(path)
+    fh.setFormatter(logging.Formatter(_LOG_FMT, datefmt=_DATE_FMT))
+    LOGGER.addHandler(fh)
+
+
+def is_main_process() -> bool:
+    """One process: the JAX package's process-0 test is always true here."""
+    return True
 
 
 class RunningMeter:
@@ -38,3 +64,47 @@ class RunningMeter:
 
     def __str__(self) -> str:
         return f"{self._name}: {self._val:.4f}" if self._val is not None else f"{self._name}: n/a"
+
+
+class TensorboardLogger:
+    """Global-step-tracking TensorBoard wrapper (reference: utils/logger.py:27-69)."""
+
+    def __init__(self) -> None:
+        self._writer = None
+        self._global_step = 0
+
+    def create(self, path: str) -> None:
+        """Write scalars under ``path`` from now on (closing an earlier writer)."""
+        self.close()
+        try:
+            from tensorboardX import SummaryWriter  # type: ignore
+        except ImportError:
+            try:
+                from torch.utils.tensorboard import SummaryWriter  # type: ignore
+            except ImportError:
+                LOGGER.debug("tensorboard unavailable; scalar logging disabled")
+                return
+        self._writer = SummaryWriter(path)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+    def set_step(self, step: int) -> None:
+        self._global_step = step
+
+    @property
+    def global_step(self) -> int:
+        return self._global_step
+
+    def add_scalar(self, tag: str, value: float, step: Optional[int] = None) -> None:
+        if self._writer is not None:
+            self._writer.add_scalar(tag, value, step if step is not None else self._global_step)
+
+    def log_scalar_dict(self, d: Dict[str, float], prefix: str = "") -> None:
+        for k, v in d.items():
+            self.add_scalar(f"{prefix}{k}", float(v))
+
+
+TB_LOGGER = TensorboardLogger()

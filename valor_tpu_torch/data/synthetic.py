@@ -1,6 +1,6 @@
-"""Seeded synthetic pretraining and retrieval batches in the collate layout.
+"""Seeded synthetic data: batches in the collate layout, and a dataset on disk.
 
-The port trains on these until the disk data path is ported: numpy arrays
+Batches (``pretrain_batch``, ``retrieval_batch``) are numpy arrays
 shaped as the JAX package's collate gives them (``bert_tokens`` and
 ``clip_tokens`` [B, N] int64 with pad 0, ``video_pixels`` [B, frames, R, R, 3]
 raw uint8, ``audio_spectrograms`` [B, clips, melbins, target_length] float32).
@@ -8,11 +8,22 @@ Each row's text has its own length; BERT rows run [CLS] ... [SEP], CLIP rows
 start-of-text ... end-of-text (the two largest ids of the CLIP vocabulary).
 A retrieval batch also carries the host-only id lists ``ids`` (one per item)
 and ``ids_txt`` (one per caption; one caption per item, as in MSR-VTT 1k-A).
+
+``write_retrieval_dataset`` writes an MSR-VTT-shaped dataset that the disk data
+path reads: a folder of JPEG frames per id, a mono int16 WAV per id (one id in
+``missing_audio_every`` has none), ``txt_mapper`` JSON files (several captions
+per training id, one per evaluation id) drawn from a word list, id lists, and
+the tokenizer files built from the same word list (a WordPiece vocabulary and
+a CLIP BPE merges file).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import os
+import wave
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -50,3 +61,98 @@ def retrieval_batch(cfg: ModelConfig, batch: int, frames: int = 8, clips: int = 
     out["ids"] = [f"video{id_offset + i}" for i in range(batch)]
     out["ids_txt"] = list(out["ids"])
     return out
+
+
+WORDS = (
+    "a", "man", "woman", "is", "playing", "the", "guitar", "dog", "runs", "on", "grass", "cat",
+    "sits", "mat", "car", "drives", "down", "road", "person", "cooking", "in", "kitchen", "kids",
+    "dance", "stage", "bird", "flies", "over", "water", "people", "talk", "about", "news",
+)
+
+
+def write_tokenizer_files(root: str, words: Sequence[str] = WORDS) -> Dict[str, str]:
+    """A WordPiece vocabulary (special ids 101-103 where bert-base-uncased has
+    them) and a CLIP merges file whose merges build each word, both under
+    ``root``; returns their paths ("vocab", "merges")."""
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[unused99]", "[unused100]"] + list(words)
+    merges: List[str] = []
+    for w in words:
+        symbols = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(symbols) > 1:
+            pair = f"{symbols[0]} {symbols[1]}"
+            if pair not in merges:
+                merges.append(pair)
+            symbols = [symbols[0] + symbols[1]] + symbols[2:]
+    paths = {"vocab": os.path.join(root, "vocab.txt"), "merges": os.path.join(root, "merges.txt")}
+    with open(paths["vocab"], "w") as f:
+        f.write("\n".join(vocab))
+    with open(paths["merges"], "w") as f:
+        f.write("\n".join(["#version: synthetic"] + merges))
+    return paths
+
+
+def _write_frames(folder: str, n_frames: int, size, seed: int) -> None:
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    base = np.asarray(Image.fromarray(rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8))
+                      .resize((w + n_frames * 2, h), Image.BILINEAR))
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n_frames):  # a slow pan over a smooth scene
+        Image.fromarray(np.ascontiguousarray(base[:, 2 * i: 2 * i + w])).save(
+            os.path.join(folder, f"img_{i:04d}.jpg"), quality=85)
+
+
+def _write_wav(path: str, seconds: float, sample_rate: int, seed: int) -> None:
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    sig = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 4000, size=3))
+    sig = 0.2 * sig + 0.05 * rng.randn(len(t))
+    with wave.open(path, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def write_retrieval_dataset(
+    root: str, n_train: int = 640, n_val: int = 256, n_frames: int = 40, frame_size=(320, 240),
+    wav_seconds: float = 10.0, sample_rate: int = 22050, missing_audio_every: int = 10,
+    captions_per_train_id: int = 20, seed: int = 0, workers: int = 8,
+) -> Dict[str, str]:
+    """Write the dataset under ``root`` (defaults: MSR-VTT's shapes, 10 s clips at
+    4 fps and 22050 Hz) and return its paths: "train_ids", "train_txt",
+    "val_ids", "val_txt", "frames", "audio", "vocab", "merges"."""
+    rng = np.random.RandomState(seed)
+    ids = [f"video{i}" for i in range(n_train + n_val)]
+    train, val = ids[:n_train], ids[n_train:]
+
+    def caption() -> str:
+        return " ".join(rng.choice(WORDS, size=rng.randint(5, 13)))
+
+    os.makedirs(root, exist_ok=True)
+    paths = write_tokenizer_files(root)
+    paths.update({k: os.path.join(root, k) for k in ("frames", "audio")})
+    os.makedirs(paths["audio"], exist_ok=True)
+    for split, split_ids, txt in (("train", train, {v: [caption() for _ in range(captions_per_train_id)]
+                                                    for v in train}),
+                                  ("val", val, {v: caption() for v in val})):
+        paths[f"{split}_ids"] = os.path.join(root, f"{split}_id.json")
+        paths[f"{split}_txt"] = os.path.join(root, f"{split}_txt_mapper.json")
+        with open(paths[f"{split}_ids"], "w") as f:
+            json.dump(split_ids, f)
+        with open(paths[f"{split}_txt"], "w") as f:
+            json.dump(txt, f)
+
+    def write(i: int) -> None:
+        vid = ids[i]
+        _write_frames(os.path.join(paths["frames"], vid), n_frames, frame_size, seed + 1 + i)
+        if (i + 1) % missing_audio_every:
+            _write_wav(os.path.join(paths["audio"], f"{vid}.wav"), wav_seconds, sample_rate,
+                       seed + 1 + i)
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(write, range(n_train + n_val)))
+    return paths

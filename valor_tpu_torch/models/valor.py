@@ -8,8 +8,12 @@ embeddings.  Caption generation calls ``encode_video``, ``encode_audio``,
 ``fusion_cross_kv``; training calls the model on a batch and a task
 (``forward_pt``: the contrastive, caption and MLM losses; ``forward_ret``: the
 contrastive loss of the retrieval groups, or with ``compute_loss=False`` the
-features that retrieval evaluation scores).  The ``cap`` and ``qa`` forwards
-and the device-side fbank input are not ported yet and raise.
+features that retrieval evaluation scores).  A batch may carry clip-span
+waveforms (``audio_waveforms`` [B, n_clips, L] with ``audio_valid_frames``
+[B, n_clips]) in place of spectrograms: the forward turns them into
+normalised log-mel clips on the device (``data/fbank.py:fbank_clips_from_spans``)
+in the model's dtype.  The ``cap`` and ``qa`` forwards are not ported yet and
+raise.
 
 Batch convention: video_pixels [B, n_frames, H, W, 3] (float, or raw uint8
 normalised here), audio_spectrograms [B, n_clips, melbins, target_length],
@@ -30,6 +34,7 @@ from torch import nn
 from valor_tpu_torch.core.config import ModelConfig
 from valor_tpu_torch.core.device import resolve_device, torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
+from valor_tpu_torch.data.fbank import fbank_clips_from_spans
 from valor_tpu_torch.data.pipeline import CLIP_MEAN, CLIP_STD
 from valor_tpu_torch.models.ast import ASTConfig, ASTEncoder
 from valor_tpu_torch.models.bert import BertConfig, BertFusionEncoder, BertPredictionHead
@@ -359,9 +364,15 @@ class VALORModel(nn.Module):
         """The losses (or features) of ``task`` on ``batch``, a dict of tensors
         on the model's device.  Dropout follows ``self.training``."""
         if batch.get("audio_waveforms") is not None:
-            raise NotImplementedError(
-                "audio_waveforms (the device fbank) comes with the data-path slice; "
-                "pass audio_spectrograms")
+            # the device fbank: the host ships clip-span waveforms
+            # (AudioMapper device_fbank=True; data/fbank.py)
+            batch = dict(batch)
+            batch["audio_spectrograms"] = fbank_clips_from_spans(
+                batch.pop("audio_waveforms"),
+                batch.pop("audio_valid_frames"),
+                melbins=self.cfg.audio_melbins,
+                target_length=self.cfg.audio_target_length,
+            ).to(self.dtype)
         if task.family == "pt":
             return self.forward_pt(batch, task, compute_loss, train)
         if task.family == "ret":

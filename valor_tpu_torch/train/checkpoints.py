@@ -1,0 +1,219 @@
+"""Checkpoints of the port: save and restore with ``torch.save``, and load-time
+surgery (counterpart of ``valor_tpu/train/checkpoints.py``).
+
+``ModelSaver`` keeps the JAX package's layout and bookkeeping (reference
+utils/save.py:32-64, train_utils.py:117-192): ``<output_dir>/ckpt/step_N``,
+one directory a save, named by the optimizer step, holding ``state.pt``:
+the model's ``state_dict`` ("params"), the optimizer's ``state_dict``
+("opt_state": moments, counters and half-accumulated gradients), "step" and
+"micro_step" (``TrainState.step``, the micro-batch counter, so a resume under
+gradient accumulation restarts exactly where it stopped).  A save writes into
+``step_N.tmp`` and renames it, so a crash mid-write leaves the previous
+checkpoint whole; ``best_<name>`` copies the best one; with
+``remove_before_ckpt`` the previous step's directory goes once the new one is
+written.  ``use_async`` (``TrainConfig.async_checkpoint``, the JAX package's
+orbax AsyncCheckpointer) is accepted and the write made synchronously;
+``finish`` has nothing to wait for.
+
+Divergence, a fix: saving twice at one step (the trainer's periodic save at
+the last step, then its final save) keeps the checkpoint.  The JAX package
+removes the "previous" step's directory there, which is the one it just wrote.
+
+Surgery (numpy, on flat ``state_dict``-style mappings): CLIP visual position
+embeddings resized bilinearly for a new resolution (reference
+train_utils.py:153-168, model/clip.py:481-491; the resize is
+``jax.image.resize(method="bilinear")``'s, antialiased when it shrinks), and
+frame-embedding rows extended by copying the last trained row or truncated
+(train_utils.py:148-151).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from valor_tpu_torch.core.logging import LOGGER
+
+STATE_FILE = "state.pt"
+
+
+def _ckpt_dir(output_dir: str, step: int) -> str:
+    return os.path.abspath(os.path.join(output_dir, "ckpt", f"step_{step}"))
+
+
+class ModelSaver:
+    """Checkpoint writer and reader of one output directory."""
+
+    def __init__(self, output_dir: str, remove_before_ckpt: bool = True, use_async: bool = False):
+        # use_async is accepted, as the JAX package's signature has it; every write is synchronous
+        self.output_dir = output_dir
+        self.remove_before = remove_before_ckpt
+        self.last_step: Optional[int] = None
+        os.makedirs(os.path.join(output_dir, "ckpt"), exist_ok=True)
+
+    def save(self, state, step: int, best_name: Optional[str] = None) -> None:
+        """Write ``state`` (a ``train.step.TrainState``) as checkpoint ``step``."""
+        path = _ckpt_dir(self.output_dir, step)
+        payload = {
+            "params": state.model.state_dict(),
+            "opt_state": state.optimizer.state_dict(),
+            "step": step,
+            "micro_step": int(state.step),
+        }
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        self._bookkeep(step, best_name)
+
+    def finish(self) -> None:
+        """Nothing is ever in flight: writes are synchronous."""
+
+    def _bookkeep(self, step: int, best_name: Optional[str]) -> None:
+        path = _ckpt_dir(self.output_dir, step)
+        if best_name:
+            best_path = os.path.join(self.output_dir, "ckpt", f"best_{best_name}")
+            if os.path.exists(best_path):
+                shutil.rmtree(best_path)
+            shutil.copytree(path, best_path)
+        if self.remove_before and self.last_step is not None and self.last_step != step:
+            prev = _ckpt_dir(self.output_dir, self.last_step)
+            if os.path.exists(prev):
+                shutil.rmtree(prev)
+        self.last_step = step
+
+    def latest_step(self) -> Optional[int]:
+        root = os.path.join(self.output_dir, "ckpt")
+        if not os.path.isdir(root):
+            return None
+        steps = [int(m.group(1)) for d in os.listdir(root) if (m := re.match(r"step_(\d+)$", d))]
+        return max(steps) if steps else None
+
+    def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The payload of checkpoint ``step`` (the latest when None) on the
+        CPU, or None when there is none."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        path = os.path.join(_ckpt_dir(self.output_dir, step), STATE_FILE)
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        LOGGER.info(f"restored checkpoint at step {step}")
+        return payload
+
+
+def load_state(state, payload: Mapping[str, Any]) -> None:
+    """Copy a restored payload into ``state``'s model and optimizer (keeping
+    their devices and dtypes) and set its micro-step counter."""
+    state.model.load_state_dict(payload["params"], strict=True)
+    state.optimizer.load_state_dict(payload["opt_state"])
+    state.step = int(payload.get("micro_step") or payload["step"])
+
+
+# ---------------------------------------------------------------------------
+# checkpoint surgery
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] weights of ``jax.image.resize``'s bilinear (triangle)
+    kernel along one axis, antialiased: the kernel widens by n_in / n_out when
+    it shrinks (jax/_src/image/scale.py:compute_weight_mat)."""
+    scale = np.float32(n_out) / np.float32(n_in)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample_f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def _resize_grid(img: np.ndarray, dst_hw) -> np.ndarray:
+    """[h, w, c] -> [H, W, c] bilinear, as ``jax.image.resize``."""
+    h, w, _ = img.shape
+    out = img
+    if h != dst_hw[0]:
+        out = np.einsum("hwc,hH->Hwc", out, _bilinear_weights(h, dst_hw[0]))
+    if w != dst_hw[1]:
+        out = np.einsum("hwc,wW->hWc", out, _bilinear_weights(w, dst_hw[1]))
+    return out.astype(np.float32)
+
+
+def bilinear_resize_pos_embed(pos: np.ndarray, new_grid: int, has_cls: bool = True) -> np.ndarray:
+    """[(1+)g*g, C] -> [(1+)G*G, C] bilinear over the spatial grid
+    (reference: model/clip.py:481-491, modeling.py:520-527)."""
+    pos = np.asarray(pos, np.float32)
+    grid = pos[1:] if has_cls else pos
+    g = int(round(len(grid) ** 0.5))
+    return bilinear_resize_pos_embed_2d(pos, (g, g), (new_grid, new_grid), has_cls)
+
+
+def bilinear_resize_pos_embed_2d(pos: np.ndarray, src_hw, dst_hw, has_cls: bool = True) -> np.ndarray:
+    """Non-square variant for the AST pos-emb remap (modeling.py:520-527)."""
+    pos = np.asarray(pos, np.float32)
+    cls = pos[:1] if has_cls else None
+    grid = pos[1:] if has_cls else pos
+    c = grid.shape[-1]
+    out = _resize_grid(grid.reshape(src_hw[0], src_hw[1], c), dst_hw)
+    out = out.reshape(dst_hw[0] * dst_hw[1], c)
+    return np.concatenate([cls, out], axis=0) if has_cls else out
+
+
+def extend_frame_embedding(frame_emb: np.ndarray, n_needed: int) -> np.ndarray:
+    """Copy the last trained row into rows beyond the pretrain frame count
+    (reference: train_utils.py:148-151), or truncate to the first
+    ``n_needed`` rows when finetuning with fewer frames than pretraining."""
+    fe = np.asarray(frame_emb)
+    n_have = fe.shape[1]
+    if n_needed == n_have:
+        return fe
+    if n_needed < n_have:
+        return fe[:, :n_needed]
+    pad = np.repeat(fe[:, -1:], n_needed - n_have, axis=1)
+    return np.concatenate([fe, pad], axis=1)
+
+
+def adapt_pretrained_params(params: Mapping[str, Any], target: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """Shape-adapt a loaded ``state_dict`` onto ``target``'s (name -> tensor):
+    position-embedding resize for the CLIP vision tower, frame-embedding
+    extension; everything else taken as it is where the shapes match and
+    ``target``'s otherwise (strict=False load semantics, modeling.py:107-115).
+    The result has ``target``'s dtypes and devices."""
+    out: Dict[str, torch.Tensor] = {}
+    missing, mismatched = [], []
+    for key, dst in target.items():
+        src = params.get(key)
+        if src is None:
+            missing.append(key)
+            out[key] = dst
+            continue
+        src = src.detach().cpu().numpy() if isinstance(src, torch.Tensor) else np.asarray(src)
+        if src.shape == tuple(dst.shape):
+            new = src
+        elif "positional_embedding" in key and src.ndim == 2 and "clip_vision" in key:
+            new = bilinear_resize_pos_embed(src, int(round((dst.shape[0] - 1) ** 0.5)))
+        elif "frame_embedding" in key and src.ndim == 3:
+            new = extend_frame_embedding(src, dst.shape[1])
+        else:
+            mismatched.append(f"{key}: {src.shape} -> {tuple(dst.shape)}")
+            out[key] = dst
+            continue
+        out[key] = torch.as_tensor(np.ascontiguousarray(new)).to(dst.device, dst.dtype)
+    if missing:
+        LOGGER.info(f"missing keys (target-init): {missing[:20]}{'...' if len(missing) > 20 else ''}")
+    if mismatched:
+        LOGGER.info(f"shape-mismatched keys (target-init): {mismatched}")
+    return out

@@ -29,7 +29,7 @@ every k calls.  The arithmetic is plain tensor code over lists
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -147,6 +147,43 @@ class GroupedAdam:
 
     def lr(self, label: str, step: int) -> float:
         return float(self.schedules[label](step))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything an exact resume needs (the counterparts of the optax
+        state): the moments, the update count, ``mini_step`` and
+        ``gradient_step`` of the accumulation, and its half-accumulated
+        gradients ``acc`` (None without accumulation).  The tensors are the
+        optimizer's own, not copies."""
+        return {
+            "names": list(self.names),
+            "count": self.count,
+            "mini_step": self.mini_step,
+            "gradient_step": self.gradient_step,
+            "mu": list(self.mu),
+            "nu": list(self.nu),
+            "acc": None if self.acc is None else list(self.acc),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy ``state`` (from ``state_dict``, on any device) into this
+        optimizer's tensors, keeping their device and dtype."""
+        if list(state["names"]) != self.names:
+            raise ValueError("optimizer state is for another parameter list")
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("optimizer state is for another gradient_accumulation_steps")
+        for mine, theirs in (("mu", state["mu"]), ("nu", state["nu"]), ("acc", state["acc"] or [])):
+            dst = getattr(self, mine) or []
+            if len(dst) != len(theirs):
+                raise ValueError(f"optimizer state has {len(theirs)} {mine} tensors, not {len(dst)}")
+            for d, t in zip(dst, theirs):
+                if d.shape != t.shape or d.dtype != t.dtype:
+                    raise ValueError(f"optimizer {mine}: {tuple(t.shape)} {t.dtype} "
+                                     f"for {tuple(d.shape)} {d.dtype}")
+                d.copy_(t)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> bool:

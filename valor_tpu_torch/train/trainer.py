@@ -7,7 +7,14 @@ counts its global step: with gradient accumulation k, k micro-batches make one
 step.  Per-task ``RunningMeter``s see every step's losses; the loop reads the
 device once per log interval (every 100 steps), not once per step.  Batches
 are dicts of numpy arrays or tensors in the collate layout; host-only keys are
-dropped and the rest moved to the model's device.
+dropped and the rest moved to the model's device.  With ``prefetch`` (the
+default, ``TrainConfig.prefetch``) an iterator of pairs, such as a
+``MetaLoader``, goes through ``data.loader.DevicePrefetcher``: one batch in
+flight to the card, copied on a side stream while the step runs; a list of
+pairs is moved step by step.  A resumed state starts at its ``step``, counted
+in micro-batches.  At each log point the meters go to ``TB_LOGGER`` too, with
+the data-stall share (host time blocked on the input pipeline over the
+window); ``data_wait_s`` keeps that host time over the whole run.
 
 SCST finetuning (``scst_finetuning`` on a ``cap`` task) is not ported and
 raises; ``train_inner_steps`` (steps fused into one compiled call on a TPU) is
@@ -23,7 +30,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from valor_tpu_torch.core.config import Config
-from valor_tpu_torch.core.logging import LOGGER, RunningMeter
+from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, RunningMeter
+from valor_tpu_torch.data.loader import DevicePrefetcher
 from valor_tpu_torch.core.tasks import TaskSpec, parse_task
 from valor_tpu_torch.train.step import TrainState, to_device, train_step
 
@@ -43,14 +51,18 @@ class Trainer:
         validate_fn: Optional[Callable[[Any, int], Dict[str, Dict[str, float]]]] = None,
         saver=None,
         step_hook: Optional[Callable[[int, str, Dict[str, torch.Tensor]], None]] = None,
+        prefetch: bool = True,
     ):
         self.cfg = cfg
         self.state = state
+        self.device = next(state.model.parameters()).device
+        if prefetch and meta_loader is not None and not isinstance(meta_loader, list):
+            meta_loader = DevicePrefetcher(meta_loader, self.device)
         self.meta_loader = meta_loader
         self.validate_fn = validate_fn
         self.saver = saver
         self.step_hook = step_hook
-        self.device = next(state.model.parameters()).device
+        self.data_wait_s = 0.0  # host time blocked on the input pipeline, whole run
         self.meters: Dict[str, RunningMeter] = {}
         self.best: Dict[str, float] = {}
         # (micro-step, task, {metric: float}) of the last 10000 steps, read at log points
@@ -95,7 +107,9 @@ class Trainer:
         while True:
             t0 = time.perf_counter()
             item = next(loader_it, None)
-            data_wait += time.perf_counter() - t0
+            waited = time.perf_counter() - t0
+            data_wait += waited
+            self.data_wait_s += waited
             if item is None or step >= t.num_train_steps:
                 break
             task_name, batch = item
@@ -121,6 +135,9 @@ class Trainer:
                     f"step {step}/{t.num_train_steps} "
                     f"({step / max(now - t_start, 1e-9):.2f} it/s, data_stall={stall:.1%}) "
                     + " ".join(f"{k}={v:.4f}" for k, v in ms.items()))
+                TB_LOGGER.set_step(step)
+                ms["data_stall"] = stall
+                TB_LOGGER.log_scalar_dict(ms)
             if t.valid_steps and step // t.valid_steps > last_evaled // t.valid_steps:
                 last_evaled = step
                 self._drain_metrics()
