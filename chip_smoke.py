@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 9; any failure ends the run with a traceback
-and a non-zero exit code, and no result line:
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 9; any failure ends the run with
+a traceback and a non-zero exit code, and no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      and the build of every kernel from ``valor_tpu_torch/csrc``: one nvcc a
@@ -23,7 +23,8 @@ and a non-zero exit code, and no result line:
      direct ``Generator.generate`` at its bucket size, and the kernel launch
      count equal to the number of LayerNorms the served batches run;
   5. the HTTP frontend with the image featurizer: /healthz, four POST
-     /generate with JPEG paths, /stats and a 400 case;
+     /generate with JPEG paths, /stats, a 400 case, and two requests with a
+     question (a short one and one of 40 ids, which no pad cuts);
   6. the LayerNorm backward kernel against its plain version at the shapes
      the pretraining step gives it at batch 32 (and a ragged and a 4096-wide
      one), bf16 and f32 (and x and dy in different types at the fusion
@@ -80,11 +81,37 @@ and a non-zero exit code, and no result line:
      batch against ``fbank_np``; it prints samples/s from disk against phase
      12's synthetic rate, the data-stall share, peak memory, save and restore
      seconds and validation items/s;
-  9. every shape that the main paths of phases 4, 8, 12 and 14 handed each
-     kernel is held against the plain version: listed where phase 2, 6 or 10
-     compared it, compared here where they did not.
+  7b. the tiny config on the card against the CPU for the caption and QA
+     slice, fp32 with TF32 off: one ``cap%tva`` and one ``qa%tva`` training
+     step (a multi-answer batch with ``tile_index`` and ``answer_weights``) to
+     phase 7's tolerances, and greedy and beam-3 captions and greedy answers
+     decoded from clip-span waveforms through the device fbank, equal token
+     for token;
+  15. caption finetuning from disk through ``cli.train``'s ``main`` at the full
+     width of ``configs/caption-msrvtt.json`` (``cap%tva``, batch 64, 4
+     frames, 1 clip, bf16; seeded random weights): a seeded MSR-VTT-shaped
+     dataset written to a temporary directory (320 training ids with 20
+     captions, 128 evaluation ids with 20 references, the media of phase 14's
+     shape, written once for phases 15 and 16), the config's evaluation
+     before training, 10 steps and the final validation (beam 3, 30 tokens);
+     losses finite, the report's Bleu_4, CIDEr, METEOR and ROUGE_L finite, a
+     step dump of every evaluation id, the LayerNorm launches those of the
+     path and no fine-score launch; it prints samples/s, the data-stall
+     share, peak memory, captions/s of the validation and the share of it in
+     ``caption_eval`` (and ``meteor_lite`` within it);
+  16. QA finetuning from disk the same way at the full width of
+     ``configs/qa-msrvtt.json`` (``qa%tva``; 1-3 MSR-VTT-QA pairs an id; the
+     validation at 8 frames, greedy, 10 tokens, one row a question): losses
+     finite, ``accuracy`` present, the ground-truth and prediction dumps one
+     row a question, the launches those of the path; it prints samples/s,
+     the data stall, peak memory, the text and media rows of the training
+     batches and answers/s of the validation;
+  9. every shape that the main paths of phases 4, 8, 12, 14, 15 and 16 handed
+     each kernel is held against the plain version: listed where phase 2, 6
+     or 10 compared it, compared here where they did not.
 
-It prints a ``{"kernels": [...]}`` line, and as its last line
+It prints a ``{"kernels": [...]}`` line (launches by path: serving,
+pretraining, retrieval, cli_train, cap_train and qa_train), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
 """
@@ -454,11 +481,13 @@ def _stack(items):
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
-def expected_ln_launches(model) -> int:
-    """LayerNorm launches of one served cap%tva batch: every LayerNorm of the
-    two encoders and the adapters once, and every LayerNorm of the fusion
-    encoder (embedding LN, self, cross and output LN of each layer) and of
-    the head once per decode step.  26 + 25 + 38 * 30 = 1191 for VALOR-base."""
+def expected_ln_launches(model, prompt: bool = False) -> int:
+    """LayerNorm launches of one served or validated cap%tva batch: every
+    LayerNorm of the two encoders and the adapters once, and every LayerNorm
+    of the fusion encoder (embedding LN, self, cross and output LN of each
+    layer) and of the head once per decode step, with one more a step where
+    a prompt (a question) is embedded.  26 + 25 + 38 * 30 = 1191 for
+    VALOR-base; 26 + 25 + 39 * 10 = 441 for qa%tva's 10 steps."""
     from valor_tpu_torch.ops.layers import LayerNorm
 
     def count(*mods):
@@ -466,7 +495,7 @@ def expected_ln_launches(model) -> int:
 
     encode = count(model.clip_vision, model.audio_encoder,
                    getattr(model, "video_adapter_ln", None), getattr(model, "audio_adapter_ln", None))
-    step = count(model.multimodal_encoder, model.cls_head)
+    step = count(model.multimodal_encoder, model.cls_head) + prompt
     return encode + step * model.cfg.max_generation_len
 
 
@@ -594,7 +623,7 @@ def phase_http(model, cfg):
         cfg_s = ServeConfig(buckets=(1, 4, 16), max_wait_ms=50.0, group="tva",
                             max_len=cfg.max_generation_len)
         with InferenceEngine(model, cfg_s) as eng:
-            server = start_server(eng, image_featurizer(cfg),
+            server = start_server(eng, image_featurizer(cfg, tok),
                                   lambda s: decode_sequence(tok, s), port=0)
             try:
                 base = "http://%s:%d" % server.server_address
@@ -624,6 +653,12 @@ def phase_http(model, cfg):
                 code, out = post({"image_path": str(Path(tmp) / "missing.jpg")})
                 if code != 400:
                     raise AssertionError(f"missing image: expected 400, got {code} {out}")
+                # questions: a short one, and one of 40 ids with [CLS] and [SEP] that no pad cuts
+                asked = [post({"image_path": paths[0], "question": q})
+                         for q in ("is the man playing", " ".join((words[:6] * 7)[:38]))]
+                for qcode, qout in asked:
+                    if qcode != 200 or not isinstance(qout.get("text"), str):
+                        raise AssertionError(f"POST /generate with a question: {qcode} {qout}")
             finally:
                 server.shutdown()
                 server.server_close()
@@ -631,6 +666,7 @@ def phase_http(model, cfg):
         "generate": [{"bucket": o["bucket"], "batch_size": o["batch_size"],
                       "latency_s": o["latency_s"], "text": o["text"][:40]} for _, o in outs],
         "stats_batches": stats["batches"], "bad_request": code,
+        "questions": [{"code": c, "bucket": o["bucket"], "text": o["text"][:40]} for c, o in asked],
     }))
 
 
@@ -720,7 +756,8 @@ def phase_layernorm_bwd():
 def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
     """One training step of ``task_name`` on the tiny config (fp32,
     caption_type lm, dropout 0: no random draws) on the card and on the CPU
-    from the same weights.
+    from the same weights; a QA task takes a multi-answer batch with
+    ``tile_index`` and ``answer_weights`` (``data/synthetic.py:qa_batch``).
     Losses within 1e-4; gradients within 1e-4 absolute and relative (fp32
     sums in another order); updated parameters: every element within one
     learning-rate step and 99.9 % within 2 % of one (Adam turns a relative
@@ -729,7 +766,7 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
 
     from valor_tpu_torch.core.config import TrainConfig
     from valor_tpu_torch.core.tasks import parse_task
-    from valor_tpu_torch.data.synthetic import pretrain_batch
+    from valor_tpu_torch.data.synthetic import pretrain_batch, qa_batch
     from valor_tpu_torch.models.bridge import init_params, train_model
     from valor_tpu_torch.ops.kernels import layernorm as K
     from valor_tpu_torch.ops.layers import RNGStreams, rng_scope
@@ -742,8 +779,9 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
     lr = 1e-3
     tcfg = TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr, num_train_steps=10, grad_norm=0.5)
     sd = init_params(cfg, seed=0, device="cpu")
-    data = pretrain_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=1)
     task = parse_task(task_name)
+    data = (qa_batch(cfg, 4, frames=2, clips=1, n_question=8, seed=1) if task.family == "qa"
+            else pretrain_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=1))
     res = {}
     for dev in ("cpu", device):
         model = train_model(cfg, {k: v.to(dev) for k, v in sd.items()}, dev)
@@ -784,12 +822,14 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
 # -- phase 8 ------------------------------------------------------------------
 def expected_train_ln_launches(model, spec) -> int:
     """LayerNorms one training step runs (each once forward and once
-    backward): the towers the task's groups use, the adapters (pretraining
-    only: the retrieval forward builds no fusion input), and the fusion
-    encoder with its head once per caption and MLM group.  26 ViT + 25 CLIP
-    text + 25 AST + 3 x 38 fusion = 190 for VALOR-base on
+    backward): the towers the task's groups use, the adapters (not in
+    retrieval: its forward builds no fusion input), and the fusion encoder
+    with its head once per caption, MLM or QA group.  26 ViT + 25 CLIP text +
+    25 AST + 3 x 38 fusion = 190 for VALOR-base on
     pt_contra%tva%tv%ta_caption%tva%tv%ta; 26 + 25 + 25 = 76 on ret%tva%tv,
-    also what one evaluation forward of ret%tva%tv runs."""
+    also what one evaluation forward of ret%tva%tv runs; 26 + 25 + 38 = 89
+    on cap%tva, and 90 on qa%tva, whose question prompt is embedded (and
+    LayerNormed) apart from the answer."""
     from valor_tpu_torch.ops.layers import LayerNorm
 
     def count(mod, skip_cross=False):
@@ -798,14 +838,14 @@ def expected_train_ln_launches(model, spec) -> int:
         return sum(isinstance(x, LayerNorm) and not (skip_cross and "cross_attn" in name)
                    for name, x in mod.named_modules())
 
-    n, adapters = 0, spec.family == "pt"
+    n, adapters = 0, spec.family in ("pt", "cap", "qa")
     if spec.uses_video:
         n += count(model.clip_vision) + adapters * count(getattr(model, "video_adapter_ln", None))
     if spec.uses_audio:
         n += count(model.audio_encoder) + adapters * count(getattr(model, "audio_adapter_ln", None))
     if spec.contra_groups and any("t" in g for g in spec.contra_groups):
         n += count(model.text_encoder, skip_cross=True)
-    fusion = count(model.multimodal_encoder) + count(model.cls_head)
+    fusion = count(model.multimodal_encoder) + count(model.cls_head) + (spec.family == "qa")
     return n + fusion * (len(spec.caption_groups) + len(spec.mlm_groups))
 
 
@@ -1547,21 +1587,297 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
     return summary
 
 
+# -- phases 7b, 15 and 16: caption and QA finetuning ---------------------------
+def phase_cap_qa_card_vs_cpu(device: str = "cuda"):
+    """The tiny config (fp32, TF32 off) on the card against the CPU for the
+    caption and QA slice: one ``cap%tva`` and one ``qa%tva`` training step (a
+    multi-answer batch) to phase 7's tolerances, and sequences decoded from
+    clip-span waveforms through the device fbank (``audio_waveforms``), greedy
+    and beam 3 captions and greedy answers to tiled questions, equal token for
+    token."""
+    import torch
+
+    from valor_tpu_torch.data.fbank import clip_span_samples
+    from valor_tpu_torch.data.synthetic import qa_batch
+    from valor_tpu_torch.eval.generate import Generator
+    from valor_tpu_torch.models.bridge import init_params, load_model
+
+    steps = {t: phase_train_card_vs_cpu(device, t) for t in ("cap%tva", "qa%tva")}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_config()
+    sd = init_params(cfg, seed=0, device="cpu")
+    models = {"cpu": load_model(cfg, sd, "cpu"), device: load_model(cfg, {k: v.to(device) for k, v in sd.items()},
+                                                                    device)}
+    rng = np.random.RandomState(3)
+    media = {"video_pixels": rng.randint(0, 256, size=(4, 2, 32, 32, 3), dtype=np.uint8),
+             "audio_waveforms": (rng.randn(4, 1, clip_span_samples(32)) * 0.3).astype(np.float32),
+             "audio_valid_frames": np.array([[32], [20], [-1], [32]], np.int32)}
+    qa = qa_batch(cfg, 4, frames=2, clips=1, n_question=8, seed=4)
+    questions = dict(media, question_prompt=qa["question_prompt"], tile_index=qa["tile_index"])
+    out = {}
+    for name, batch, groups, kw in (
+        ("caption_greedy", media, ("tva",), dict(max_len=6)),
+        ("caption_beam3", media, ("tva",), dict(max_len=6, beam_size=3)),
+        ("qa_greedy", questions, ("tva", "ta"), dict(max_len=4)),
+    ):
+        seqs = {}
+        for d, m in models.items():
+            res = Generator(m).generate(batch, groups, **kw)
+            seqs[d] = np.concatenate([res[f"generated_sequences_{g}"].cpu().numpy() for g in groups])
+        if not np.array_equal(seqs["cpu"], seqs[device]):
+            raise AssertionError(f"{name}: card {seqs[device].tolist()} != cpu {seqs['cpu'].tolist()}")
+        out[name] = seqs[device].tolist()
+    torch.backends.cudnn.allow_tf32 = True
+    log("card vs cpu caption and QA " + json.dumps({"steps": {t: {k: v for k, v in r.items() if k != "task"}
+                                                               for t, r in steps.items()},
+                                                     "equal_sequences": out}))
+    return {"steps": steps, "sequences": out}
+
+
+@contextlib.contextmanager
+def record_generative_validations(sync):
+    """Yields a list that fills with one record a ``validate_cap`` or
+    ``validate_qa`` call: its kind, evaluation items (ids) and generated rows,
+    seconds between two synchronisations, the seconds inside ``caption_eval``
+    and, within it, ``meteor_lite``, and the report."""
+    from valor_tpu_torch.eval import cococaption as CC
+    from valor_tpu_torch.eval import validate as V
+
+    calls = []
+    fns = {"cap": V.validate_cap, "qa": V.validate_qa}
+    eval0, meteor0 = V.caption_eval, CC.meteor_lite
+    timers = {"caption_eval_s": 0.0, "meteor_lite_s": 0.0}
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timers[key] += time.perf_counter() - t0
+        return wrapped
+
+    def make(kind, fn0):
+        def fn1(model, loader, *a, **kw):
+            seen = {"items": 0, "rows": 0}
+
+            def counted(it):
+                for b in it:
+                    seen["items"] += len(b["ids"])
+                    seen["rows"] += len(b["tile_index"]) if b.get("tile_index") is not None else len(b["ids"])
+                    yield b
+
+            timers.update(caption_eval_s=0.0, meteor_lite_s=0.0)
+            sync()
+            t0 = time.perf_counter()
+            report = fn0(model, counted(loader), *a, **kw)
+            sync()
+            calls.append(dict(kind=kind, seconds=time.perf_counter() - t0, report=report, **seen, **timers))
+            return report
+        return fn1
+
+    V.validate_cap, V.validate_qa = make("cap", fns["cap"]), make("qa", fns["qa"])
+    V.caption_eval, CC.meteor_lite = timed(eval0, "caption_eval_s"), timed(meteor0, "meteor_lite_s")
+    try:
+        yield calls
+    finally:
+        V.validate_cap, V.validate_qa = fns["cap"], fns["qa"]
+        V.caption_eval, CC.meteor_lite = eval0, meteor0
+
+
+@contextlib.contextmanager
+def record_batch_rows():
+    """Yields a list that fills with (text rows, media rows) of every batch
+    that ``Trainer`` hands ``train_step``."""
+    from valor_tpu_torch.train import trainer as T
+
+    rows, step0 = [], T.train_step
+
+    def step1(state, batch, *a, **kw):
+        media = batch.get("video_pixels", batch.get("audio_waveforms"))
+        rows.append((int(batch["bert_tokens"].shape[0]), int(media.shape[0])))
+        return step0(state, batch, *a, **kw)
+
+    T.train_step = step1
+    try:
+        yield rows
+    finally:
+        T.train_step = step0
+
+
+def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "cuda", overrides=None,
+                       synthetic=None):
+    """``valor_tpu_torch.cli.train`` from disk at the full width of
+    ``configs/caption-msrvtt.json`` (``kind`` "cap") or ``configs/qa-msrvtt.json``
+    ("qa"), with only the dataset paths (``paths``, a ``data/synthetic.py``
+    writer's), ``output_dir``, ``num_train_steps`` and ``valid_steps`` changed:
+    the config's evaluation before training (``first_eval``), ``steps`` steps,
+    then the trainer's final validation over the evaluation ids, whose figures
+    are checked and reported.
+    ``overrides`` shrink the model for a CPU rehearsal (device "cpu");
+    ``synthetic`` is a from-disk summary whose samples/s this run's is set against."""
+    import os
+
+    import torch
+
+    from valor_tpu_torch.cli.train import main
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    name = {"cap": "caption-msrvtt.json", "qa": "qa-msrvtt.json"}[kind]
+    env0 = {k: os.environ.get(k) for k in ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")}
+    with tempfile.TemporaryDirectory(prefix=f"valor_cli_{kind}_") as tmp:
+        raw = json.loads((ROOT / "configs" / name).read_text())
+        for split in ("train", "val"):
+            for flow in raw["data_cfg"][split]:
+                for ds in flow["datasets"]:
+                    ds.update(ids_path=paths[f"{split}_ids"], txt=paths[f"{split}_txt"],
+                              video=paths["frames"], audio=paths["audio"])
+        out_dir = os.path.join(tmp, "out")
+        raw.update(output_dir=out_dir, num_train_steps=steps, valid_steps=0, **(overrides or {}))
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
+                          VALOR_PRETRAINED_DIR=os.path.join(tmp, "no_public_weights"))
+        try:
+            cfg = load_config(cfg_path)
+            spec = parse_task(cfg.data_train[0].task)
+            with record_trainers(sync, cuda) as runs, record_generative_validations(sync) as evals, \
+                    record_batch_rows() as rows, record_ln_calls() as (sigs_fwd, sigs_bwd):
+                K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+                trainer = main(["--config", cfg_path, *([] if cuda else ["--device", device])])
+                launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+            results = os.path.join(out_dir, f"results_test_{cfg.data_val[0].datasets[0].name}")
+            dumps = {f: json.load(open(os.path.join(results, f))) for f in sorted(os.listdir(results))}
+            with open(paths["val_txt"]) as f:
+                val_txt = json.load(f)
+        finally:
+            for k, v in env0.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    rec, history = runs[0], list(trainer.history)
+    model = trainer.state.model
+    if trainer.state.optimizer.gradient_step != steps or len(history) != steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.state.optimizer.gradient_step} updates")
+    loss_key = "caption_loss" if kind == "cap" else "qa_loss"
+    if not all(np.isfinite(h[2][loss_key]) and np.isfinite(h[2]["grad_norm"]) for h in history):
+        raise AssertionError(f"non-finite loss: {history}")
+    n_evals = 1 + bool(cfg.train.first_eval)  # the config's evaluation before training, and the final one
+    if len(evals) != n_evals or any(e["items"] != len(val_txt) for e in evals):
+        raise AssertionError(f"validations {[(e['kind'], e['items']) for e in evals]}, "
+                             f"expected {n_evals} of {len(val_txt)}")
+    ev = evals[-1]
+    report = ev["report"]
+    group = spec.caption_groups[0]
+    if kind == "cap":
+        keys = ("Bleu_4", "CIDEr", "METEOR", "ROUGE_L")
+        if not all(k in report and np.isfinite(report[k]) for k in keys):
+            raise AssertionError(f"caption report {report}")
+        dump = dumps.get(f"step_{steps}_{group}.json", [])
+        if len(dump) != len(val_txt):
+            raise AssertionError(f"step_{steps}_{group}.json holds {len(dump)} captions, not {len(val_txt)}")
+    else:
+        n_questions = sum(len(v) for v in val_txt.values())
+        if "accuracy" not in report or not np.isfinite(report["accuracy"]) or ev["rows"] != n_questions:
+            raise AssertionError(f"QA report {report}, {ev['rows']} rows for {n_questions} questions")
+        for f in (f"step{steps}_gt.json", f"step{steps}_{group}_pred.json"):
+            if len(dumps.get(f, [])) != n_questions:
+                raise AssertionError(f"{f} holds {len(dumps.get(f, []))} rows, not {n_questions}")
+    per_step = expected_train_ln_launches(model, spec)
+    val_batches = -(-len(val_txt) // cfg.data_val[0].batch_size)
+    per_val_batch = expected_ln_launches(model, prompt=kind == "qa")
+    expected = ((per_step * steps + n_evals * val_batches * per_val_batch, per_step * steps, 0)
+                if cuda else (0, 0, 0))
+    if launches != expected:
+        raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+
+    step_s = np.diff([rec["start"]] + rec["stamps"])
+    wait_s = np.diff([0.0] + rec["waits"])
+    timed = step_s[2:]  # steps 3-10: the first two are warm-up
+    batch_size = cfg.data_train[0].batch_size
+    median = float(np.median(timed))
+    summary = {
+        "config": f"configs/{name}", "task": cfg.data_train[0].task, "batch": batch_size,
+        "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
+        "val_frames": cfg.data_val[0].video_sample_num, "train_items": len(json.load(open(paths["train_ids"]))),
+        "val_items": len(val_txt), "steps": steps, "median_step_s": median,
+        "samples_per_s": batch_size / median, "step_s": [float(v) for v in step_s],
+        "data_wait_s": [float(v) for v in wait_s], "data_stall_share": float(wait_s[2:].sum() / timed.sum()),
+        "device_idle_share": "not measured (no profiler trace in this phase)",
+        "max_memory_allocated_gib": rec["peak"] / 2**30,
+        "train_rows_text_media": sorted(set(rows)),
+        "loss": [h[2][loss_key] for h in history],
+        "validations": [{k: e[k] for k in ("items", "rows", "seconds", "caption_eval_s", "meteor_lite_s")}
+                        for e in evals],
+        "report": report, "dumps": {f: len(v) for f, v in dumps.items()},
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_step": per_step, "ln_per_val_batch": per_val_batch, "val_batches": val_batches,
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+    }
+    if kind == "cap":
+        summary["captions_per_s"] = ev["items"] / ev["seconds"]
+        summary["caption_eval_share"] = ev["caption_eval_s"] / ev["seconds"]
+        summary["beam_size"], summary["max_len"] = cfg.model.beam_size, cfg.model.max_generation_len
+    else:
+        summary["answers_per_s"] = ev["rows"] / ev["seconds"]
+        summary["beam_size"], summary["max_len"] = cfg.model.beam_size_qa, cfg.model.max_generation_len
+    if synthetic:
+        summary["retrieval_from_disk_samples_per_s"] = synthetic["samples_per_s"]
+    log(f"cli_{kind} " + json.dumps(summary))
+    return summary
+
+
+def phase_cap_qa_from_disk(n_train: int = 320, n_val: int = 128, steps: int = 10, fixture=None, overrides=None,
+                           device: str = "cuda", synthetic=None):
+    """Phases 15 and 16: a seeded MSR-VTT-shaped dataset (``n_train`` training
+    and ``n_val`` evaluation ids, media written once, caption and QA files
+    beside them) through ``phase_cli_finetune`` for ``cap`` and then ``qa``.
+    ``fixture`` and ``overrides`` shrink the media and the model for a CPU
+    rehearsal."""
+    import os
+
+    import torch
+
+    from valor_tpu_torch.data.synthetic import write_caption_dataset, write_qa_dataset
+
+    with tempfile.TemporaryDirectory(prefix="valor_cap_qa_") as tmp:
+        t0 = time.monotonic()
+        cap = write_caption_dataset(os.path.join(tmp, "cap"), n_train, n_val, **(fixture or {}))
+        qa = write_qa_dataset(os.path.join(tmp, "qa"), n_train, n_val, media=cap)
+        written = {"dataset_written_s": time.monotonic() - t0,
+                   "dataset_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                        for d, _, fs in os.walk(tmp) for f in fs)}
+        out = {}
+        for kind, paths in (("cap", cap), ("qa", qa)):
+            out[kind] = dict(phase_cli_finetune(kind, paths, steps, device, overrides, synthetic), **written)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    return out["cap"], out["qa"]
+
+
 # -- phase 9 ------------------------------------------------------------------
-def phase_path_shapes(serving, pretrain, retrieval, cli, ln_rows, bwd_rows, fs_rows):
-    """Every shape that the main paths of phases 4, 8, 12 and 14 handed each
-    kernel, held against its plain version: those that phases 2, 6 and 10
-    compared are listed as such, the others are compared here (on new seeded
-    inputs, with the same tolerances, untimed)."""
+def phase_path_shapes(paths, ln_rows, bwd_rows, fs_rows):
+    """Every shape that the main paths (``paths``: the summaries of phases 4,
+    8, 12, 14, 15 and 16) handed each kernel, held against its plain version:
+    those that phases 2, 6 and 10 compared are listed as such, the others are
+    compared here (on new seeded inputs, with the same tolerances, untimed)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for kind, sigs, rows in (
-        ("fwd", serving["layernorm_calls"] + pretrain["layernorm_calls"]
-         + retrieval["layernorm_calls"] + cli["layernorm_calls"], ln_rows),
-        ("bwd", pretrain["layernorm_bwd_calls"] + retrieval["layernorm_bwd_calls"]
-         + cli["layernorm_bwd_calls"], bwd_rows),
+        ("fwd", [c for p in paths for c in p.get("layernorm_calls", [])], ln_rows),
+        ("bwd", [c for p in paths for c in p.get("layernorm_bwd_calls", [])], bwd_rows),
     ):
         done = {tuple(r["sig"]) for r in rows}
         extra = []
@@ -1578,7 +1894,7 @@ def phase_path_shapes(serving, pretrain, retrieval, cli, ln_rows, bwd_rows, fs_r
             done.add((n, c, eps, xd, od))
         out[kind] = {"path_shapes": len({tuple(s) for s in sigs}), "compared_here": extra}
     done = {tuple(r["sig"]) for r in fs_rows}
-    sigs = {tuple(s) for s in retrieval["fine_score_calls"] + cli["fine_score_calls"]}
+    sigs = {tuple(s) for p in paths for s in p.get("fine_score_calls", [])}
     extra = [{"sig": list(s), "max_abs_err": check_fine(
         _fs_inputs(*s[:5], getattr(torch, s[5]), gen), f"fine_score path shape {s}")}
              for s in sorted(sigs - done)]
@@ -1627,19 +1943,25 @@ def main() -> int:
     cli = phase_cli_train(synthetic=retrieval)
     gc.collect()
     torch.cuda.empty_cache()
-    shapes = phase_path_shapes(serving, pretrain, retrieval, cli, ln_rows, bwd_rows, fs_rows)
+
+    phase_cap_qa_card_vs_cpu()
+    cap, qa = phase_cap_qa_from_disk(synthetic=cli)
+    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa], ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
     by_path = {"serving": serving["layernorm_launches"],
                "pretraining": pretrain["layernorm_launches_fwd_bwd"][0],
                "retrieval": retrieval["layernorm_launches_fwd_bwd"][0],
-               "cli_train": cli["layernorm_launches_fwd_bwd"][0]}
+               "cli_train": cli["layernorm_launches_fwd_bwd"][0],
+               "cap_train": cap["layernorm_launches_fwd_bwd"][0], "qa_train": qa["layernorm_launches_fwd_bwd"][0]}
     bwd_by_path = {"serving": 0, "pretraining": pretrain["layernorm_launches_fwd_bwd"][1],
                    "retrieval": retrieval["layernorm_launches_fwd_bwd"][1],
-                   "cli_train": cli["layernorm_launches_fwd_bwd"][1]}
+                   "cli_train": cli["layernorm_launches_fwd_bwd"][1],
+                   "cap_train": cap["layernorm_launches_fwd_bwd"][1], "qa_train": qa["layernorm_launches_fwd_bwd"][1]}
     fs_by_path = {"serving": 0, "pretraining": 0, "retrieval": retrieval["fine_score_launches"],
-                  "cli_train": cli["fine_score_launches"]}
+                  "cli_train": cli["fine_score_launches"], "cap_train": cap["fine_score_launches"],
+                  "qa_train": qa["fine_score_launches"]}
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

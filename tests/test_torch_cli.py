@@ -12,6 +12,7 @@ no room for BPE merges).  Tolerances: the first batch's ``ret%tva%tv`` loss
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +56,8 @@ def config(dataset, tmp_path, monkeypatch):
     monkeypatch.setenv("VALOR_BERT_VOCAB", dataset["vocab"])
     monkeypatch.setenv("VALOR_CLIP_BPE", dataset["merges"])
     monkeypatch.setenv("VALOR_PRETRAINED_DIR", str(tmp_path / "no_weights"))
+    # the golden-file tests stub tensorboardX (SummaryWriter=object) for the rest of their process
+    monkeypatch.delitem(sys.modules, "tensorboardX", raising=False)
 
     def write(name="config.json", train=None, val=None, **extra):
         cfg = {**TINY, "learning_rate": 1e-3, "num_train_steps": 2, "valid_steps": 0,
@@ -199,14 +202,12 @@ def test_main_needs_a_card_unless_asked_for_the_cpu(config, monkeypatch):
         main(["--config", config()])
 
 
-@pytest.mark.parametrize("case", ["cap_val", "qa_train", "scst", "prompts", "checkpoint_file", "weights"])
+@pytest.mark.parametrize("case", ["pt_val", "scst", "prompts", "checkpoint_file", "weights"])
 def test_unported_paths_raise(config, dataset, tmp_path, case):
     kw = {}
     argv = []
-    if case == "cap_val":
-        kw["val"] = [_flow(dataset, "val", "cap%tv", 4)]
-    elif case == "qa_train":
-        kw["train"] = [_flow(dataset, "train", "qa%tv", 4)]
+    if case == "pt_val":
+        kw["val"] = [_flow(dataset, "val", "pt_contra%tv_caption%tv", 4)]
     elif case == "scst":
         kw["scst_finetuning"] = True
     elif case == "prompts":
@@ -221,6 +222,31 @@ def test_unported_paths_raise(config, dataset, tmp_path, case):
         _main("--config", config(**kw), *argv)
 
 
+@pytest.mark.parametrize("case", ["missing_checkpoint", "missing_pretrain_dir", "empty_checkpoint_dir",
+                                  "empty_pretrain_dir", "missing_pretrain_step"])
+def test_weights_that_are_not_there_raise(config, tmp_path, case):
+    """A ``--checkpoint`` or ``--pretrain_dir`` that names no path, or a run
+    directory without a ``ckpt/step_N``, is an error: the run must not go on
+    from random weights (the JAX package trains on there without a word)."""
+    flag = "--checkpoint" if "checkpoint" in case else "--pretrain_dir"
+    target = tmp_path / "typo"
+    argv = []
+    if case.startswith("empty"):
+        (target / "log").mkdir(parents=True)
+    elif case == "missing_pretrain_step":
+        _main("--config", config(output_dir=str(target)))  # saves ckpt/step_2 only
+        argv = ["--pretrain_step", "7"]
+    with pytest.raises(FileNotFoundError, match="typo"):
+        _main("--config", config(), flag, str(target), *argv)
+    assert not (target / "ckpt").exists() or case == "missing_pretrain_step"
+
+
+def test_resume_on_a_fresh_output_dir_is_a_first_run(config, tmp_path):
+    trainer = _main("--config", config(), "--resume", "true")
+    assert [h[0] for h in trainer.history] == [1, 2]
+    assert os.listdir(tmp_path / "out" / "ckpt") == ["step_2"]
+
+
 def test_parse_cli_matches_jax():
     from valor_tpu.cli.train import parse_cli as jparse
     from valor_tpu_torch.cli.train import parse_cli
@@ -230,10 +256,12 @@ def test_parse_cli_matches_jax():
     assert dataclasses.asdict(parse_cli(argv)) == dataclasses.asdict(jparse(argv))
 
 
-def test_tensorboard_logger_writes_scalars(tmp_path):
+def test_tensorboard_logger_writes_scalars(tmp_path, monkeypatch):
     """The run's TB_LOGGER writes under ``<output_dir>/tb`` where a writer imports,
     and is a silent no-op where none does."""
     from valor_tpu_torch.core.logging import TensorboardLogger
+
+    monkeypatch.delitem(sys.modules, "tensorboardX", raising=False)  # a golden file's stub, if any
 
     tb = TensorboardLogger()
     tb.add_scalar("before", 1.0)  # no writer yet: nothing happens

@@ -105,3 +105,28 @@ def test_generator_stats_count_batches(models):
         ("decode", "unimlm", 3, 1, "greedy"): 2,
         ("decode", "unimlm", 3, 2, "greedy"): 1,
     }
+
+
+@pytest.mark.parametrize("beam_size", [1, 3])
+def test_sequences_from_waveforms_match_jax(models, beam_size):
+    """Clip-span waveforms (the device fbank's input, one clip without audio)
+    decode to the JAX package's sequences, token for token, and to the port's
+    own sequences from the same clips' log-mel spectrograms."""
+    from valor_tpu_torch.data.fbank import clip_span_samples, fbank_clips_from_spans
+
+    jm, params, tm = models
+    rng = np.random.RandomState(17)
+    batch = {"video_pixels": tiny_batch(seed=17, b=4)["video_pixels"],
+             "audio_waveforms": (rng.randn(4, 2, clip_span_samples(32)) * 0.3).astype(np.float32),
+             "audio_valid_frames": np.array([[32, 5], [32, 32], [-1, -1], [20, 32]], np.int32)}
+    ref = jgen.generate(jm, params, batch, ("tva", "ta"), max_len=6, beam_size=beam_size)
+    out = tgen.generate(tm, batch, ("tva", "ta"), max_len=6, beam_size=beam_size)
+    spec = fbank_clips_from_spans(torch.from_numpy(batch["audio_waveforms"]),
+                                  torch.from_numpy(batch["audio_valid_frames"]), melbins=16, target_length=32)
+    from_spec = tgen.generate(tm, {"video_pixels": batch["video_pixels"], "audio_spectrograms": spec},
+                              ("tva", "ta"), max_len=6, beam_size=beam_size)
+    for g in ("tva", "ta"):
+        seqs = out[f"generated_sequences_{g}"].numpy()
+        np.testing.assert_array_equal(seqs, np.asarray(ref[f"generated_sequences_{g}"]))
+        np.testing.assert_array_equal(seqs, from_spec[f"generated_sequences_{g}"].numpy())
+    assert len({tuple(r) for r in out["generated_sequences_ta"].tolist()}) > 1  # captions follow the audio

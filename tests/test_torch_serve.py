@@ -322,10 +322,59 @@ def test_image_featurizer_matches_jax_mapper(tmp_path):
     assert item["audio_spectrograms"].shape == (2, 16, 32)
     with pytest.raises(NotImplementedError):
         image_featurizer(torch_config(cfg))({"video_path": "clip.mp4"})
-    with pytest.raises(NotImplementedError):
-        image_featurizer(torch_config(cfg))({"image_path": "x.jpg", "question": "what?"})
+    with pytest.raises(RuntimeError, match="tokenizer"):  # a question needs the server's tokenizer
+        image_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "im.jpg"), "question": "what?"})
     with pytest.raises(FileNotFoundError):
         image_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "missing.jpg")})
+
+
+def _tokenizers(tmp_path):
+    from valor_tpu.data.tokenizers.wordpiece import BertTokenizer as JTok
+    from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer as TTok
+
+    (tmp_path / "vocab.txt").write_text("\n".join(TINY_VOCAB))
+    return JTok(str(tmp_path / "vocab.txt")), TTok(str(tmp_path / "vocab.txt"))
+
+
+@pytest.mark.parametrize("pad", [None, 12])
+def test_question_featurizer_matches_jax(tmp_path, pad):
+    """A question's prompt, ``[CLS] q [SEP]`` padded to ``question_pad``, equals
+    the JAX featurizer's, beside the same frame."""
+    from valor_tpu.cli.serve import _production_featurize
+    from valor_tpu.core.config import Config
+
+    cfg = tiny_model_config()
+    Image.fromarray(np.random.RandomState(2).randint(0, 256, (40, 50, 3), dtype=np.uint8)).save(
+        tmp_path / "im.jpg")
+    jtok, ttok = _tokenizers(tmp_path)
+    payload = {"image_path": str(tmp_path / "im.jpg"), "question": "What is the cat on?"}
+    if pad:
+        payload["question_pad"] = pad
+    ref = _production_featurize(Config(model=cfg), jtok)(payload)
+    item = image_featurizer(torch_config(cfg), ttok)(payload)
+    assert item.keys() == ref.keys()
+    for k in ref:
+        assert item[k].dtype == ref[k].dtype
+        np.testing.assert_array_equal(item[k], ref[k], err_msg=k)
+    assert item["question_prompt"].shape == (pad or 32,) and item["question_prompt"][0] == 101
+
+
+def test_long_question_keeps_every_token(tmp_path):
+    """A 40-token question is not cut at ``question_pad``: every token and the
+    closing [SEP] survive, padded to a multiple of 8 (the JAX featurizer keeps
+    the first 32 ids and loses [SEP])."""
+    from valor_tpu_torch.cli.serve import question_prompt
+
+    _, tok = _tokenizers(tmp_path)
+    question = " ".join(["the cat sits on a mat"] * 7)[: len("the cat sits on a mat") * 7]
+    ids = tok.encode(question)[:38]
+    question = tok.decode(ids)
+    assert len(tok.encode(question)) == 38
+    q = question_prompt(tok, question)
+    assert q.shape == (40,) and q.dtype == np.int32
+    np.testing.assert_array_equal(q, [101] + ids + [102])
+    assert question_prompt(tok, question + " cat").shape == (48,)  # 41 ids -> 48
+    assert question_prompt(tok, "a cat", pad=32).shape == (32,)
 
 
 def test_serve_main_refuses_what_is_not_ported(tmp_path):

@@ -30,6 +30,7 @@ from valor_tpu.core.tasks import parse_task
 from valor_tpu.models import clip as jclip
 from valor_tpu.models.valor import VALORModel as JaxVALOR
 from valor_tpu_torch.core.config import Config, TrainConfig
+from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.core.tasks import parse_task as tparse
 from valor_tpu_torch.models import clip as tclip
 from valor_tpu_torch.models.bridge import init_params, load_model, params_from_jax, train_model
@@ -189,9 +190,8 @@ def test_mlm_branch_and_other_tasks_raise(lm_models):
     with rng_scope(RNGStreams(3)):
         out = tm(_tensors(tiny_batch(seed=3)), tparse(task))
     assert set(out) == {"contra_loss", "mlm_loss"} and bool(torch.isfinite(out["mlm_loss"]))
-    for t in ("cap%tva", "qa%tva"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tm(_tensors(tiny_batch()), tparse(t))
+    with pytest.raises(ValueError, match="xx"):  # no task family beyond pt, ret, cap and qa
+        tm(_tensors(tiny_batch()), TaskSpec("xx", caption_groups=("tv",)))
     # clip-span waveforms (the device fbank) give the losses of their log-mel clips
     from valor_tpu_torch.data.fbank import clip_span_samples, fbank_clips_from_spans
 

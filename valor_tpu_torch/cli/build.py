@@ -6,10 +6,10 @@ create_val_dataloaders :519-576).
 One process, one card: every loader is shard 0 of 1 and no mesh is read.  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
-``$VALOR_PRETRAINED_DIR``.  Not ported yet, and raising: QA flows (``data/vqa.py``)
-and task prompts (``use_task_prompt``, ``data/prompts.py``), both waiting for
-the QA and SCST slice; loading public encoder weights (the released-weights
-slice).
+``$VALOR_PRETRAINED_DIR``.  QA flows read ``data/vqa.py``'s mapper, dataset
+and collates.  Not ported yet, and raising: task prompts (``use_task_prompt``,
+``data/prompts.py``; the task-prompt slice) and loading public encoder weights
+(the released-weights slice).
 """
 
 from __future__ import annotations
@@ -22,8 +22,10 @@ from valor_tpu_torch.core.logging import LOGGER
 from valor_tpu_torch.core.tasks import parse_task
 from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSampler
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
+from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
 
-QA_SLICE = "the QA and SCST slice"
+SCST_SLICE = "the SCST slice"
+PROMPT_SLICE = "the task-prompt and pretraining-validation slice"
 WEIGHTS_SLICE = "the released-weights slice"
 
 
@@ -51,17 +53,14 @@ def build_tokenizers(cfg: ModelConfig):
     return bert_tok, clip_tok
 
 
-def _check_flow(task: str) -> None:
-    if parse_task(task).family == "qa":
-        raise NotImplementedError(f"QA data flows ({task}) come with {QA_SLICE}")
-
-
 def build_dataset(flow: DataFlowConfig, mcfg: ModelConfig, tokenizers, training: bool) -> VALORDataset:
-    _check_flow(flow.task)
     bert_tok, clip_tok = tokenizers
     ds = flow.datasets[0]
     spec = parse_task(flow.task)
-    txt_mapper = TxtMapper(ds.txt, flow.max_txt_len, bert_tok, clip_tok, training) if ds.txt else None
+    if spec.family == "qa":
+        txt_mapper = QATxtMapper(ds.txt, flow.max_txt_len, bert_tok, clip_tok, training)
+    else:
+        txt_mapper = TxtMapper(ds.txt, flow.max_txt_len, bert_tok, clip_tok, training) if ds.txt else None
     video_mapper = (
         VideoMapper(
             ds.video,
@@ -91,18 +90,20 @@ def build_dataset(flow: DataFlowConfig, mcfg: ModelConfig, tokenizers, training:
         if ds.audio and spec.uses_audio
         else None
     )
-    return VALORDataset(ds.ids_path, txt_mapper, video_mapper, audio_mapper, training)
+    dataset_cls = VALORQADataset if spec.family == "qa" else VALORDataset
+    return dataset_cls(ds.ids_path, txt_mapper, video_mapper, audio_mapper, training)
 
 
 def collate_for(task: str, training: bool):
-    """The collate function of a flow (the non-QA branch)."""
-    _check_flow(task)
+    """The collate function of a flow: QA flows tile their answers."""
+    if parse_task(task).family == "qa":
+        return valorqa_collate_train if training else valorqa_collate_test
     return valor_collate
 
 
 def _check_prompts(cfg: ModelConfig) -> None:
     if cfg.use_task_prompt:
-        raise NotImplementedError(f"task prompts (use_task_prompt) come with {QA_SLICE}")
+        raise NotImplementedError(f"task prompts (use_task_prompt) come with {PROMPT_SLICE}")
 
 
 def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:

@@ -14,12 +14,17 @@ default).
 Endpoints (JSON in/out):
   GET  /healthz    -> {"ok": true}
   GET  /stats      -> engine counters + latency percentiles + decoders
-  POST /generate   -> {"image_path": ...} [+ "group", "max_len", "beam_size"]
+  POST /generate   -> {"image_path": ...} [+ "question", "question_pad", "group",
+                      "max_len", "beam_size"]
                       -> {"text": ..., "latency_s": ..., "batch_size": ..., "bucket": ...}
 
 Media arrive as server-local paths; featurization runs on the HTTP thread so
 the device worker never blocks on IO.  Only ``image_path`` is featurized so
-far: ``video_path`` needs the ffmpeg and fbank host path, not ported yet.
+far: ``video_path`` needs the ffmpeg and fbank host path, not ported yet.  A
+``question`` becomes the QA prompt ``[CLS] question [SEP]``, zero-padded to
+``question_pad`` tokens (32 by default) so that requests batch together; a
+longer question is never cut (the JAX package cuts it at ``question_pad``):
+its pad grows to its length, rounded up to a multiple of 8.
 """
 
 from __future__ import annotations
@@ -134,17 +139,24 @@ def start_server(engine, featurize: FeaturizeFn, decode: DecodeFn,
     return server
 
 
-def image_featurizer(model_cfg) -> FeaturizeFn:
+def question_prompt(bert_tok, question: str, pad: int = 32) -> np.ndarray:
+    """``[CLS] question [SEP]`` as int32 ids, zero-padded to ``pad`` or, for a
+    longer question, to its length rounded up to a multiple of 8."""
+    q = [bert_tok.cls_token_id] + bert_tok.encode(question) + [bert_tok.sep_token_id]
+    width = max(pad, -(-len(q) // 8) * 8)
+    return np.asarray(q + [0] * (width - len(q)), np.int32)
+
+
+def image_featurizer(model_cfg, bert_tok=None) -> FeaturizeFn:
     """``image_path`` -> one raw uint8 frame plus silent spectrogram clips,
-    as the eval image mapper gives them."""
+    as the eval image mapper gives them, and with a ``question`` its prompt
+    (``question_prompt``, encoded by ``bert_tok``)."""
     from valor_tpu_torch.data.pipeline import load_image_uint8
 
     def featurize(payload: Dict[str, Any]) -> Dict[str, np.ndarray]:
         if payload.get("video_path"):
             raise NotImplementedError(
                 "video_path is not ported yet (ffmpeg frames and fbank audio); send image_path")
-        if payload.get("question"):
-            raise NotImplementedError("questions (QA prompts) are not ported yet")
         if not payload.get("image_path"):
             raise ValueError("payload needs image_path")
         path = payload["image_path"]
@@ -152,12 +164,18 @@ def image_featurizer(model_cfg) -> FeaturizeFn:
             pixels = load_image_uint8(path, model_cfg.video_resolution)
         except OSError as e:  # unreadable or missing image -> client 400
             raise FileNotFoundError(f"unreadable image: {path} ({e})") from None
-        return {
+        item = {
             "video_pixels": pixels,
             "audio_spectrograms": np.zeros(
                 (int(payload.get("audio_sample_num", 2)),
                  model_cfg.audio_melbins, model_cfg.audio_target_length), np.float32),
         }
+        if payload.get("question"):
+            if bert_tok is None:
+                raise RuntimeError("this featurizer was built without a tokenizer for questions")
+            item["question_prompt"] = question_prompt(
+                bert_tok, payload["question"], int(payload.get("question_pad", 32)))
+        return item
 
     return featurize
 
@@ -214,7 +232,7 @@ def main(argv=None):
         ),
     )
     server = start_server(
-        engine, image_featurizer(cfg.model),
+        engine, image_featurizer(cfg.model, bert_tok),
         lambda seq: decode_sequence(bert_tok, seq),
         host=args.host, port=args.port,
         request_timeout_s=args.request_timeout_s,

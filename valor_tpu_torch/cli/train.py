@@ -11,27 +11,32 @@ scalars under ``tb/`` (when a writer imports) and checkpoints under ``ckpt/``
 into ``output_dir``.  ``--resume true`` restarts from the latest checkpoint
 there, at its micro-step; ``--checkpoint <dir>`` (one of the port's own run
 directories) and ``--pretrain_dir <dir>`` (with ``--pretrain_step``) load
-weights, shape-adapted; ``--zero_shot true`` evaluates and stops;
-``--first_eval`` evaluates before training.
+weights, shape-adapted, and raise ``FileNotFoundError`` where the path does
+not exist or holds no ``ckpt/step_N`` (the JAX package trains from random
+weights there); ``--zero_shot true`` evaluates and stops; ``--first_eval``
+evaluates before training.  Evaluation flows run ``validate_ret``,
+``validate_cap`` (caption metrics over the whole set, with step dumps and
+``submit_format`` files under ``<output_dir>/results_test_<name>``) or
+``validate_qa`` (accuracy, with the ground-truth and prediction dumps there).
 
 One process on one card: the JAX package's device mesh, ``jax.distributed``,
 ``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.  Not
-ported yet, and raising before any work: caption, QA and pretraining
-validation (``validate_cap``, ``validate_qa``, ``validate_pt``), SCST
-finetuning, QA flows and task prompts (the QA and SCST slice), and a
-``--checkpoint`` that is a file (a converted torch artifact: the
-released-weights slice).
+ported yet, and raising before any work: pretraining validation
+(``validate_pt``) and task prompts (the task-prompt slice), SCST finetuning
+(the SCST slice), and a ``--checkpoint`` that is a file (a converted torch
+artifact: the released-weights slice).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 import sys
 from typing import Any, Dict, Optional
 
-from valor_tpu_torch.cli.build import QA_SLICE, WEIGHTS_SLICE
+from valor_tpu_torch.cli.build import PROMPT_SLICE, SCST_SLICE, WEIGHTS_SLICE
 from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
@@ -70,26 +75,64 @@ def _parse_value(s: str):
 
 
 def make_validate_fn(cfg: Config, tokenizers):
-    """``run(model, step) -> {name: report}`` over the evaluation flows.
-    Retrieval flows go through ``eval.validate.validate_ret``; any other
-    family raises here, before training starts."""
+    """``run(model, step) -> {name: report}`` over the evaluation flows:
+    ``ret`` through ``validate_ret``, ``cap`` through ``validate_cap`` and
+    ``qa`` through ``validate_qa``, as the JAX package's; a ``pt`` flow
+    raises here, before training starts."""
     from valor_tpu_torch.cli.build import build_val_loaders
     from valor_tpu_torch.eval import validate as V
     from valor_tpu_torch.train.step import eval_step
 
     val_loaders = build_val_loaders(cfg, tokenizers)
     for name, _, task in val_loaders:
-        if task.family != "ret":
-            raise NotImplementedError(f"{task.family} validation ({name}) comes with {QA_SLICE}")
+        if task.family == "pt":
+            raise NotImplementedError(f"pt validation ({name}, validate_pt) comes with {PROMPT_SLICE}")
+    bert_tok = tokenizers[0]
+    m, out_dir = cfg.model, cfg.train.output_dir or "output"
 
     def run(model, step: int):
-        return {
-            name: V.validate_ret(model, eval_step, iter(loader), task, cfg.model.contra_type,
-                                 cfg.model.dual_softmax, cfg.model.evaluate_ret_text)
-            for name, loader, task in val_loaders
-        }
+        reports = {}
+        for (name, loader, task), flow in zip(val_loaders, cfg.data_val):
+            result_dir = os.path.join(out_dir, f"results_test_{name}")
+            if task.family == "ret":
+                reports[name] = V.validate_ret(model, eval_step, iter(loader), task, m.contra_type,
+                                               m.dual_softmax, m.evaluate_ret_text)
+            elif task.family == "cap":
+                # submission mode has no annotation file (reference train_utils.py:448)
+                ann = {}
+                if not cfg.train.submit_format and flow.datasets[0].txt:
+                    with open(flow.datasets[0].txt) as f:
+                        ann = {str(k): v if isinstance(v, list) else [v] for k, v in json.load(f).items()}
+                reports[name] = V.validate_cap(
+                    model, iter(loader), task, bert_tok, ann, caption_type=m.caption_type,
+                    max_len=m.max_generation_len, beam_size=m.beam_size, result_dir=result_dir,
+                    step=step, submit_format=cfg.train.submit_format or None)
+            else:
+                with open(flow.datasets[0].txt) as f:
+                    answers = json.load(f)
+                reports[name] = V.validate_qa(
+                    model, iter(loader), task, bert_tok, answers, caption_type=m.caption_type,
+                    max_len=m.max_generation_len, beam_size=m.beam_size_qa, result_dir=result_dir,
+                    step=step, dset_name=name)
+        return reports
 
     return run
+
+
+def restore_weights(path: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The payload of checkpoint ``step`` (the latest when None) of the run
+    directory ``path``; ``FileNotFoundError`` where the path does not exist or
+    holds no ``ckpt/step_N``, rather than train from random weights."""
+    from valor_tpu_torch.train.checkpoints import ModelSaver
+
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no such run directory: {path!r}")
+    restored = None
+    if os.path.isdir(os.path.join(path, "ckpt")):  # ModelSaver would make it
+        restored = ModelSaver(path, remove_before_ckpt=False).restore(step=step)
+    if restored is None:
+        raise FileNotFoundError(f"no ckpt/step_N checkpoint found in {path!r}")
+    return restored
 
 
 def _adapted(state, params) -> Dict[str, Any]:
@@ -108,7 +151,7 @@ def main(argv=None):
     device = resolve_device(dev_args.device)
     cfg = parse_cli(argv)
     if cfg.model.scst_finetuning:
-        raise NotImplementedError(f"SCST finetuning comes with {QA_SLICE}")
+        raise NotImplementedError(f"SCST finetuning comes with {SCST_SLICE}")
     if cfg.train.pretrain_dir:
         from valor_tpu_torch.core.config import inherit_pretrain_config
 
@@ -143,19 +186,16 @@ def main(argv=None):
     elif cfg.train.pretrain_dir:
         # --pretrain_step selects a checkpoint other than the latest
         # (reference train_utils.py:120-121)
-        restored = ModelSaver(cfg.train.pretrain_dir, remove_before_ckpt=False).restore(
-            step=cfg.train.pretrain_step)
-        if restored:
-            state.model.load_state_dict(_adapted(state, restored["params"]))
+        restored = restore_weights(cfg.train.pretrain_dir, cfg.train.pretrain_step)
+        state.model.load_state_dict(_adapted(state, restored["params"]))
     elif cfg.train.checkpoint:
         path = cfg.train.checkpoint
-        if not os.path.isdir(path):
+        if os.path.isfile(path):
             raise NotImplementedError(
                 f"--checkpoint {path!r} is not a run directory of this package; converting "
                 f"torch artifacts comes with {WEIGHTS_SLICE}")
-        restored = ModelSaver(path, remove_before_ckpt=False).restore()
-        if restored:
-            state.model.load_state_dict(_adapted(state, restored["params"]))
+        restored = restore_weights(path)
+        state.model.load_state_dict(_adapted(state, restored["params"]))
     del restored  # a full-width payload holds 4.5 GB on the host
 
     if cfg.train.zero_shot:

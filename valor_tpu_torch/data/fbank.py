@@ -17,14 +17,16 @@ preemphasis 0.97, Hanning window, FFT size the next power of two of the
 window, power spectrum, mel scale 1127 ln(1 + f / 700) from 20 Hz to Nyquist,
 log with kaldi's epsilon floor.
 
-Precision: the JAX package asks for ``Precision.HIGHEST`` on the DFT, so both
-products here run in true fp32 whatever ``torch.backends.cuda.matmul.allow_tf32``
-says (``_fp32_matmul``); under TF32 a log-mel is about 1e-3 off.
+Precision: the JAX package asks for ``Precision.HIGHEST`` on the DFT, so the
+two products here must not run in TF32, which would put a log-mel about 1e-3
+off.  They run in fp64, where no TF32 setting applies, and leave every
+process-wide precision setting as it is (switching one around the products
+raised in torch 2.11 once a caller had set TF32 through the other of the
+two precision APIs).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 import random
@@ -141,25 +143,13 @@ def uniform_chunk_indices(total: int, sample_num: int, training: bool,
     return [ch[(len(ch) + 1) // 2 - 1] for ch in chunks]
 
 
-@contextlib.contextmanager
-def _fp32_matmul():
-    """True fp32 matrix products inside the block (the JAX package's
-    ``Precision.HIGHEST``), the caller's setting restored after it.  The setting
-    is process-wide, so a product that another thread runs meanwhile also
-    runs in fp32."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 @functools.lru_cache(maxsize=8)
 def _basis_on(win: int, nfft: int, num_bins: int, sr: int, device: torch.device):
-    """``_dft_mel_basis`` as tensors on ``device``, made once a device (a graph
-    capture takes no host-to-device copy)."""
-    return tuple(torch.from_numpy(a).to(device) for a in _dft_mel_basis(win, nfft, num_bins, sr))
+    """``_dft_mel_basis`` on ``device`` (the window in fp32, the two product
+    bases in fp64), made once a device (a graph capture takes no
+    host-to-device copy)."""
+    window, dft, mel = (torch.from_numpy(a).to(device) for a in _dft_mel_basis(win, nfft, num_bins, sr))
+    return window, dft.double(), mel.double()
 
 
 def _frames(waveforms: torch.Tensor, win: int, shift: int) -> torch.Tensor:
@@ -187,10 +177,9 @@ def _log_mel(waveforms: torch.Tensor, sample_frequency: int, num_mel_bins: int,
         frames = frames - preemphasis * prev
     frames = frames * window
     half = nfft // 2 + 1
-    with _fp32_matmul():
-        reim = torch.matmul(frames, dft)  # re | im
-        power = reim[..., :half] ** 2 + reim[..., half:] ** 2
-        melspec = torch.matmul(power, mel)
+    reim = torch.matmul(frames.double(), dft)  # re | im, fp64: never TF32
+    power = reim[..., :half] ** 2 + reim[..., half:] ** 2
+    melspec = torch.matmul(power, mel).float()
     return torch.log(torch.clamp_min(melspec, EPSILON))
 
 

@@ -1,6 +1,6 @@
 """Seeded synthetic data: batches in the collate layout, and a dataset on disk.
 
-Batches (``pretrain_batch``, ``retrieval_batch``) are numpy arrays
+Batches (``pretrain_batch``, ``retrieval_batch``, ``qa_batch``) are numpy arrays
 shaped as the JAX package's collate gives them (``bert_tokens`` and
 ``clip_tokens`` [B, N] int64 with pad 0, ``video_pixels`` [B, frames, R, R, 3]
 raw uint8, ``audio_spectrograms`` [B, clips, melbins, target_length] float32).
@@ -14,7 +14,12 @@ path reads: a folder of JPEG frames per id, a mono int16 WAV per id (one id in
 ``missing_audio_every`` has none), ``txt_mapper`` JSON files (several captions
 per training id, one per evaluation id) drawn from a word list, id lists, and
 the tokenizer files built from the same word list (a WordPiece vocabulary and
-a CLIP BPE merges file).
+a CLIP BPE merges file).  ``write_caption_dataset`` writes the caption
+finetuning files (``{id: [captions]}`` for both splits) and
+``write_qa_dataset`` MSR-VTT-QA's (``{id: [{question, answer, question_id}]}``,
+1-3 pairs an id, one-word answers); given the paths of an earlier dataset
+(``media``), they write only their text files and share its frames, WAVs and
+tokenizer files.
 """
 
 from __future__ import annotations
@@ -63,11 +68,36 @@ def retrieval_batch(cfg: ModelConfig, batch: int, frames: int = 8, clips: int = 
     return out
 
 
+def qa_batch(cfg: ModelConfig, questions: int, frames: int = 4, clips: int = 1, n_question: int = 16,
+             seed: int = 0) -> Dict[str, np.ndarray]:
+    """A QA training batch in ``data/vqa.py:valorqa_collate_train``'s layout:
+    question i has 1 + i % 3 weighted answers, tiled into rows (``tile_index``,
+    ``answer_weights``) and padded to a multiple of 8 with zero-weight copies
+    of row 0; answers [rows, 7] and questions [rows, ``n_question``] in BERT
+    ids; media one row a question."""
+    media = pretrain_batch(cfg, questions, frames, clips, n_question, seed)
+    rng = np.random.RandomState(seed + 1)
+    tile = [q for q in range(questions) for _ in range(1 + q % 3)]
+    weights = [w for q in range(questions) for w in np.full(1 + q % 3, 1.0 / (1 + q % 3))]
+    pad = (-len(tile)) % 8
+    tile, weights = tile + [0] * pad, weights + [0.0] * pad
+    answers = np.zeros((len(tile), 7), np.int64)
+    lengths = rng.randint(1, 6, size=len(tile))
+    for i, n in enumerate(lengths):
+        answers[i, 1 : n + 1] = rng.randint(min(1000, cfg.fusion_vocab // 2), cfg.fusion_vocab, size=n)
+        answers[i, 0], answers[i, n + 1] = 101, 102
+    answers[len(tile) - pad :] = answers[0]
+    return {"bert_tokens": answers, "question_prompt": media["bert_tokens"][tile],
+            "tile_index": np.asarray(tile, np.int32), "answer_weights": np.asarray(weights, np.float32),
+            "video_pixels": media["video_pixels"], "audio_spectrograms": media["audio_spectrograms"]}
+
+
 WORDS = (
     "a", "man", "woman", "is", "playing", "the", "guitar", "dog", "runs", "on", "grass", "cat",
     "sits", "mat", "car", "drives", "down", "road", "person", "cooking", "in", "kitchen", "kids",
     "dance", "stage", "bird", "flies", "over", "water", "people", "talk", "about", "news",
 )
+QUESTION_WORDS = ("what", "who", "where")
 
 
 def write_tokenizer_files(root: str, words: Sequence[str] = WORDS) -> Dict[str, str]:
@@ -117,34 +147,15 @@ def _write_wav(path: str, seconds: float, sample_rate: int, seed: int) -> None:
         wf.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
 
 
-def write_retrieval_dataset(
-    root: str, n_train: int = 640, n_val: int = 256, n_frames: int = 40, frame_size=(320, 240),
-    wav_seconds: float = 10.0, sample_rate: int = 22050, missing_audio_every: int = 10,
-    captions_per_train_id: int = 20, seed: int = 0, workers: int = 8,
-) -> Dict[str, str]:
-    """Write the dataset under ``root`` (defaults: MSR-VTT's shapes, 10 s clips at
-    4 fps and 22050 Hz) and return its paths: "train_ids", "train_txt",
-    "val_ids", "val_txt", "frames", "audio", "vocab", "merges"."""
-    rng = np.random.RandomState(seed)
-    ids = [f"video{i}" for i in range(n_train + n_val)]
-    train, val = ids[:n_train], ids[n_train:]
-
-    def caption() -> str:
-        return " ".join(rng.choice(WORDS, size=rng.randint(5, 13)))
-
+def write_media(root: str, ids: Sequence[str], n_frames: int = 40, frame_size=(320, 240),
+                wav_seconds: float = 10.0, sample_rate: int = 22050, missing_audio_every: int = 10,
+                seed: int = 0, workers: int = 8) -> Dict[str, str]:
+    """The frame folders and WAVs of ``ids`` under ``root``, and the tokenizer
+    files; returns the paths "frames", "audio", "vocab", "merges"."""
     os.makedirs(root, exist_ok=True)
-    paths = write_tokenizer_files(root)
+    paths = write_tokenizer_files(root, WORDS + QUESTION_WORDS)
     paths.update({k: os.path.join(root, k) for k in ("frames", "audio")})
     os.makedirs(paths["audio"], exist_ok=True)
-    for split, split_ids, txt in (("train", train, {v: [caption() for _ in range(captions_per_train_id)]
-                                                    for v in train}),
-                                  ("val", val, {v: caption() for v in val})):
-        paths[f"{split}_ids"] = os.path.join(root, f"{split}_id.json")
-        paths[f"{split}_txt"] = os.path.join(root, f"{split}_txt_mapper.json")
-        with open(paths[f"{split}_ids"], "w") as f:
-            json.dump(split_ids, f)
-        with open(paths[f"{split}_txt"], "w") as f:
-            json.dump(txt, f)
 
     def write(i: int) -> None:
         vid = ids[i]
@@ -154,5 +165,93 @@ def write_retrieval_dataset(
                        seed + 1 + i)
 
     with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(write, range(n_train + n_val)))
+        list(pool.map(write, range(len(ids))))
+    return paths
+
+
+def _write_splits(root: str, prefix: str, splits: Dict[str, tuple]) -> Dict[str, str]:
+    """``{split: (ids, txt json)}`` as ``{split}_id.json`` and
+    ``{split}_{prefix}_mapper.json`` under ``root``; returns their paths."""
+    os.makedirs(root, exist_ok=True)
+    paths = {}
+    for split, (split_ids, txt) in splits.items():
+        paths[f"{split}_ids"] = os.path.join(root, f"{split}_id.json")
+        paths[f"{split}_txt"] = os.path.join(root, f"{split}_{prefix}_mapper.json")
+        with open(paths[f"{split}_ids"], "w") as f:
+            json.dump(list(split_ids), f)
+        with open(paths[f"{split}_txt"], "w") as f:
+            json.dump(txt, f)
+    return paths
+
+
+def _ids(n_train: int, n_val: int):
+    ids = [f"video{i}" for i in range(n_train + n_val)]
+    return ids, ids[:n_train], ids[n_train:]
+
+
+def _media(root: str, ids, media, **kw) -> Dict[str, str]:
+    if media is not None:
+        return {k: media[k] for k in ("frames", "audio", "vocab", "merges")}
+    return write_media(root, ids, **kw)
+
+
+def write_retrieval_dataset(
+    root: str, n_train: int = 640, n_val: int = 256, n_frames: int = 40, frame_size=(320, 240),
+    wav_seconds: float = 10.0, sample_rate: int = 22050, missing_audio_every: int = 10,
+    captions_per_train_id: int = 20, seed: int = 0, workers: int = 8,
+) -> Dict[str, str]:
+    """Write the dataset under ``root`` (defaults: MSR-VTT's shapes, 10 s clips at
+    4 fps and 22050 Hz) and return its paths: "train_ids", "train_txt",
+    "val_ids", "val_txt", "frames", "audio", "vocab", "merges"."""
+    rng = np.random.RandomState(seed)
+    ids, train, val = _ids(n_train, n_val)
+
+    def caption() -> str:
+        return " ".join(rng.choice(WORDS, size=rng.randint(5, 13)))
+
+    paths = _write_splits(root, "txt", {
+        "train": (train, {v: [caption() for _ in range(captions_per_train_id)] for v in train}),
+        "val": (val, {v: caption() for v in val})})
+    paths.update(write_media(root, ids, n_frames, frame_size, wav_seconds, sample_rate,
+                             missing_audio_every, seed, workers))
+    return paths
+
+
+def write_caption_dataset(root: str, n_train: int = 320, n_val: int = 128,
+                          captions_per_id: int = 20, seed: int = 0, media=None,
+                          **media_kw) -> Dict[str, str]:
+    """Caption finetuning files, ``{id: [captions]}`` with ``captions_per_id``
+    captions a training id and as many references an evaluation id; the media
+    of ``media`` (an earlier writer's paths) or written here (``media_kw`` as
+    ``write_media``'s).  Returns the paths of ``write_retrieval_dataset``."""
+    rng = np.random.RandomState(seed + 1)
+    ids, train, val = _ids(n_train, n_val)
+
+    def captions():
+        return [" ".join(rng.choice(WORDS, size=rng.randint(5, 13))) for _ in range(captions_per_id)]
+
+    paths = _write_splits(root, "caption", {"train": (train, {v: captions() for v in train}),
+                                            "val": (val, {v: captions() for v in val})})
+    paths.update(_media(root, ids, media, seed=seed, **media_kw))
+    return paths
+
+
+def write_qa_dataset(root: str, n_train: int = 320, n_val: int = 128, max_pairs: int = 3,
+                     seed: int = 0, media=None, **media_kw) -> Dict[str, str]:
+    """MSR-VTT-QA-style files, ``{id: [{question, answer, question_id}]}`` with
+    1 to ``max_pairs`` pairs an id, a "what/who/where ..." question and a
+    one-word answer from the word list; media as ``write_caption_dataset``."""
+    rng = np.random.RandomState(seed + 2)
+    ids, train, val = _ids(n_train, n_val)
+    qid = iter(range(10 ** 9))
+
+    def pairs():
+        return [{"question": " ".join([str(rng.choice(QUESTION_WORDS))]
+                                      + list(rng.choice(WORDS, size=rng.randint(3, 9)))),
+                 "answer": str(rng.choice(WORDS)), "question_id": next(qid)}
+                for _ in range(rng.randint(1, max_pairs + 1))]
+
+    paths = _write_splits(root, "qa", {"train": (train, {v: pairs() for v in train}),
+                                       "val": (val, {v: pairs() for v in val})})
+    paths.update(_media(root, ids, media, seed=seed, **media_kw))
     return paths

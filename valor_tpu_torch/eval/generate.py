@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from valor_tpu_torch.data.fbank import fbank_clips_from_spans
 from valor_tpu_torch.models.valor import BOS_TOKEN, EOS_TOKEN, MASK_TOKEN
 
 # DecoderFn(txt_tokens [B,N], token_mask [B,N]) -> logits over positions [B,N,V]
@@ -222,7 +223,8 @@ class Generator:
         generator: Optional[torch.Generator] = None,
         prompt_key: str = "prompt_tokens_caption",
     ) -> Dict[str, torch.Tensor]:
-        """Encode the batch's media once, then decode each modality group.
+        """Encode the batch's media once (clip-span ``audio_waveforms`` through
+        the device fbank first), then decode each modality group.
         Returns {'generated_sequences_<g>': [B, max_len] int32,
         'logprobs_<g>': [B, max_len] fp32}, on the model's device."""
         m = self.model
@@ -230,13 +232,17 @@ class Generator:
         if any("v" in g for g in groups) and batch.get("video_pixels") is not None:
             video_input = m.video_fusion_input(m.encode_video(self._tensor(batch["video_pixels"])))
         if any("a" in g for g in groups):
+            spec = batch.get("audio_spectrograms")
             if batch.get("audio_waveforms") is not None:
-                raise NotImplementedError(
-                    "audio_waveforms (the on-device fbank) is not ported yet; "
-                    "pass audio_spectrograms")
-            if batch.get("audio_spectrograms") is not None:
-                audio_input = m.audio_fusion_input(
-                    m.encode_audio(self._tensor(batch["audio_spectrograms"])))
+                # the device fbank: clip-span waveforms to log-mel clips, as
+                # VALORModel.forward turns them on the training path
+                spec = fbank_clips_from_spans(
+                    self._tensor(batch["audio_waveforms"]),
+                    self._tensor(batch["audio_valid_frames"]),
+                    melbins=m.cfg.audio_melbins, target_length=m.cfg.audio_target_length,
+                ).to(m.dtype)
+            if spec is not None:
+                audio_input = m.audio_fusion_input(m.encode_audio(self._tensor(spec)))
         tile = batch.get("tile_index")
         if tile is not None:
             tile = self._tensor(tile).long()

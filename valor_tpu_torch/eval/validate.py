@@ -6,19 +6,30 @@ the whole gallery of each modality group (``retrieval_scores``: the fine groups
 through ``tasks.losses.fine_score_gallery``, which on the card is the fused
 fine-score kernel), and rank on the host (``eval/retrieval.py``).  This slice
 runs in one process: ``_gather_eval_features`` concatenates, and the
-cross-process gather waits for the multi-GPU slice.  ``validate_cap``,
-``validate_qa`` and ``validate_pt`` are not ported yet.
+cross-process gather waits for the multi-GPU slice.
+
+Captions (``validate_cap``) and answers (``validate_qa``): generate every
+batch through ``eval/generate.py:Generator``, decode to text on the host and
+score the whole merged set in one call (CIDEr-D's document frequencies are
+those of the set), writing the JAX package's dump files.  The JAX package
+merges the per-host shards before scoring; one process holds them all here.
+``validate_pt`` is not ported yet (the task-prompt slice).
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from valor_tpu_torch.core.tasks import TaskSpec
-from valor_tpu_torch.eval.retrieval import retrieval_report
+from valor_tpu_torch.eval.caption_metrics import caption_eval
+from valor_tpu_torch.eval.generate import Generator
+from valor_tpu_torch.eval.retrieval import qa_accuracy, retrieval_report
 from valor_tpu_torch.models.valor import EOS_TOKEN
 from valor_tpu_torch.tasks import losses as L
 
@@ -158,6 +169,138 @@ def validate_ret(
         report.update({f"{g}_{k}": v for k, v in r.items()})
     if task.contra_groups:
         report["ravg"] = report[f"{task.contra_groups[0]}_ravg"]
+    return report
+
+
+@contextlib.contextmanager
+def eval_mode(model):
+    """The model in eval mode (no dropout) inside the block, its training
+    mode restored after: a trainer validates the model it trains."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
+
+
+def _dump(path: str, payload) -> None:
+    with open(path, "w") as f:
+        json.dump(payload, f)
+
+
+def validate_cap(
+    model, loader, task: TaskSpec, tokenizer, annotations: Dict[str, List[str]], *,
+    caption_type: str = "unimlm", max_len: int = 30, beam_size: int = 1,
+    result_dir: Optional[str] = None, step: int = 0,
+    submit_format: Optional[str] = None,  # 'coco' | 'nocaps' | 'vatex'
+) -> Dict[str, float]:
+    """Caption report of every caption group over the batches of ``loader``
+    (reference test.py:136-236): the first group's metrics under flat keys
+    (``CIDEr``, ``Bleu_4``, ...: what best-checkpoint tracking reads), later
+    groups' prefixed ``{g}_``.  With ``result_dir`` it writes a
+    ``step_{step}_{g}.json`` dump a group, or with ``submit_format`` one
+    ``submission.json`` of the first group and returns ``{}``."""
+    groups = list(task.caption_groups)
+    group_hyps: Dict[str, Dict[str, str]] = {g: {} for g in groups}
+    generator = Generator(model)
+    for batch in loader:
+        ids = batch.pop("ids")
+        batch.pop("ids_txt", None)
+        batch.pop("sample_num", None)
+        with eval_mode(model):
+            out = generator.generate(batch, task.caption_groups, caption_type=caption_type,
+                                     max_len=max_len, beam_size=beam_size)
+        for g in groups:
+            seqs = out[f"generated_sequences_{g}"].cpu().numpy()
+            for id_, seq in zip(ids, seqs):
+                group_hyps[g][str(id_)] = decode_sequence(tokenizer, seq)
+    hyps = group_hyps[groups[0]]
+    if result_dir:
+        os.makedirs(result_dir, exist_ok=True)
+        submission = os.path.join(result_dir, "submission.json")
+        if submit_format == "coco":
+            _dump(submission, [{"image_id": int(str(i).split("_")[-1]), "caption": c}
+                               for i, c in hyps.items()])
+        elif submit_format == "nocaps":
+            _dump(submission, [{"image_id": int(i), "caption": c} for i, c in hyps.items()])
+        elif submit_format == "vatex":
+            _dump(submission, dict(hyps))
+        else:
+            for g in groups:
+                _dump(os.path.join(result_dir, f"step_{step}_{g}.json"),
+                      [{"video_id": i, "caption": c} for i, c in group_hyps[g].items()])
+    if submit_format:
+        return {}
+    report: Dict[str, float] = {}
+    for gi, g in enumerate(groups):
+        hy = group_hyps[g]
+        scores = caption_eval(hy, {str(i): annotations[str(i)] for i in hy})
+        report.update(scores if gi == 0 else {f"{g}_{k}": v for k, v in scores.items()})
+    return report
+
+
+def validate_qa(
+    model, loader, task: TaskSpec, tokenizer, answers: Optional[Dict[str, Any]] = None, *,
+    caption_type: str = "unimlm", max_len: int = 10, beam_size: int = 1,
+    result_dir: Optional[str] = None, step: int = 0, dset_name: str = "",
+) -> Dict[str, float]:
+    """Exact-match QA accuracy over the batches of ``loader`` (reference
+    test.py:44-133): ``accuracy`` of the first group, ``{g}_accuracy`` of
+    later ones.  Ground truths ride the batch (the QA test collate's
+    ``answers``); ``answers`` ({id: ...}) is the fallback for other collates.
+    With ``result_dir`` it writes ``step{N}_gt.json``, ``step{N}_{g}_pred.json``
+    and, where the dataset carries question ids,
+    ``step{N}_{g}_pred_submited_{dset_name}.json``."""
+    groups = list(task.caption_groups)
+    group_preds: Dict[str, List[str]] = {g: [] for g in groups}
+    gts: List[Any] = []
+    submit: List[Dict[str, Any]] = []
+    generator = Generator(model)
+    for batch in loader:
+        ids = batch.pop("ids")
+        batch_answers = batch.pop("answers", None)
+        question_ids = batch.pop("question_ids", None)
+        batch.pop("ids_txt", None)
+        batch.pop("sample_num", None)
+        # each generated row's source id, read before generate tiles the media
+        tile = batch.get("tile_index")
+        row_to_id = [ids[int(t)] for t in np.asarray(tile)] if tile is not None else ids
+        with eval_mode(model):
+            out = generator.generate(batch, task.caption_groups, caption_type=caption_type,
+                                     max_len=max_len, beam_size=beam_size)
+        for gi, g in enumerate(groups):
+            seqs = out[f"generated_sequences_{g}"].cpu().numpy()
+            for j, seq in enumerate(seqs):
+                text = decode_sequence(tokenizer, seq)
+                group_preds[g].append(text)
+                if gi > 0:
+                    continue  # the ground truths are the groups' own
+                if question_ids:
+                    submit.append({"question_id": question_ids[j], "answer": text})
+                if batch_answers is not None:
+                    gts.append(batch_answers[j])
+                else:
+                    # a mismatch means the collate and the generator disagree
+                    # about the tiling: fail rather than score against the
+                    # wrong answers
+                    if j >= len(row_to_id):
+                        raise ValueError(
+                            f"generated {len(seqs)} rows but only {len(row_to_id)} id rows; carry "
+                            "'answers' in the batch (QA test collate) or pass tile_index")
+                    gts.append(answers[str(row_to_id[j])])
+    preds = group_preds[groups[0]]
+    if result_dir:
+        os.makedirs(result_dir, exist_ok=True)
+        _dump(os.path.join(result_dir, f"step{step}_gt.json"), gts)
+        for g in groups:
+            _dump(os.path.join(result_dir, f"step{step}_{g}_pred.json"), group_preds[g])
+        if submit:
+            name = f"step{step}_{groups[0]}_pred_submited_{dset_name or 'qa'}.json"
+            _dump(os.path.join(result_dir, name), submit)
+    report = {"accuracy": qa_accuracy(preds, gts)}
+    for g in groups[1:]:
+        report[f"{g}_accuracy"] = qa_accuracy(group_preds[g], gts)
     return report
 
 

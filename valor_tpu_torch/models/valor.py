@@ -12,8 +12,10 @@ features that retrieval evaluation scores).  A batch may carry clip-span
 waveforms (``audio_waveforms`` [B, n_clips, L] with ``audio_valid_frames``
 [B, n_clips]) in place of spectrograms: the forward turns them into
 normalised log-mel clips on the device (``data/fbank.py:fbank_clips_from_spans``)
-in the model's dtype.  The ``cap`` and ``qa`` forwards are not ported yet and
-raise.
+in the model's dtype.  ``forward_cap`` gives the caption loss over the task's
+groups; ``forward_qa`` the answer loss of the QA collate's tiled rows
+(``tile_index`` maps each answer row to its question's media row,
+``answer_weights`` weighs the rows, normalised by the question count).
 
 Batch convention: video_pixels [B, n_frames, H, W, 3] (float, or raw uint8
 normalised here), audio_spectrograms [B, n_clips, melbins, target_length],
@@ -358,6 +360,23 @@ class VALORModel(nn.Module):
             return mask_tokens(gen, txt_tokens, 0.6, MASK_TOKEN, MASK_RANGE_START, c.fusion_vocab)
         return txt_tokens, lm_shift_labels(txt_tokens)
 
+    def group_caption_loss(self, group, txt_input, txt_labels, prompt_tokens,
+                           video_input, audio_input) -> torch.Tensor:
+        logits = self.fusion_logits(txt_input, prompt_tokens,
+                                    video_input if "v" in group else None,
+                                    audio_input if "a" in group else None,
+                                    True, self.cfg.full_masker)
+        return L.masked_cross_entropy(logits, txt_labels, self.cfg.label_smoothing)
+
+    def _fusion_inputs(self, batch, groups):
+        """The fusion-space media inputs of the groups' modalities (None where unused)."""
+        video_input = audio_input = None
+        if any("v" in g for g in groups):
+            video_input = self.video_fusion_input(self.encode_video(batch["video_pixels"]))
+        if any("a" in g for g in groups):
+            audio_input = self.audio_fusion_input(self.encode_audio(batch["audio_spectrograms"]))
+        return video_input, audio_input
+
     # -- task forwards ---------------------------------------------------------
     def forward(self, batch: Dict[str, Any], task: TaskSpec, compute_loss: bool = True,
                 train: bool = True):
@@ -377,9 +396,10 @@ class VALORModel(nn.Module):
             return self.forward_pt(batch, task, compute_loss, train)
         if task.family == "ret":
             return self.forward_ret(batch, task, compute_loss)
-        waits = {"cap": "the caption-finetuning slice", "qa": "the QA slice"}
-        if task.family in waits:
-            raise NotImplementedError(f"{task.family} training comes with {waits[task.family]}")
+        if task.family == "cap":
+            return self.forward_cap(batch, task, compute_loss, train)
+        if task.family == "qa":
+            return self.forward_qa(batch, task, compute_loss, train)
         raise ValueError(task.family)
 
     def _text_for(self, batch, encoder_type):
@@ -460,3 +480,56 @@ class VALORModel(nn.Module):
         if not compute_loss:
             return feats
         return {"contra_loss": self.contra_loss_over_groups(groups, feats, txt_tokens)}
+
+    def forward_cap(self, batch, task: TaskSpec, compute_loss: bool = True, train: bool = True):
+        """The caption loss averaged over the task's groups, or (with
+        ``compute_loss=False``) the fusion-space media inputs."""
+        groups = task.caption_groups
+        txt_tokens = self._text_for(batch, self.cfg.multimodal_encoder_type)
+        video_input, audio_input = self._fusion_inputs(batch, groups)
+        if not compute_loss:
+            return {"video_input": video_input, "audio_input": audio_input}
+        txt_input, txt_labels = self.caption_inputs(txt_tokens, train)
+        ls = [self.group_caption_loss(g, txt_input, txt_labels, batch.get("prompt_tokens_caption"),
+                                      video_input, audio_input) for g in groups]
+        return {"caption_loss": sum(ls) / len(ls)}
+
+    def forward_qa(self, batch, task: TaskSpec, compute_loss: bool = True, train: bool = True):
+        """The generative QA loss.  Batch (``data/vqa.py`` collates):
+        ``bert_tokens`` [Bt, N] answer rows, ``question_prompt`` [Bt, P],
+        media with one row per question [Q, ...], ``tile_index`` [Bt] (row ->
+        question; absent when Bt == Q) and ``answer_weights`` [Bt] (absent for
+        single answers).  Answers are masked at 0.99 under unimlm."""
+        c = self.cfg
+        groups = task.caption_groups
+        txt_tokens = self._text_for(batch, c.multimodal_encoder_type)
+        prompt = batch.get("question_prompt")
+        video_input, audio_input = self._fusion_inputs(batch, groups)
+        tile = batch.get("tile_index")
+        if tile is not None:
+            tile = tile.long()
+            video_input = video_input[tile] if video_input is not None else None
+            audio_input = audio_input[tile] if audio_input is not None else None
+        if not compute_loss:
+            return {"video_input": video_input, "audio_input": audio_input, "prompt": prompt}
+
+        if c.caption_type == "unimlm":
+            if c.full_masker:
+                txt_input, labels = full_mask(txt_tokens, MASK_TOKEN)
+            else:
+                gen = current_rng("token masking").generator(txt_tokens.device, "mask")
+                txt_input, labels = mask_tokens(gen, txt_tokens, 0.99, MASK_TOKEN,
+                                                MASK_RANGE_START, c.fusion_vocab)
+        else:
+            txt_input, labels = txt_tokens, lm_shift_labels(txt_tokens)
+        # the question count is the rows of the per-question media (clips
+        # after the device fbank), never the tiled answer rows
+        media = batch.get("video_pixels")
+        if media is None:
+            media = batch.get("audio_spectrograms")
+        n_questions = (media if media is not None else txt_tokens).shape[0]
+        ls = [L.qa_weighted_cross_entropy(
+            self.fusion_logits(txt_input, prompt, video_input if "v" in g else None,
+                               audio_input if "a" in g else None, True, c.full_masker),
+            labels, batch.get("answer_weights"), n_questions) for g in groups]
+        return {"qa_loss": sum(ls) / len(ls)}

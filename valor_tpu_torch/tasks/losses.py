@@ -5,11 +5,14 @@ whatever dtype the logits and features come in, as the JAX functions do with
 ``preferred_element_type=float32``.  Retrieval evaluation scores its gallery
 with ``fine_score_gallery``: the hand-written fine-score kernel on the card,
 ``fine_score_chunked`` on the CPU; training scores its batch with
-``fine_score``, which autograd differentiates (the kernel is forward-only).  The
-QA-weighted cross entropy is not ported yet.
+``fine_score``, which autograd differentiates (the kernel is forward-only).
+The caption and QA losses are plain ops: no Pallas kernel computes them in
+the JAX package either.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,6 +38,28 @@ def masked_cross_entropy(
         mean_logp = logits.float().sum(-1) - vocab * lse
         nll = (1.0 - label_smoothing) * nll - smooth * (mean_logp + nll)
     return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def qa_weighted_cross_entropy(
+    logits: torch.Tensor,  # [B, N, V]
+    labels: torch.Tensor,  # [B, N], -1 = ignore
+    answer_weights: Optional[torch.Tensor] = None,  # [B]
+    n_questions: Optional[int] = None,
+) -> torch.Tensor:
+    """Each row's mean CE over its valid tokens; with ``answer_weights`` (tiled
+    multi-answer rows) the weighted sum over rows divided by the question
+    count (``n_questions``, or the row count when it is not given), else the
+    plain mean over rows."""
+    valid = (labels != -1).float()
+    safe = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = lse - tgt.float()
+    per_row = (nll * valid).sum(-1) / valid.sum(-1).clamp_min(1.0)
+    if answer_weights is not None:
+        denom = float(n_questions) if n_questions else per_row.shape[0]
+        return (per_row * answer_weights.float()).sum() / denom
+    return per_row.mean()
 
 
 def contrastive_loss(score_matrix: torch.Tensor, temp: torch.Tensor) -> torch.Tensor:

@@ -115,7 +115,7 @@ class Trainer:
             task_name, batch = item
             spec = self._spec(task_name.split("--")[0])
             if self.cfg.model.scst_finetuning and spec.family == "cap":
-                raise NotImplementedError("SCST finetuning comes with the QA and SCST slice")
+                raise NotImplementedError("SCST finetuning comes with the SCST slice")
             metrics = train_step(self.state, to_device(batch, self.device), spec, t.seed,
                                  grad_dtype=t.grad_dtype)
             micro += 1
