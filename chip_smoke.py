@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 7b, 15, 16, 9; any failure ends the run with
-a traceback and a non-zero exit code, and no result line:
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 9; any failure ends
+the run with a traceback and a non-zero exit code, and no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      and the build of every kernel from ``valor_tpu_torch/csrc``: one nvcc a
@@ -106,12 +106,41 @@ a traceback and a non-zero exit code, and no result line:
      row a question, the launches those of the path; it prints samples/s,
      the data stall, peak memory, the text and media rows of the training
      batches and answers/s of the validation;
-  9. every shape that the main paths of phases 4, 8, 12, 14, 15 and 16 handed
-     each kernel is held against the plain version: listed where phase 2, 6
-     or 10 compared it, compared here where they did not.
+  7c. the tiny config on the card against the CPU for the SCST, task-prompt
+     and context-K/V slice, fp32 with TF32 off: one ``Trainer.scst_step`` of
+     ``cap%tva%tv`` with the same greedy and sampled rollouts patched in on
+     both devices (rewards equal, losses within 1e-4, gradients and updated
+     parameters to phase 7's tolerances); greedy and beam-3 captions with
+     ``multimodal_use_cross_attn=False`` and the caption prompt through the
+     context-K/V decode, equal token for token; one prompted
+     ``pt_contra%tva%tv_caption%tva%tv`` step to phase 7's tolerances; one
+     caption served with the caption prompt equal to a direct
+     ``Generator.generate``;
+  17. SCST caption finetuning from disk through ``cli.train``'s ``main`` at the
+     full width of ``configs/caption-msrvtt.json`` with ``--scst_finetuning
+     true`` and ``--pretrain_dir`` phase 15's run, on phase 15's dataset: ten
+     SCST steps, then the final validation; the restored weights equal phase
+     15's saved ones, losses and rewards finite, every fusion parameter with a
+     gradient and the towers without, the LayerNorm launches those of the
+     path and no fine-score launch; it prints samples/s, a step's seconds by
+     part (media encode, greedy rollout, sampled rollout, host reward,
+     update), the mean reward and alpha, the data stall, peak memory,
+     captions/s of the validation and the ``Scorer``'s construction time;
+  18. prompted pretraining from disk through ``cli.train``'s ``main``:
+     ``configs/pretrain-valor-base.json``'s first train flow with
+     ``use_task_prompt`` on, at batch 32, on phase 14's dataset, and a ``pt``
+     evaluation flow over its 256 evaluation ids: ten steps, then
+     ``validate_pt``; the batches carry the task's prompt arrays, losses and
+     report finite, one fine-score launch a fine contrastive group, the
+     LayerNorm launches those of the path; it prints samples/s from disk
+     against phase 8's in-memory rate, ``validate_pt`` items/s and peak memory;
+  9. every shape that the main paths of phases 4, 8, 12, 14, 15, 16, 17 and 18
+     handed each kernel is held against the plain version: listed where phase
+     2, 6 or 10 compared it, compared here where they did not.
 
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
-pretraining, retrieval, cli_train, cap_train and qa_train), and as its last line
+pretraining, retrieval, cli_train, cap_train, qa_train, scst_train and
+pt_prompt_train), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
 """
@@ -122,6 +151,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -234,6 +265,19 @@ def tiny_config():
         fusion_vocab=512, audio_hidden=32, audio_layers=2, audio_heads=2,
         audio_intermediate=64, dtype="float32", max_generation_len=6,
     )
+
+
+def tiny_prompts(task) -> dict:
+    """Task-prompt arrays of ``task`` in the layout of ``data/prompts.py``
+    ([1, P] ids within the tiny vocabularies; the last prompt padded)."""
+    out = {}
+    if task.contra_groups:
+        out["prompt_tokens_contra"] = np.asarray([[300, 21, 22, 23, 301]], np.int64)
+    if task.caption_groups:
+        out["prompt_tokens_caption"] = np.asarray([[101, 110, 111, 112, 113, 102]], np.int64)
+    for g in task.mlm_groups:
+        out[f"prompt_tokens_mlm_{g}"] = np.asarray([[101, 120, 121, 102, 0]], np.int64)
+    return out
 
 
 @contextlib.contextmanager
@@ -753,11 +797,12 @@ def phase_layernorm_bwd():
 
 
 # -- phase 7 ------------------------------------------------------------------
-def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
+def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prompts: bool = False):
     """One training step of ``task_name`` on the tiny config (fp32,
     caption_type lm, dropout 0: no random draws) on the card and on the CPU
     from the same weights; a QA task takes a multi-answer batch with
-    ``tile_index`` and ``answer_weights`` (``data/synthetic.py:qa_batch``).
+    ``tile_index`` and ``answer_weights`` (``data/synthetic.py:qa_batch``);
+    ``prompts`` adds the task prompts of ``use_task_prompt`` to the batch.
     Losses within 1e-4; gradients within 1e-4 absolute and relative (fp32
     sums in another order); updated parameters: every element within one
     learning-rate step and 99.9 % within 2 % of one (Adam turns a relative
@@ -775,13 +820,15 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(tiny_config(), caption_type="lm", dropout=0.0)
+    cfg = dataclasses.replace(tiny_config(), caption_type="lm", dropout=0.0, use_task_prompt=prompts)
     lr = 1e-3
     tcfg = TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr, num_train_steps=10, grad_norm=0.5)
     sd = init_params(cfg, seed=0, device="cpu")
     task = parse_task(task_name)
     data = (qa_batch(cfg, 4, frames=2, clips=1, n_question=8, seed=1) if task.family == "qa"
             else pretrain_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=1))
+    if prompts:
+        data.update(tiny_prompts(task))
     res = {}
     for dev in ("cpu", device):
         model = train_model(cfg, {k: v.to(dev) for k, v in sd.items()}, dev)
@@ -812,7 +859,8 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK):
     if device == "cuda" and (launches[0] <= 0 or launches[0] != launches[1]):
         raise AssertionError(f"card training step launched {launches} layernorm kernels (fwd, bwd)")
     grad_err = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
-    out = {"task": task_name, "losses_cuda": l_gpu, "losses_cpu": l_cpu, "max_loss_diff": loss_err,
+    out = {"task": task_name, "prompts": sorted(k for k in data if k.startswith("prompt_tokens")),
+           "losses_cuda": l_gpu, "losses_cpu": l_cpu, "max_loss_diff": loss_err,
            "max_grad_diff": grad_err, "max_param_diff": float(diff.max()),
            "params_within_2pct_step": within, "layernorm_launches_fwd_bwd": launches}
     log("card vs cpu training step " + json.dumps(out))
@@ -829,7 +877,10 @@ def expected_train_ln_launches(model, spec) -> int:
     pt_contra%tva%tv%ta_caption%tva%tv%ta; 26 + 25 + 25 = 76 on ret%tva%tv,
     also what one evaluation forward of ret%tva%tv runs; 26 + 25 + 38 = 89
     on cap%tva, and 90 on qa%tva, whose question prompt is embedded (and
-    LayerNormed) apart from the answer."""
+    LayerNormed) apart from the answer.  With ``use_task_prompt`` each caption
+    and MLM group embeds its prompt the same way (and a BERT text tower the
+    contrastive one; the CLIP text tower has no embedding LayerNorm): 193 on
+    VALOR-base's pretraining task."""
     from valor_tpu_torch.ops.layers import LayerNorm
 
     def count(mod, skip_cross=False):
@@ -843,9 +894,10 @@ def expected_train_ln_launches(model, spec) -> int:
         n += count(model.clip_vision) + adapters * count(getattr(model, "video_adapter_ln", None))
     if spec.uses_audio:
         n += count(model.audio_encoder) + adapters * count(getattr(model, "audio_adapter_ln", None))
+    prompted = model.cfg.use_task_prompt and spec.family != "qa"
     if spec.contra_groups and any("t" in g for g in spec.contra_groups):
-        n += count(model.text_encoder, skip_cross=True)
-    fusion = count(model.multimodal_encoder) + count(model.cls_head) + (spec.family == "qa")
+        n += count(model.text_encoder, skip_cross=True) + (prompted and not model.is_clip_text)
+    fusion = count(model.multimodal_encoder) + count(model.cls_head) + (spec.family == "qa" or prompted)
     return n + fusion * (len(spec.caption_groups) + len(spec.mlm_groups))
 
 
@@ -1442,15 +1494,52 @@ def check_device_fbank(batch, cfg, device: str) -> dict:
             "max_abs_err": err, "tol": "abs 1e-4 + rel 1e-4", "device_ms_a_batch": ms}
 
 
+def point_at(raw: dict, paths: dict) -> None:
+    """Every flow of the config ``raw`` at the split files, frames and audio of
+    ``paths`` (a ``data/synthetic.py`` writer's)."""
+    for split in ("train", "val"):
+        for flow in raw["data_cfg"][split]:
+            for ds in flow["datasets"]:
+                ds.update(ids_path=paths[f"{split}_ids"], txt=paths[f"{split}_txt"],
+                          video=paths["frames"], audio=paths["audio"])
+
+
+@contextlib.contextmanager
+def cli_run(paths: dict, tmp: str, name: str, edit):
+    """A config from ``configs/<name>`` with ``edit(raw)`` applied, written
+    under ``tmp``, and the tokenizer and weight paths of ``paths`` in the
+    environment inside the block; yields the config's path."""
+    import os
+
+    raw = json.loads((ROOT / "configs" / name).read_text())
+    edit(raw)
+    cfg_path = os.path.join(tmp, f"config_{name}")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    env0 = {k: os.environ.get(k) for k in ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")}
+    os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
+                      VALOR_PRETRAINED_DIR=os.path.join(tmp, "no_public_weights"))
+    try:
+        yield cfg_path
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixture=None, overrides=None,
-                    device: str = "cuda", synthetic=None):
+                    device: str = "cuda", synthetic=None, root=None):
     """``valor_tpu_torch.cli.train`` from disk at the full width of
     ``configs/retrieval-msrvtt.json`` (only the dataset paths, ``output_dir``,
     ``num_train_steps`` and ``valid_steps`` changed): a seeded MSR-VTT-shaped
     dataset written to a temporary directory (``data/synthetic.py``), run 1 of
     ``steps`` steps, run 2 resumed to twice that.  ``fixture`` and ``overrides``
     shrink the dataset and the model for a CPU rehearsal (device "cpu");
-    ``synthetic`` is phase 12's summary, whose samples/s this run's is set against."""
+    ``synthetic`` is phase 12's summary, whose samples/s this run's is set against.
+    With ``root`` the dataset stays there for phase 18 (its paths under
+    "paths" in the summary) and the runs' checkpoints are deleted."""
     import os
     import shutil
 
@@ -1469,27 +1558,20 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     dev_args = [] if cuda else ["--device", device]
     saved, restored = {}, {}
-    env0 = {k: os.environ.get(k) for k in ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")}
-    with tempfile.TemporaryDirectory(prefix="valor_cli_train_") as tmp:
+    with (contextlib.nullcontext(root) if root else tempfile.TemporaryDirectory(prefix="valor_cli_train_")) \
+            as tmp:
         t0 = time.monotonic()
         paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=n_train, n_val=n_val,
                                         **(fixture or {}))
         fixture_s = time.monotonic() - t0
         data_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
-        raw = json.loads((ROOT / "configs" / "retrieval-msrvtt.json").read_text())
-        for split in ("train", "val"):
-            for flow in raw["data_cfg"][split]:
-                for ds in flow["datasets"]:
-                    ds.update(ids_path=paths[f"{split}_ids"], txt=paths[f"{split}_txt"],
-                              video=paths["frames"], audio=paths["audio"])
-        raw.update(output_dir=os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
-                   **(overrides or {}))
-        cfg_path = os.path.join(tmp, "config.json")
-        with open(cfg_path, "w") as f:
-            json.dump(raw, f)
-        os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
-                          VALOR_PRETRAINED_DIR=os.path.join(tmp, "no_public_weights"))
-        try:
+
+        def edit(raw):
+            point_at(raw, paths)
+            raw.update(output_dir=os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
+                       **(overrides or {}))
+
+        with cli_run(paths, tmp, "retrieval-msrvtt.json", edit) as cfg_path:
             cfg = load_config(cfg_path)
             spec = parse_task(cfg.data_train[0].task)
             with record_trainers(sync, cuda) as runs, record_validations(sync) as evals, \
@@ -1514,12 +1596,8 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
             ds = build_dataset(cfg.data_train[0], cfg.model, build_tokenizers(cfg.model), training=True)
             batch = valor_collate([ds[i] for i in range(cfg.data_train[0].batch_size)])
             fbank = check_device_fbank(batch, cfg.model, device)
-        finally:
-            for k, v in env0.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+            if root:
+                shutil.rmtree(os.path.join(tmp, "out"))
 
     r1, r2 = runs
     t2 = second
@@ -1578,7 +1656,7 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
         "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
         "ln_per_forward": per_step,
         "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
-        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}), "paths": paths,
     }
     if synthetic:
         summary["synthetic_samples_per_s"] = synthetic["samples_per_s"]
@@ -1707,7 +1785,7 @@ def record_batch_rows():
 
 
 def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "cuda", overrides=None,
-                       synthetic=None):
+                       synthetic=None, out_dir=None):
     """``valor_tpu_torch.cli.train`` from disk at the full width of
     ``configs/caption-msrvtt.json`` (``kind`` "cap") or ``configs/qa-msrvtt.json``
     ("qa"), with only the dataset paths (``paths``, a ``data/synthetic.py``
@@ -1716,7 +1794,9 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     then the trainer's final validation over the evaluation ids, whose figures
     are checked and reported.
     ``overrides`` shrink the model for a CPU rehearsal (device "cpu");
-    ``synthetic`` is a from-disk summary whose samples/s this run's is set against."""
+    ``synthetic`` is a from-disk summary whose samples/s this run's is set against;
+    ``out_dir``, where given, is the run's ``output_dir`` and stays (phase 17
+    takes its weights from phase 15's)."""
     import os
 
     import torch
@@ -1730,39 +1810,26 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     name = {"cap": "caption-msrvtt.json", "qa": "qa-msrvtt.json"}[kind]
-    env0 = {k: os.environ.get(k) for k in ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")}
-    with tempfile.TemporaryDirectory(prefix=f"valor_cli_{kind}_") as tmp:
-        raw = json.loads((ROOT / "configs" / name).read_text())
-        for split in ("train", "val"):
-            for flow in raw["data_cfg"][split]:
-                for ds in flow["datasets"]:
-                    ds.update(ids_path=paths[f"{split}_ids"], txt=paths[f"{split}_txt"],
-                              video=paths["frames"], audio=paths["audio"])
-        out_dir = os.path.join(tmp, "out")
-        raw.update(output_dir=out_dir, num_train_steps=steps, valid_steps=0, **(overrides or {}))
-        cfg_path = os.path.join(tmp, "config.json")
-        with open(cfg_path, "w") as f:
-            json.dump(raw, f)
-        os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
-                          VALOR_PRETRAINED_DIR=os.path.join(tmp, "no_public_weights"))
-        try:
-            cfg = load_config(cfg_path)
-            spec = parse_task(cfg.data_train[0].task)
-            with record_trainers(sync, cuda) as runs, record_generative_validations(sync) as evals, \
-                    record_batch_rows() as rows, record_ln_calls() as (sigs_fwd, sigs_bwd):
-                K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
-                trainer = main(["--config", cfg_path, *([] if cuda else ["--device", device])])
-                launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
-            results = os.path.join(out_dir, f"results_test_{cfg.data_val[0].datasets[0].name}")
-            dumps = {f: json.load(open(os.path.join(results, f))) for f in sorted(os.listdir(results))}
-            with open(paths["val_txt"]) as f:
-                val_txt = json.load(f)
-        finally:
-            for k, v in env0.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+
+    def edit(raw):
+        point_at(raw, paths)
+        raw.update(output_dir=out_dir or os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
+                   **(overrides or {}))
+
+    with tempfile.TemporaryDirectory(prefix=f"valor_cli_{kind}_") as tmp, \
+            cli_run(paths, tmp, name, edit) as cfg_path:
+        cfg = load_config(cfg_path)
+        spec = parse_task(cfg.data_train[0].task)
+        with record_trainers(sync, cuda) as runs, record_generative_validations(sync) as evals, \
+                record_batch_rows() as rows, record_ln_calls() as (sigs_fwd, sigs_bwd):
+            K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+            trainer = main(["--config", cfg_path, *([] if cuda else ["--device", device])])
+            launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+        out_dir = cfg.train.output_dir
+        results = os.path.join(out_dir, f"results_test_{cfg.data_val[0].datasets[0].name}")
+        dumps = {f: json.load(open(os.path.join(results, f))) for f in sorted(os.listdir(results))}
+        with open(paths["val_txt"]) as f:
+            val_txt = json.load(f)
 
     rec, history = runs[0], list(trainer.history)
     model = trainer.state.model
@@ -1830,6 +1897,7 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     else:
         summary["answers_per_s"] = ev["rows"] / ev["seconds"]
         summary["beam_size"], summary["max_len"] = cfg.model.beam_size_qa, cfg.model.max_generation_len
+    summary["output_dir"] = out_dir
     if synthetic:
         summary["retrieval_from_disk_samples_per_s"] = synthetic["samples_per_s"]
     log(f"cli_{kind} " + json.dumps(summary))
@@ -1837,19 +1905,21 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
 
 
 def phase_cap_qa_from_disk(n_train: int = 320, n_val: int = 128, steps: int = 10, fixture=None, overrides=None,
-                           device: str = "cuda", synthetic=None):
+                           device: str = "cuda", synthetic=None, root=None):
     """Phases 15 and 16: a seeded MSR-VTT-shaped dataset (``n_train`` training
     and ``n_val`` evaluation ids, media written once, caption and QA files
     beside them) through ``phase_cli_finetune`` for ``cap`` and then ``qa``.
     ``fixture`` and ``overrides`` shrink the media and the model for a CPU
-    rehearsal."""
+    rehearsal.  With ``root`` the caption files and the caption run's
+    ``output_dir`` stay there for phase 17 (under "paths" and "output_dir" in
+    the caption summary)."""
     import os
 
     import torch
 
     from valor_tpu_torch.data.synthetic import write_caption_dataset, write_qa_dataset
 
-    with tempfile.TemporaryDirectory(prefix="valor_cap_qa_") as tmp:
+    with (contextlib.nullcontext(root) if root else tempfile.TemporaryDirectory(prefix="valor_cap_qa_")) as tmp:
         t0 = time.monotonic()
         cap = write_caption_dataset(os.path.join(tmp, "cap"), n_train, n_val, **(fixture or {}))
         qa = write_qa_dataset(os.path.join(tmp, "qa"), n_train, n_val, media=cap)
@@ -1858,17 +1928,591 @@ def phase_cap_qa_from_disk(n_train: int = 320, n_val: int = 128, steps: int = 10
                                         for d, _, fs in os.walk(tmp) for f in fs)}
         out = {}
         for kind, paths in (("cap", cap), ("qa", qa)):
-            out[kind] = dict(phase_cli_finetune(kind, paths, steps, device, overrides, synthetic), **written)
+            keep = os.path.join(tmp, f"{kind}_out") if root and kind == "cap" else None
+            out[kind] = dict(phase_cli_finetune(kind, paths, steps, device, overrides, synthetic, keep),
+                             paths=paths, **written)
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
     return out["cap"], out["qa"]
 
 
+# -- phases 7c, 17 and 18: SCST, task prompts, validate_pt, the context-K/V decode --
+def _ln_count(*mods) -> int:
+    from valor_tpu_torch.ops.layers import LayerNorm
+
+    return sum(isinstance(x, LayerNorm) for m in mods if m is not None for x in m.modules())
+
+
+def expected_scst_ln_launches(model, spec) -> tuple:
+    """LayerNorm launches (forward, backward) of one SCST batch: the towers of
+    the caption groups and the adapters once (the media are encoded once,
+    without autograd), then for each group a greedy and a sampled rollout of
+    ``max_generation_len`` decode steps and the REINFORCE forward, each a pass
+    of the fusion encoder and its head (one more LayerNorm a pass with the
+    caption prompt), and the REINFORCE backward of the same.  VALOR-base at 30
+    tokens: 26 + 25 + 61 * 38 = 2369 forward and 38 backward."""
+    v, a = spec.uses_video, spec.uses_audio
+    encode = (_ln_count(model.clip_vision, getattr(model, "video_adapter_ln", None)) * v
+              + _ln_count(model.audio_encoder, getattr(model, "audio_adapter_ln", None)) * a)
+    step = _ln_count(model.multimodal_encoder, model.cls_head) + bool(model.cfg.use_task_prompt)
+    groups = len(spec.caption_groups)
+    return encode + groups * (2 * model.cfg.max_generation_len + 1) * step, groups * step
+
+
+def _write_annotations(root: str, ids, seed: int = 6) -> dict:
+    """A WordPiece vocabulary (``data/synthetic.py``) and ``{id: [3 captions]}``
+    of its words; returns their paths ("vocab", "ann")."""
+    import os
+
+    from valor_tpu_torch.data.synthetic import WORDS, write_tokenizer_files
+
+    paths = write_tokenizer_files(root)
+    rng = np.random.RandomState(seed)
+    paths["ann"] = os.path.join(root, "ann.json")
+    with open(paths["ann"], "w") as f:
+        json.dump({i: [" ".join(rng.choice(WORDS, size=rng.randint(4, 9))) for _ in range(3)] for i in ids}, f)
+    return paths
+
+
+def phase_scst_prompt_card_vs_cpu(device: str = "cuda"):
+    """The tiny config (fp32, TF32 off) on the card against the CPU for the SCST,
+    task-prompt and context-K/V slice: one ``Trainer.scst_step`` of
+    ``cap%tva%tv`` (dropout 0.1 in the config, which the update must switch
+    off) with the same greedy and sampled rollouts patched in on both devices
+    (rewards equal, losses within 1e-4, every gradient and updated parameter to
+    phase 7's tolerances, the LayerNorm launches those of the path); greedy and
+    beam-3 captions with ``multimodal_use_cross_attn=False`` and the caption
+    prompt, through the context-K/V decode, equal token for token (its logits
+    within 1e-4 of the full forward's and of the CPU's); one prompted
+    ``pt_contra%tva%tv_caption%tva%tv`` step (phase 7's check); and one caption
+    served with the caption prompt equal to a direct ``Generator.generate``."""
+    import torch
+
+    from valor_tpu_torch.core.config import Config, TrainConfig
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.synthetic import WORDS, pretrain_batch
+    from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
+    from valor_tpu_torch.eval.generate import Generator, make_fusion_decoder
+    from valor_tpu_torch.eval.scorer import Scorer
+    from valor_tpu_torch.models.bridge import init_params, load_model, train_model
+    from valor_tpu_torch.ops.kernels import layernorm as K
+    from valor_tpu_torch.serve import InferenceEngine, ServeConfig
+    from valor_tpu_torch.train import trainer as T
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState, to_device
+
+    cuda = device == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = {}
+
+    # one SCST update on both devices, the rollouts patched in
+    cfg = dataclasses.replace(tiny_config(), caption_type="unimlm", dropout=0.1, scst_finetuning=True)
+    lr = 1e-3
+    tcfg = TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr, num_train_steps=10, grad_norm=0.5)
+    sd = init_params(cfg, seed=0, device="cpu")
+    spec = parse_task("cap%tva%tv")
+    ids = [f"video{i}" for i in range(4)]
+    data = pretrain_batch(cfg, 4, frames=2, clips=1, n_txt=8, seed=5)
+    rng = np.random.RandomState(8)
+    rollouts = {}
+    for mode in ("greedy", "sample"):
+        seqs = np.full((4, cfg.max_generation_len), 102, np.int64)
+        for r, n in enumerate(rng.randint(1, cfg.max_generation_len + 1, size=4)):
+            seqs[r, :n] = 106 + rng.randint(0, len(WORDS), size=n)  # a full row has no EOS
+        rollouts[mode] = seqs
+    decode0 = T._decode
+
+    def patched(model, caption_type, max_len, beam_size, mode, prompt, v, a, generator):
+        s = torch.from_numpy(rollouts[mode]).to(model.device).int()
+        return s, torch.zeros(s.shape, device=model.device)
+
+    res = {}
+    T._decode = patched
+    try:
+        with tempfile.TemporaryDirectory(prefix="valor_scst_tiny_") as tmp:
+            files = _write_annotations(tmp, ids)
+            scorer = Scorer(files["ann"], ids, BertTokenizer(files["vocab"]))
+            for dev in ("cpu", device):
+                model = train_model(cfg, {k: v.to(dev) for k, v in sd.items()}, dev)
+                state = TrainState(model, build_optimizer(model, tcfg))
+                grads, update0 = [], state.optimizer.update
+
+                def update(g, update0=update0, grads=grads):
+                    grads.append([x.cpu() for x in g])
+                    return update0(g)
+
+                state.optimizer.update = update
+                trainer = T.Trainer(Config(model=cfg, train=tcfg), state, [], scorer=scorer)
+                fwd, bwd = K.LAUNCHES, K.LAUNCHES_BWD
+                metrics = trainer.scst_step(to_device(data, dev), ids, spec)
+                res[dev] = ({k: float(v) for k, v in metrics.items()}, grads,
+                            [p.detach().cpu() for p in model.parameters()],
+                            (K.LAUNCHES - fwd, K.LAUNCHES_BWD - bwd), state.step, model.training)
+    finally:
+        T._decode = decode0
+    (m_cpu, g_cpu, p_cpu, _, step_cpu, _), (m_gpu, g_gpu, p_gpu, launches, step_gpu, training) = \
+        res["cpu"], res[device]
+    rewards = {k: m_gpu[k] for k in m_gpu if k.startswith("scst_reward")}
+    if rewards != {k: m_cpu[k] for k in rewards} or len(rewards) != 2:
+        raise AssertionError(f"SCST rewards card {m_gpu} vs cpu {m_cpu}")
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) for k in m_gpu if k.startswith("caption_loss"))
+    if loss_err > 1e-4 or step_cpu != step_gpu or step_gpu != 2 or not training:
+        raise AssertionError(f"SCST losses {m_gpu} vs {m_cpu}, steps {step_gpu} / {step_cpu}, "
+                             f"training mode {training}")
+    names = [n for n, _ in train_model(cfg, sd, "cpu").named_parameters()]
+    grad_err = 0.0
+    for update_gpu, update_cpu in zip(g_gpu, g_cpu):
+        for name, a, b in zip(names, update_gpu, update_cpu):
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"card vs cpu SCST gradient of {name}: "
+                                     f"max diff {float((a - b).abs().max())}")
+            grad_err = max(grad_err, float((a - b).abs().max()))
+    diff = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(p_gpu, p_cpu)])
+    within = float((diff <= 2e-2 * lr).float().mean())
+    if len(g_gpu) != 2 or float(diff.max()) > lr or within < 0.999:
+        raise AssertionError(f"card vs cpu SCST updates: {len(g_gpu)} updates, max diff {float(diff.max())}, "
+                             f"{within:.5f} within 2% of a step")
+    probe = train_model(cfg, sd, "cpu")
+    step_ln = _ln_count(probe.multimodal_encoder, probe.cls_head)
+    want = (_ln_count(probe.clip_vision, probe.audio_encoder) + 2 * step_ln, 2 * step_ln) if cuda else (0, 0)
+    if launches != want:  # the rollouts are patched: the encode and two REINFORCE updates
+        raise AssertionError(f"SCST step launched {launches} layernorm kernels (fwd, bwd), not {want}")
+    summary["scst_step"] = {"task": spec.raw, "metrics_cuda": m_gpu, "metrics_cpu": m_cpu,
+                            "max_loss_diff": loss_err, "max_grad_diff": grad_err,
+                            "max_param_diff": float(diff.max()), "params_within_2pct_step": within,
+                            "updates": len(g_gpu), "layernorm_launches_fwd_bwd": launches}
+
+    # the context-K/V decode with the caption prompt
+    cfg2 = dataclasses.replace(tiny_config(), multimodal_use_cross_attn=False)
+    sd2 = init_params(cfg2, seed=0, device="cpu")
+    models = {"cpu": load_model(cfg2, sd2, "cpu"),
+              device: load_model(cfg2, {k: v.to(device) for k, v in sd2.items()}, device)}
+    prompt = np.asarray([[101, 110, 111, 112, 113, 102]], np.int64)
+    rng = np.random.RandomState(9)
+    media = {"video_pixels": rng.randint(0, 256, size=(4, 2, 32, 32, 3), dtype=np.uint8),
+             "audio_spectrograms": rng.randn(4, 1, 16, 32).astype(np.float32)}
+    batch = dict(media, prompt_tokens_caption=prompt)
+    m = models[device]
+    step = _ln_count(m.multimodal_encoder, m.cls_head)
+    # the encode, the context once (the prompt's embedding LN and the layers', no head), then the steps
+    ctx_launches = (_ln_count(m.clip_vision, m.audio_encoder) + _ln_count(m.multimodal_encoder)
+                    + step * cfg2.max_generation_len)
+    seqs_out = {}
+    for beam in (1, 3):
+        seqs = {}
+        for d, mod in models.items():
+            fwd = K.LAUNCHES
+            seqs[d] = Generator(mod).generate(batch, ("tva",), max_len=cfg2.max_generation_len,
+                                              beam_size=beam)["generated_sequences_tva"].cpu().numpy()
+            if d == device and cuda and K.LAUNCHES - fwd != ctx_launches:
+                raise AssertionError(f"context-K/V decode (beam {beam}) launched {K.LAUNCHES - fwd} "
+                                     f"layernorm kernels, not {ctx_launches}")
+        if not np.array_equal(seqs["cpu"], seqs[device]):
+            raise AssertionError(f"context-K/V beam {beam}: card {seqs[device].tolist()} != cpu "
+                                 f"{seqs['cpu'].tolist()}")
+        seqs_out[f"beam{beam}"] = seqs[device].tolist()
+    buf = torch.from_numpy(rng.randint(106, 512, size=(4, 8))).long()
+    buf[:, 0] = 101
+    mask = (torch.arange(8)[None] <= 4).float().expand(4, 8)
+    logits = {}
+    with torch.inference_mode():
+        for d, mod in models.items():
+            v = mod.video_fusion_input(mod.encode_video(torch.from_numpy(media["video_pixels"]).to(d)))
+            a = mod.audio_fusion_input(mod.encode_audio(torch.from_numpy(media["audio_spectrograms"]).to(d)))
+            p = torch.from_numpy(prompt).to(d)
+            logits[d] = make_fusion_decoder(mod, p.expand(4, -1), v, a)(buf.to(d), mask.to(d)).cpu()
+            if d == device:
+                full = mod.fusion_logits(buf.to(d), p, v, a, True, False, mask.to(d)).cpu()
+    ctx_err = float((logits[device] - full).abs().max())
+    dev_err = float((logits[device] - logits["cpu"]).abs().max())
+    if ctx_err > 1e-4 or dev_err > 1e-4:
+        raise AssertionError(f"context-K/V logits: {ctx_err} from the full forward, {dev_err} card vs cpu")
+    summary["ctx_decode"] = {"equal_sequences": seqs_out, "logits_vs_full_forward": ctx_err,
+                             "logits_card_vs_cpu": dev_err, "layernorm_launches_a_decode": ctx_launches}
+
+    # a prompted pretraining step
+    summary["prompted_pt_step"] = phase_train_card_vs_cpu(device, "pt_contra%tva%tv_caption%tva%tv",
+                                                          prompts=True)
+
+    # a caption served with the caption prompt
+    cfg3 = tiny_config()
+    m3 = load_model(cfg3, init_params(cfg3, seed=0, device=device), device)
+    item = {"video_pixels": media["video_pixels"][0], "audio_spectrograms": media["audio_spectrograms"][0]}
+    serve_cfg = ServeConfig(buckets=(1,), max_wait_ms=0, group="tva", max_len=cfg3.max_generation_len)
+    with InferenceEngine(m3, serve_cfg, prompts={"tva": prompt}) as engine:
+        served = engine.submit(item).result(timeout=300)["sequences"]
+    one = {k: v[None] for k, v in item.items()}
+    direct = Generator(m3).generate(dict(one, prompt_tokens_caption=prompt), ("tva",),
+                                    max_len=cfg3.max_generation_len)["generated_sequences_tva"][0]
+    plain = Generator(m3).generate(one, ("tva",), max_len=cfg3.max_generation_len)["generated_sequences_tva"][0]
+    if not np.array_equal(np.asarray(served), direct.cpu().numpy()):
+        raise AssertionError(f"served prompted caption {np.asarray(served).tolist()} != direct "
+                             f"{direct.tolist()}")
+    summary["served_prompted_caption"] = {"sequence": np.asarray(served).tolist(),
+                                          "without_prompt": plain.tolist()}
+    torch.backends.cudnn.allow_tf32 = True
+    log("card vs cpu SCST, prompts, context-K/V " + json.dumps(summary))
+    return summary
+
+
+@contextlib.contextmanager
+def record_scst(sync):
+    """Yields a dict that fills with the SCST run's parts: (part, host start,
+    seconds between two synchronisations) of every media encode, greedy and
+    sampled rollout, host reward and REINFORCE update; the seconds each
+    ``Scorer`` took to build; the weights that ``--pretrain_dir`` restored
+    (``cli/train.py:restore_weights``), checked against the model at the first
+    SCST step; and, per parameter, whether any update gave it a non-zero
+    gradient.  It launches no kernel itself but the checks' reductions."""
+    import torch
+
+    import valor_tpu_torch.cli.train as CT
+    from valor_tpu_torch.eval import generate as G
+    from valor_tpu_torch.eval import scorer as S
+    from valor_tpu_torch.train import step as TS
+    from valor_tpu_torch.train import trainer as T
+
+    rec = {"parts": [], "scorer_build_s": [], "restored": {}, "first_step_equal": None, "nonzero": None}
+    saved = (G.Generator.encode, T._decode, S.Scorer.__call__, S.Scorer.__init__, T.scst_update,
+             T.Trainer.scst_step, CT.restore_weights, TS.param_grads)
+
+    def timed(part, fn):
+        def wrapped(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            rec["parts"].append((part(*a, **kw) if callable(part) else part, t0, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    def init(self, *a, **kw):
+        t0 = time.perf_counter()
+        saved[3](self, *a, **kw)
+        rec["scorer_build_s"].append(time.perf_counter() - t0)
+
+    def restore(path, step=None):
+        payload = saved[6](path, step)
+        rec["restored"] = dict(payload["params"])
+        return payload
+
+    def scst_step(self, batch, ids, spec):
+        if rec["first_step_equal"] is None:
+            now = self.state.model.state_dict()
+            rec["first_step_equal"] = [k for k, v in rec["restored"].items()
+                                       if not torch_equal(now[k].detach().cpu(), v)] == [] and \
+                len(rec["restored"]) == len(now)
+        return saved[5](self, batch, ids, spec)
+
+    def grads(total, params):
+        g = saved[7](total, params)
+        flags = torch.stack([x.ne(0).any() for x in g])
+        rec["nonzero"] = flags if rec["nonzero"] is None else rec["nonzero"] | flags
+        return g
+
+    G.Generator.encode = timed("encode", saved[0])
+    T._decode = timed(lambda model, ct, ml, bs, mode, *a: f"{mode}_rollout", saved[1])
+    S.Scorer.__call__ = timed("host_reward", saved[2])
+    S.Scorer.__init__ = init
+    T.scst_update = timed("update", saved[4])
+    T.Trainer.scst_step, CT.restore_weights, TS.param_grads = scst_step, restore, grads
+    try:
+        yield rec
+    finally:
+        (G.Generator.encode, T._decode, S.Scorer.__call__, S.Scorer.__init__, T.scst_update,
+         T.Trainer.scst_step, CT.restore_weights, TS.param_grads) = saved
+
+
+def phase_cli_scst(paths: dict, pretrain_dir: str, steps: int = 10, device: str = "cuda", overrides=None,
+                   synthetic=None):
+    """SCST caption finetuning from disk through ``cli.train``'s ``main`` at the
+    full width of ``configs/caption-msrvtt.json`` (``cap%tva``, batch 64, 4
+    frames, 1 clip, beam 3, 30 tokens, bf16) with ``--scst_finetuning true``
+    and ``--pretrain_dir`` the caption run of phase 15 (``pretrain_dir``), on
+    its dataset (``paths``): ``steps`` SCST steps, then the final validation
+    (the config's evaluation before training is off: it would repeat phase
+    15's last).  Checks: the restored weights equal the caption run's saved
+    ones; every loss and reward finite; every parameter of the fusion stack
+    and head took a gradient, the towers none (they encode without autograd),
+    and a parameter without one moved only by weight decay; the LayerNorm
+    launches those of the path, no fine-score launch.  ``overrides`` shrink
+    the run for a CPU rehearsal."""
+    import os
+
+    import torch
+
+    from valor_tpu_torch.cli.train import main
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def edit(raw):
+        point_at(raw, paths)
+        raw.update(output_dir=os.path.join(tmp, "scst_out"), num_train_steps=steps, valid_steps=0,
+                   first_eval=False, **(overrides or {}))
+
+    with tempfile.TemporaryDirectory(prefix="valor_cli_scst_") as tmp, \
+            cli_run(paths, tmp, "caption-msrvtt.json", edit) as cfg_path:
+        argv = ["--config", cfg_path, "--scst_finetuning", "true", "--pretrain_dir", pretrain_dir]
+        cfg = load_config(cfg_path)
+        spec = parse_task(cfg.data_train[0].task)
+        with record_trainers(sync, cuda) as runs, record_generative_validations(sync) as evals, \
+                record_scst(sync) as scst, record_ln_calls() as (sigs_fwd, sigs_bwd), \
+                record_fine_calls() as fine_calls:
+            K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+            trainer = main(argv + ([] if cuda else ["--device", device]))
+            launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+        with open(paths["val_txt"]) as f:
+            n_val = len(json.load(f))
+        with open(paths["train_ids"]) as f:
+            n_train = len(json.load(f))
+
+    rec, history = runs[0], list(trainer.history)
+    model, state = trainer.state.model, trainer.state
+    groups = spec.caption_groups
+    if not scst["first_step_equal"] or not scst["restored"]:
+        raise AssertionError("the SCST run did not start from the caption run's saved weights")
+    if state.step != steps * len(groups) or len(history) != steps or state.optimizer.gradient_step != state.step:
+        raise AssertionError(f"{len(history)} batches, state.step {state.step}, "
+                             f"{state.optimizer.gradient_step} updates")
+    keys = {f"{k}_{g}" for g in groups for k in ("scst_reward", "caption_loss")}
+    if not all(set(h[2]) == keys and all(np.isfinite(v) for v in h[2].values()) for h in history):
+        raise AssertionError(f"SCST metrics: {history}")
+    end = model.state_dict()
+    labels = dict(zip(state.optimizer.names, state.optimizer.labels))
+    nonzero = dict(zip(state.optimizer.names, scst["nonzero"].tolist()))
+    moved = {k: not torch_equal(end[k].detach().cpu(), v) for k, v in scst["restored"].items()}
+    # every parameter of the fusion stack and head takes a gradient (the prompt
+    # embedding only with prompts), the towers none; a parameter without one
+    # moves only by weight decay.  How far a gradient moves its parameter
+    # depends on the rewards, which random weights keep near zero: reported.
+    fusion = [k for k in nonzero if k.split(".")[0] in ("multimodal_encoder", "cls_head")
+              and (model.cfg.use_task_prompt or not k.endswith("prompt_embedding"))]
+    no_grad = [k for k in fusion if not nonzero[k]]
+    towers = [k for k in nonzero if nonzero[k] and k.split(".")[0] in ("clip_vision", "audio_encoder")]
+    wrong = [k for k in nonzero if moved[k] and not nonzero[k] and not labels[k].endswith("_wd")]
+    if no_grad or towers or wrong:
+        raise AssertionError(f"fusion parameters without a gradient: {no_grad[:10]}; towers with one: "
+                             f"{towers[:10]}; moved without a gradient or decay: {wrong[:10]}")
+    if len(evals) != 1 or evals[0]["items"] != n_val:
+        raise AssertionError(f"validations {[(e['kind'], e['items']) for e in evals]}, expected 1 of {n_val}")
+    report = evals[0]["report"]
+    if not all(k in report and np.isfinite(report[k]) for k in ("Bleu_4", "CIDEr", "METEOR", "ROUGE_L")):
+        raise AssertionError(f"caption report {report}")
+    per_fwd, per_bwd = expected_scst_ln_launches(model, spec)
+    val_batches = -(-n_val // cfg.data_val[0].batch_size)
+    expected = ((per_fwd * steps + val_batches * expected_ln_launches(model, model.cfg.use_task_prompt),
+                 per_bwd * steps, 0) if cuda else (0, 0, 0))
+    if launches != expected:
+        raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+
+    step_s = np.diff([rec["start"]] + rec["stamps"])
+    wait_s = np.diff([0.0] + rec["waits"])
+    bounds = list(zip([rec["start"]] + rec["stamps"][:-1], rec["stamps"]))
+    parts = {}
+    for name in ("encode", "greedy_rollout", "sample_rollout", "host_reward", "update"):
+        per_step = [sum(s for p, t0, s in scst["parts"] if p == name and lo <= t0 < hi) for lo, hi in bounds]
+        parts[name] = float(np.median(per_step[2:]))
+    timed = step_s[2:]  # steps 3-10: the first two are warm-up
+    median = float(np.median(timed))
+    batch_size = cfg.data_train[0].batch_size
+    rewards = [h[2][f"scst_reward_{groups[0]}"] for h in history]
+    alpha = trainer.alpha
+    summary = {
+        "config": "configs/caption-msrvtt.json", "task": cfg.data_train[0].task, "batch": batch_size,
+        "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
+        "max_len": cfg.model.max_generation_len, "beam_size": cfg.model.beam_size,
+        "train_items": n_train, "val_items": n_val, "steps": steps, "median_step_s": median,
+        "samples_per_s": batch_size / median, "step_s": [float(v) for v in step_s],
+        "step_parts_median_s": parts, "step_other_s": median - sum(parts.values()),
+        "data_wait_s": [float(v) for v in wait_s], "data_stall_share": float(wait_s[2:].sum() / timed.sum()),
+        "device_idle_share": "not measured (no profiler trace in this phase)",
+        "max_memory_allocated_gib": rec["peak"] / 2**30,
+        "scst_reward": rewards, "mean_reward": float(np.mean(rewards)),
+        "mean_greedy_reward": alpha.greedy_total / max(alpha.idx, 1), "alpha": alpha.value(),
+        "alpha_type": alpha.alpha_type, "caption_loss": [h[2][f"caption_loss_{groups[0]}"] for h in history],
+        "scorer_build_s": scst["scorer_build_s"], "restored_params_equal": scst["first_step_equal"],
+        "params": len(moved), "params_moved": int(sum(moved.values())),
+        "params_with_gradient": int(sum(nonzero.values())),
+        "params_with_gradient_moved": int(sum(moved[k] for k in nonzero if nonzero[k])),
+        "validation": {k: evals[0][k] for k in ("items", "seconds", "caption_eval_s", "meteor_lite_s")},
+        "captions_per_s": evals[0]["items"] / evals[0]["seconds"], "report": report,
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_step_fwd_bwd": [per_fwd, per_bwd], "val_batches": val_batches,
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+    }
+    if synthetic:
+        summary["caption_finetune_samples_per_s"] = synthetic["samples_per_s"]
+    log("cli_scst " + json.dumps(summary))
+    return summary
+
+
+@contextlib.contextmanager
+def record_batch_keys():
+    """Yields a list that fills with the sorted keys of every batch that
+    ``Trainer`` hands ``train_step``."""
+    from valor_tpu_torch.train import trainer as T
+
+    keys, step0 = [], T.train_step
+
+    def step1(state, batch, *a, **kw):
+        keys.append(sorted(batch))
+        return step0(state, batch, *a, **kw)
+
+    T.train_step = step1
+    try:
+        yield keys
+    finally:
+        T.train_step = step0
+
+
+@contextlib.contextmanager
+def record_pt_validations(sync):
+    """Yields a list that fills with (items, seconds between two
+    synchronisations, report) of every ``validate_pt`` call."""
+    from valor_tpu_torch.eval import validate as V
+
+    calls, fn0 = [], V.validate_pt
+
+    def fn1(model, step_fn, loader, *a, **kw):
+        items = [0]
+
+        def counted(it):
+            for b in it:
+                items[0] += len(b["ids"])
+                yield b
+
+        sync()
+        t0 = time.perf_counter()
+        report = fn0(model, step_fn, counted(loader), *a, **kw)
+        sync()
+        calls.append((items[0], time.perf_counter() - t0, report))
+        return report
+
+    V.validate_pt = fn1
+    try:
+        yield calls
+    finally:
+        V.validate_pt = fn0
+
+
+def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val_batch: int = 64,
+                         device: str = "cuda", overrides=None, synthetic=None):
+    """Prompted pretraining from disk through ``cli.train``'s ``main``:
+    ``configs/pretrain-valor-base.json``'s first train flow
+    (``pt_contra%tva%tv%ta_caption%tva%tv%ta``, 4 frames, 1 clip, 40 tokens,
+    ``video_transforms`` none) with ``use_task_prompt`` on (VALOR-large's
+    setting, at VALOR-base width), pointed at phase 14's dataset (``paths``),
+    at ``batch_size``, and one evaluation flow of the same task over its
+    evaluation ids (the config has none): ``steps`` steps, then
+    ``validate_pt``.  Checks: the training batches carry the prompt arrays of
+    the task, every loss finite, every report key present and finite, one
+    fine-score launch a fine contrastive group, the LayerNorm launches those of
+    the path.  ``overrides`` shrink the run for a CPU rehearsal."""
+    import os
+
+    import torch
+
+    from valor_tpu_torch.cli.train import main
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def edit(raw):
+        flow = raw["data_cfg"]["train"][0]
+        flow["datasets"][0].update(ids_path=paths["train_ids"], txt=paths["train_txt"],
+                                   video=paths["frames"], audio=paths["audio"])
+        flow["batch_size"] = batch_size
+        val = json.loads(json.dumps(flow))
+        val["datasets"][0].update(ids_path=paths["val_ids"], txt=paths["val_txt"])
+        val.update(batch_size=val_batch, epoch=1)
+        raw["data_cfg"] = {"train": [flow], "val": [val]}
+        raw.update(output_dir=os.path.join(tmp, "pt_out"), num_train_steps=steps, valid_steps=0,
+                   first_eval=False, use_task_prompt=True, **(overrides or {}))
+
+    with tempfile.TemporaryDirectory(prefix="valor_cli_pt_") as tmp, \
+            cli_run(paths, tmp, "pretrain-valor-base.json", edit) as cfg_path:
+        cfg = load_config(cfg_path)
+        spec = parse_task(cfg.data_train[0].task)
+        with record_trainers(sync, cuda) as runs, record_pt_validations(sync) as evals, \
+                record_batch_keys() as keys, record_ln_calls() as (sigs_fwd, sigs_bwd), \
+                record_fine_calls() as fine_calls:
+            K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+            trainer = main(["--config", cfg_path] + ([] if cuda else ["--device", device]))
+            launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+        with open(paths["val_ids"]) as f:
+            n_val = len(json.load(f))
+
+    rec, history = runs[0], list(trainer.history)
+    model = trainer.state.model
+    prompt_keys = ({"prompt_tokens_contra"} if spec.contra_groups else set()) | \
+        ({"prompt_tokens_caption"} if spec.caption_groups else set()) | \
+        {f"prompt_tokens_mlm_{g}" for g in spec.mlm_groups}
+    if len(keys) != steps or any({k for k in ks if k.startswith("prompt_tokens")} != prompt_keys for ks in keys):
+        raise AssertionError(f"training batches' prompt keys {[k for k in keys[0] if 'prompt' in k]}, "
+                             f"expected {sorted(prompt_keys)}")
+    if len(history) != steps or not all(np.isfinite(v) for h in history for v in h[2].values()):
+        raise AssertionError(f"{len(history)} steps logged, or a non-finite loss: {history}")
+    if len(evals) != 1 or evals[0][0] != n_val:
+        raise AssertionError(f"validate_pt calls (items) {[e[0] for e in evals]}, expected 1 of {n_val}")
+    report = evals[0][2]
+    want = ({f"caption_acc_{g}" for g in spec.caption_groups} | {f"mlm_acc_{g}" for g in spec.mlm_groups}
+            | {f"contra_recall_{g}" for g in spec.contra_groups}
+            | ({"caption_token_acc"} if spec.caption_groups else set())
+            | ({"mlm_token_acc"} if spec.mlm_groups else set()))
+    if set(report) != want or not all(np.isfinite(v) for v in report.values()):
+        raise AssertionError(f"validate_pt report {report}, expected the keys {sorted(want)}")
+    per_step = expected_train_ln_launches(model, spec)
+    val_batches = -(-n_val // val_batch)
+    fine_groups = spec.contra_groups if cfg.model.contra_type == "fine" else ()
+    expected = ((per_step * (steps + val_batches), per_step * steps, len(fine_groups)) if cuda else (0, 0, 0))
+    if launches != expected:
+        raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+
+    step_s = np.diff([rec["start"]] + rec["stamps"])
+    wait_s = np.diff([0.0] + rec["waits"])
+    timed = step_s[2:]
+    median = float(np.median(timed))
+    summary = {
+        "config": "configs/pretrain-valor-base.json (first train flow)", "task": spec.raw, "batch": batch_size,
+        "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
+        "max_txt_len": cfg.data_train[0].max_txt_len, "video_transforms": cfg.data_train[0].datasets[0].video_transforms,
+        "use_task_prompt": cfg.model.use_task_prompt, "val_items": n_val, "val_batch": val_batch,
+        "steps": steps, "median_step_s": median, "samples_per_s": batch_size / median,
+        "step_s": [float(v) for v in step_s], "data_wait_s": [float(v) for v in wait_s],
+        "data_stall_share": float(wait_s[2:].sum() / timed.sum()),
+        "device_idle_share": "not measured (no profiler trace in this phase)",
+        "max_memory_allocated_gib": rec["peak"] / 2**30,
+        "losses": {k: [h[2][k] for h in history] for k in history[0][2]},
+        "prompt_keys": sorted(prompt_keys),
+        "validate_pt_s": evals[0][1], "validate_pt_items_per_s": n_val / evals[0][1], "report": report,
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_step": per_step, "val_batches": val_batches,
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+    }
+    if synthetic:
+        summary["in_memory_samples_per_s"] = synthetic["samples_per_s"]
+        summary["disk_over_in_memory"] = summary["samples_per_s"] / synthetic["samples_per_s"]
+    log("cli_pt_prompts " + json.dumps(summary))
+    return summary
+
+
 # -- phase 9 ------------------------------------------------------------------
 def phase_path_shapes(paths, ln_rows, bwd_rows, fs_rows):
     """Every shape that the main paths (``paths``: the summaries of phases 4,
-    8, 12, 14, 15 and 16) handed each kernel, held against its plain version:
+    8, 12, 14, 15, 16, 17 and 18) handed each kernel, held against its plain version:
     those that phases 2, 6 and 10 compared are listed as such, the others are
     compared here (on new seeded inputs, with the same tolerances, untimed)."""
     import torch
@@ -1940,28 +2584,37 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_resume_tiny()
-    cli = phase_cli_train(synthetic=retrieval)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # phase 14's dataset stays for phase 18, phase 15's dataset and run for phase 17
+    work = tempfile.TemporaryDirectory(prefix="valor_smoke_")
+    try:
+        cli = phase_cli_train(synthetic=retrieval, root=os.path.join(work.name, "ret"))
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    phase_cap_qa_card_vs_cpu()
-    cap, qa = phase_cap_qa_from_disk(synthetic=cli)
-    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa], ln_rows, bwd_rows, fs_rows)
+        phase_cap_qa_card_vs_cpu()
+        cap, qa = phase_cap_qa_from_disk(synthetic=cli, root=os.path.join(work.name, "cap_qa"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase_scst_prompt_card_vs_cpu()
+        scst = phase_cli_scst(cap["paths"], cap["output_dir"], synthetic=cap)
+        shutil.rmtree(cap["output_dir"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        pt = phase_cli_pt_prompts(cli["paths"], synthetic=pretrain)
+    finally:
+        work.cleanup()
+    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, pt], ln_rows, bwd_rows,
+                               fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
-    by_path = {"serving": serving["layernorm_launches"],
-               "pretraining": pretrain["layernorm_launches_fwd_bwd"][0],
-               "retrieval": retrieval["layernorm_launches_fwd_bwd"][0],
-               "cli_train": cli["layernorm_launches_fwd_bwd"][0],
-               "cap_train": cap["layernorm_launches_fwd_bwd"][0], "qa_train": qa["layernorm_launches_fwd_bwd"][0]}
-    bwd_by_path = {"serving": 0, "pretraining": pretrain["layernorm_launches_fwd_bwd"][1],
-                   "retrieval": retrieval["layernorm_launches_fwd_bwd"][1],
-                   "cli_train": cli["layernorm_launches_fwd_bwd"][1],
-                   "cap_train": cap["layernorm_launches_fwd_bwd"][1], "qa_train": qa["layernorm_launches_fwd_bwd"][1]}
-    fs_by_path = {"serving": 0, "pretraining": 0, "retrieval": retrieval["fine_score_launches"],
-                  "cli_train": cli["fine_score_launches"], "cap_train": cap["fine_score_launches"],
-                  "qa_train": qa["fine_score_launches"]}
+    trained = {"pretraining": pretrain, "retrieval": retrieval, "cli_train": cli, "cap_train": cap,
+               "qa_train": qa, "scst_train": scst, "pt_prompt_train": pt}
+    by_path = dict(serving=serving["layernorm_launches"],
+                   **{k: v["layernorm_launches_fwd_bwd"][0] for k, v in trained.items()})
+    bwd_by_path = dict(serving=0, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
+    fs_by_path = dict(serving=0, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

@@ -181,6 +181,25 @@ def test_zero_shot_evaluates_and_stops(config, tmp_path):
     assert os.listdir(tmp_path / "out" / "ckpt") == []
 
 
+def test_evaluate_reports_equal_those_of_train_zero_shot(config, tmp_path):
+    """``python -m valor_tpu_torch.cli.evaluate`` is ``cli.train`` with
+    ``--zero_shot true``: the same reports, nothing trained or saved, with
+    ``--device`` passed through (and a ``--zero_shot`` of the caller kept)."""
+    from valor_tpu_torch.cli import evaluate
+
+    def report(out):  # the run's own report: the first in its log (later runs' logs follow)
+        log = (tmp_path / out / "log" / "train.log").read_text()
+        return next(x.split("zero-shot fix: ")[1] for x in log.splitlines() if "zero-shot fix" in x)
+
+    assert _main("--config", config(output_dir=str(tmp_path / "train")), "--zero_shot", "true") is None
+    assert evaluate.main(["--config", config(output_dir=str(tmp_path / "eval")), "--device", "cpu"]) is None
+    assert report("eval") == report("train") and "'ravg'" in report("eval")
+    assert os.listdir(tmp_path / "eval" / "ckpt") == []
+    assert evaluate.main(["--config", config(output_dir=str(tmp_path / "again")), "--zero_shot", "true",
+                          "--device", "cpu"]) is None
+    assert report("again") == report("train")
+
+
 def test_checkpoint_and_pretrain_dir_load_weights(config, tmp_path):
     first = _main("--config", config(output_dir=str(tmp_path / "run1")))
     trained = first.state.model.state_dict()
@@ -202,24 +221,43 @@ def test_main_needs_a_card_unless_asked_for_the_cpu(config, monkeypatch):
         main(["--config", config()])
 
 
-@pytest.mark.parametrize("case", ["pt_val", "scst", "prompts", "checkpoint_file", "weights"])
+@pytest.mark.parametrize("case", ["checkpoint_file", "weights"])
 def test_unported_paths_raise(config, dataset, tmp_path, case):
-    kw = {}
     argv = []
-    if case == "pt_val":
-        kw["val"] = [_flow(dataset, "val", "pt_contra%tv_caption%tv", 4)]
-    elif case == "scst":
-        kw["scst_finetuning"] = True
-    elif case == "prompts":
-        kw["use_task_prompt"] = True
-    elif case == "checkpoint_file":
+    if case == "checkpoint_file":
         (tmp_path / "model.pt").write_bytes(b"")
         argv = ["--checkpoint", str(tmp_path / "model.pt")]
     else:
         (tmp_path / "no_weights").mkdir()
         (tmp_path / "no_weights" / "bert-base-uncased.bin").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="slice"):
-        _main("--config", config(**kw), *argv)
+        _main("--config", config(), *argv)
+
+
+@pytest.mark.parametrize("case", ["pt_val", "scst", "prompts"])
+def test_paths_of_the_prompt_and_scst_slice_run(config, dataset, tmp_path, case):
+    """What raised before the SCST, task-prompt and pretraining-validation
+    slice runs from disk: a ``pt`` evaluation flow (``validate_pt``), SCST
+    finetuning of a ``cap`` flow, and a retrieval run with ``use_task_prompt``."""
+    kw = {}
+    if case == "pt_val":
+        kw["val"] = [_flow(dataset, "val", "pt_contra%tv_caption%tv", 4)]
+    elif case == "scst":
+        kw.update(scst_finetuning=True, train=[_flow(dataset, "train", "cap%tva", 4)])
+    else:
+        kw["use_task_prompt"] = True
+    trainer = _main("--config", config(**kw))
+    assert [h[0] for h in trainer.history] == [1, 2]
+    assert all(np.isfinite(v) for h in trainer.history for v in h[2].values())
+    log = (tmp_path / "out" / "log" / "train.log").read_text()
+    report = eval(next(x for x in log.splitlines() if "eval fix @ 2" in x).split("eval fix @ 2: ")[1])  # noqa: S307
+    if case == "pt_val":
+        assert set(report) == {"caption_acc_tv", "caption_token_acc", "contra_recall_tv"}
+    else:
+        assert "ravg" in report
+    if case == "scst":
+        assert set(trainer.history[0][2]) == {"scst_reward_tva", "caption_loss_tva"}
+        assert trainer.state.step == 2 and trainer.state.optimizer.gradient_step == 2
 
 
 @pytest.mark.parametrize("case", ["missing_checkpoint", "missing_pretrain_dir", "empty_checkpoint_dir",

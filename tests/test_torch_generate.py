@@ -130,3 +130,64 @@ def test_sequences_from_waveforms_match_jax(models, beam_size):
         np.testing.assert_array_equal(seqs, np.asarray(ref[f"generated_sequences_{g}"]))
         np.testing.assert_array_equal(seqs, from_spec[f"generated_sequences_{g}"].numpy())
     assert len({tuple(r) for r in out["generated_sequences_ta"].tolist()}) > 1  # captions follow the audio
+
+
+# -- the context-K/V decode (multimodal_use_cross_attn=False) ------------------
+
+@pytest.fixture(scope="module")
+def ctx_models():
+    return tiny_models(kernel_scale=8.0, multimodal_use_cross_attn=False)
+
+
+PROMPT = np.asarray([[101, 110, 120, 130, 102]], np.int32)
+
+
+@pytest.mark.parametrize("group", ["tva", "tv"])
+@pytest.mark.parametrize("prompt", [False, True])
+@torch.inference_mode()
+def test_decode_with_ctx_logits_match_full_forward_and_jax(ctx_models, group, prompt):
+    """The cached [prompt | media] context: the decode's logits within 1e-4 of
+    the port's full forward with the media in the sequence, and of JAX's
+    ``fusion_logits_ctx``, at two steps of the buffer."""
+    jm, params, tm = ctx_models
+    batch = _media(tiny_batch(seed=15, b=3))
+    p = {"params": params}
+    jv = jm.apply(p, jm.apply(p, batch["video_pixels"], method=jm.encode_video),
+                  method=jm.video_fusion_input)
+    tv = tm.video_fusion_input(tm.encode_video(torch.from_numpy(batch["video_pixels"])))
+    ja = ta = None
+    if "a" in group:
+        ja = jm.apply(p, jm.apply(p, batch["audio_spectrograms"], method=jm.encode_audio),
+                      method=jm.audio_fusion_input)
+        ta = tm.audio_fusion_input(tm.encode_audio(torch.from_numpy(batch["audio_spectrograms"])))
+    jp = np.repeat(PROMPT, 3, axis=0) if prompt else None
+    tp = torch.from_numpy(jp).long() if prompt else None
+    jkv, jmask = jm.apply(p, jp, jv, ja, method=jm.fusion_ctx_kv)
+    tkv, tmask = tm.fusion_ctx_kv(tp, tv, ta)
+    assert len(tkv) == 2 and tkv[0][0].shape == (3, 2, tmask.shape[1], 16)
+    rng = np.random.RandomState(16)
+    buffer = rng.randint(106, 512, size=(3, 8)).astype(np.int32)
+    buffer[:, 0] = 101
+    for t in (0, 4):
+        tokens, mask, _ = jgen._prepare_step(jnp.asarray(buffer), t, "unimlm")
+        tt, tm_mask = torch.tensor(np.asarray(tokens)).long(), torch.tensor(np.asarray(mask))
+        out = tm.fusion_logits_ctx(tt, tm_mask, tkv, tmask)
+        full = tm.fusion_logits(tt, tp, tv, ta, True, False, tm_mask)
+        ref = jm.apply(p, tokens, mask, jkv, jmask, method=jm.fusion_logits_ctx)
+        np.testing.assert_allclose(out.numpy(), full.numpy(), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("beam_size", [1, 3])
+@pytest.mark.parametrize("group", ["tva", "ta"])
+def test_ctx_sequences_match_jax(ctx_models, beam_size, group):
+    """Greedy and beam-3 captions through the context-K/V decode, with the
+    caption prompt, equal to JAX's token for token."""
+    jm, params, tm = ctx_models
+    batch = dict(_media(tiny_batch(seed=17, b=4)), prompt_tokens_caption=PROMPT)
+    ref = jgen.generate(jm, params, batch, (group,), max_len=6, beam_size=beam_size)
+    out = tgen.generate(tm, batch, (group,), max_len=6, beam_size=beam_size)
+    seqs = out[f"generated_sequences_{group}"]
+    assert seqs.shape == (4, 6)
+    assert len({tuple(r) for r in seqs.tolist()}) > 1  # captions follow the media
+    np.testing.assert_array_equal(seqs.numpy(), np.asarray(ref[f"generated_sequences_{group}"]))

@@ -383,10 +383,84 @@ def test_serve_main_refuses_what_is_not_ported(tmp_path):
     config = str(REPO / "configs" / "caption-valor32k.json")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         main(["--config", config, "--checkpoint", str(tmp_path), "--device", "cpu"])
-    prompted = tmp_path / "prompted.json"
-    prompted.write_text(json.dumps({"use_task_prompt": True}))
-    with pytest.raises(NotImplementedError, match="prompt"):
-        main(["--config", str(prompted), "--device", "cpu"])
+
+
+def test_prompted_question_featurizer_matches_jax(tmp_path):
+    """With ``use_task_prompt`` the question prompt is ``[CLS] body q [SEP]``
+    (the QA prompt's body spliced after [CLS]), equal to the JAX featurizer's."""
+    from valor_tpu.cli.serve import _production_featurize
+    from valor_tpu.core.config import Config
+    from valor_tpu.data.prompts import PromptTable as JTable
+    from valor_tpu_torch.data.prompts import PromptTable
+
+    cfg = tiny_model_config(use_task_prompt=True)
+    Image.fromarray(np.random.RandomState(2).randint(0, 256, (40, 50, 3), dtype=np.uint8)).save(
+        tmp_path / "im.jpg")
+    jtok, ttok = _tokenizers(tmp_path)
+    jtable, ttable = JTable(bert_tokenizer=jtok), PromptTable(bert_tokenizer=ttok)
+    payload = {"image_path": str(tmp_path / "im.jpg"), "question": "What is the cat on?"}
+    ref = _production_featurize(Config(model=cfg), jtok, jtable)(payload)
+    item = image_featurizer(torch_config(cfg), ttok, ttable)(payload)
+    np.testing.assert_array_equal(item["question_prompt"], ref["question_prompt"])
+    body = ttable.qa_body()[0].tolist()
+    assert item["question_prompt"][1 : 1 + len(body)].tolist() == body
+    np.testing.assert_array_equal(item["question_prompt"][: 2 + len(body)][-1:],
+                                  [ttok.encode("what")[0]])
+
+
+def test_serve_main_serves_prompts(tmp_path, monkeypatch):
+    """A config with ``use_task_prompt``: ``main`` gives the engine the caption
+    prompt of the decode group and the featurizer the QA prompt's body, and a
+    served caption equals a direct ``Generator.generate`` with that prompt."""
+    import valor_tpu_torch.cli.serve as S
+    from tests.test_torch_cli import TINY
+    from valor_tpu_torch.data.prompts import PromptTable
+    from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
+
+    (tmp_path / "vocab.txt").write_text("\n".join(TINY_VOCAB))
+    monkeypatch.setattr(S, "DEFAULT_BERT_VOCAB", str(tmp_path / "vocab.txt"))
+    (tmp_path / "config.json").write_text(json.dumps({**TINY, "use_task_prompt": True}))
+    served = {}
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def shutdown(self):
+            served["shutdown"] = True
+
+        def server_close(self):
+            pass
+
+    event = threading.Event
+
+    def start(engine, featurize, decode, **kw):
+        served.update(engine=engine, featurize=featurize)
+        threading.Event = Stop  # main waits on an Event after starting the server
+        return Server()
+
+    class Stop:
+        def wait(self):
+            threading.Event = event
+            item = {"video_pixels": np.random.RandomState(4).randint(0, 256, (1, 32, 32, 3), dtype=np.uint8),
+                    "audio_spectrograms": np.zeros((2, 16, 32), np.float32)}
+            served["item"] = item
+            served["result"] = served["engine"].submit(item).result(timeout=120)
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(S, "start_server", start)
+    monkeypatch.setattr(threading, "Event", event)  # restored whatever happens
+    S.main(["--config", str(tmp_path / "config.json"), "--device", "cpu", "--task", "cap%tva"])
+    engine = served["engine"]
+    caption = PromptTable(bert_tokenizer=BertTokenizer(str(tmp_path / "vocab.txt"))).caption()
+    assert set(engine.prompts) == {"tva"}
+    np.testing.assert_array_equal(engine.prompts["tva"], caption)
+    item = dict(served["item"])
+    batch = {k: v[None] for k, v in item.items()}
+    direct = Generator(engine.model).generate(dict(batch, prompt_tokens_caption=caption), ("tva",),
+                                              max_len=TINY["max_generation_len"])
+    np.testing.assert_array_equal(served["result"]["sequences"], direct["generated_sequences_tva"][0].numpy())
+    unprompted = Generator(engine.model).generate(batch, ("tva",), max_len=TINY["max_generation_len"])
+    assert served["shutdown"] and unprompted["generated_sequences_tva"].shape == (1, 4)
 
 
 def test_decode_sequence(tmp_path):

@@ -322,13 +322,16 @@ def test_trainer_counts_optimizer_steps_and_meters(lm_models):
 
 
 def test_trainer_refuses_scst():
+    """SCST runs (tests/test_torch_scst.py), but not without a ``Scorer``: the
+    trainer refuses it before any update."""
     cfg = torch_config(tiny_model_config(scst_finetuning=True))
     m = train_model(cfg, init_params(cfg, seed=0, device="cpu"), "cpu")
     tcfg = TrainConfig(num_train_steps=2)
-    trainer = Trainer(Config(model=cfg, train=tcfg), TrainState(m, build_optimizer(m, tcfg)),
-                      [("cap%tva", tiny_batch())])
-    with pytest.raises(NotImplementedError, match="SCST"):
+    state = TrainState(m, build_optimizer(m, tcfg))
+    trainer = Trainer(Config(model=cfg, train=tcfg), state, [("cap%tva", tiny_batch())])
+    with pytest.raises(ValueError, match="SCST needs a Scorer"):
         trainer.run()
+    assert state.step == 0 and state.optimizer.gradient_step == 0
 
 
 def test_train_step_marks_its_three_parts_for_the_profiler(lm_models):

@@ -7,9 +7,9 @@ One process, one card: every loader is shard 0 of 1 and no mesh is read.  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
 ``$VALOR_PRETRAINED_DIR``.  QA flows read ``data/vqa.py``'s mapper, dataset
-and collates.  Not ported yet, and raising: task prompts (``use_task_prompt``,
-``data/prompts.py``; the task-prompt slice) and loading public encoder weights
-(the released-weights slice).
+and collates.  With ``use_task_prompt`` every flow's collate adds the task
+prompts (``data/prompts.py:prompted_collate``).  Not ported yet, and raising:
+loading public encoder weights (the released-weights slice).
 """
 
 from __future__ import annotations
@@ -22,10 +22,9 @@ from valor_tpu_torch.core.logging import LOGGER
 from valor_tpu_torch.core.tasks import parse_task
 from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSampler
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
+from valor_tpu_torch.data.prompts import maybe_prompt_table, prompted_collate
 from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
 
-SCST_SLICE = "the SCST slice"
-PROMPT_SLICE = "the task-prompt and pretraining-validation slice"
 WEIGHTS_SLICE = "the released-weights slice"
 
 
@@ -101,23 +100,19 @@ def collate_for(task: str, training: bool):
     return valor_collate
 
 
-def _check_prompts(cfg: ModelConfig) -> None:
-    if cfg.use_task_prompt:
-        raise NotImplementedError(f"task prompts (use_task_prompt) come with {PROMPT_SLICE}")
-
-
 def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:
     """The train flows' loaders behind one ``MetaLoader`` (the JAX package's
     seeds and mixing order).  ``pin_memory`` pins each batch in the loader's
     background thread, for a CUDA prefetcher."""
-    _check_prompts(cfg.model)
     loaders: Dict[str, Tuple[Any, int]] = {}
+    prompts = maybe_prompt_table(cfg.model, tokenizers)
     for i, flow in enumerate(cfg.data_train):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=True)
         sampler = ShardedBatchSampler(len(dataset), batch_size=max(flow.batch_size, 1),
                                       shuffle=True, seed=seed)
-        loader = DataLoader(dataset, sampler, collate_for(flow.task, True),
-                            n_workers=max(flow.n_workers, 1), pin_memory=pin_memory)
+        collate = prompted_collate(collate_for(flow.task, True), prompts, parse_task(flow.task))
+        loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1),
+                            pin_memory=pin_memory)
         name = f"{flow.task}--{flow.datasets[0].name or i}"
         loaders[name] = (loader, max(flow.epoch, 1))
         LOGGER.info(f"train flow {name}: {len(dataset)} items, batch {flow.batch_size}, ratio {flow.epoch}")
@@ -127,13 +122,13 @@ def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool
 
 def build_val_loaders(cfg: Config, tokenizers) -> List[Tuple[str, DataLoader, Any]]:
     """[(name, loader, task spec)] of the evaluation flows, in order."""
-    _check_prompts(cfg.model)
     out = []
+    prompts = maybe_prompt_table(cfg.model, tokenizers)
     for i, flow in enumerate(cfg.data_val):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=False)
         sampler = ShardedBatchSampler(len(dataset), batch_size=flow.batch_size, shuffle=False)
-        loader = DataLoader(dataset, sampler, collate_for(flow.task, False),
-                            n_workers=max(flow.n_workers, 1))
+        collate = prompted_collate(collate_for(flow.task, False), prompts, parse_task(flow.task))
+        loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1))
         name = flow.name or (flow.datasets[0].name if flow.datasets else str(i))
         out.append((name, loader, parse_task(flow.task)))
     return out

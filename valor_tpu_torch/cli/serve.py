@@ -24,7 +24,10 @@ far: ``video_path`` needs the ffmpeg and fbank host path, not ported yet.  A
 ``question`` becomes the QA prompt ``[CLS] question [SEP]``, zero-padded to
 ``question_pad`` tokens (32 by default) so that requests batch together; a
 longer question is never cut (the JAX package cuts it at ``question_pad``):
-its pad grows to its length, rounded up to a multiple of 8.
+its pad grows to its length, rounded up to a multiple of 8.  A config with
+``use_task_prompt`` (a prompt-trained checkpoint) serves as evaluation runs
+it: the caption prompt goes to every caption decode, and the QA prompt's body
+follows the ``[CLS]`` of every question (``data/prompts.py``).
 """
 
 from __future__ import annotations
@@ -139,18 +142,22 @@ def start_server(engine, featurize: FeaturizeFn, decode: DecodeFn,
     return server
 
 
-def question_prompt(bert_tok, question: str, pad: int = 32) -> np.ndarray:
-    """``[CLS] question [SEP]`` as int32 ids, zero-padded to ``pad`` or, for a
-    longer question, to its length rounded up to a multiple of 8."""
-    q = [bert_tok.cls_token_id] + bert_tok.encode(question) + [bert_tok.sep_token_id]
+def question_prompt(bert_tok, question: str, pad: int = 32, body=()) -> np.ndarray:
+    """``[CLS] body question [SEP]`` as int32 ids (``body``: the QA task
+    prompt's ids, or none), zero-padded to ``pad`` or, for a longer one, to its
+    length rounded up to a multiple of 8."""
+    q = ([bert_tok.cls_token_id] + [int(t) for t in body] + bert_tok.encode(question)
+         + [bert_tok.sep_token_id])
     width = max(pad, -(-len(q) // 8) * 8)
     return np.asarray(q + [0] * (width - len(q)), np.int32)
 
 
-def image_featurizer(model_cfg, bert_tok=None) -> FeaturizeFn:
+def image_featurizer(model_cfg, bert_tok=None, prompt_table=None) -> FeaturizeFn:
     """``image_path`` -> one raw uint8 frame plus silent spectrogram clips,
     as the eval image mapper gives them, and with a ``question`` its prompt
-    (``question_prompt``, encoded by ``bert_tok``)."""
+    (``question_prompt``, encoded by ``bert_tok``, with the QA prompt body of
+    ``prompt_table`` when there is one)."""
+    body = prompt_table.qa_body()[0].tolist() if prompt_table is not None else ()
     from valor_tpu_torch.data.pipeline import load_image_uint8
 
     def featurize(payload: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -174,7 +181,7 @@ def image_featurizer(model_cfg, bert_tok=None) -> FeaturizeFn:
             if bert_tok is None:
                 raise RuntimeError("this featurizer was built without a tokenizer for questions")
             item["question_prompt"] = question_prompt(
-                bert_tok, payload["question"], int(payload.get("question_pad", 32)))
+                bert_tok, payload["question"], int(payload.get("question_pad", 32)), body)
         return item
 
     return featurize
@@ -209,6 +216,7 @@ def main(argv=None):
 
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.prompts import maybe_prompt_table
     from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
     from valor_tpu_torch.eval.validate import decode_sequence
     from valor_tpu_torch.models.bridge import init_params, load_model
@@ -217,22 +225,24 @@ def main(argv=None):
     if args.checkpoint:
         raise NotImplementedError("--checkpoint (orbax checkpoints) is not ported yet")
     cfg = load_config(args.config)
-    if cfg.model.use_task_prompt:
-        raise NotImplementedError("task prompts (use_task_prompt) are not ported yet")
     spec = parse_task(args.task)
+    group = spec.caption_groups[0]
     bert_tok = BertTokenizer(DEFAULT_BERT_VOCAB)
+    # the serving prompts follow the fusion encoder's tokenizer (BERT here)
+    table = maybe_prompt_table(cfg.model, (bert_tok, None))
     model = load_model(cfg.model, init_params(cfg.model, 0, args.device), args.device)
     engine = InferenceEngine(
         model,
         ServeConfig(
             buckets=buckets_up_to(args.bucket), max_wait_ms=args.max_wait_ms,
-            group=spec.caption_groups[0], caption_type=cfg.model.caption_type,
+            group=group, caption_type=cfg.model.caption_type,
             max_len=cfg.model.max_generation_len, beam_size=args.beam_size,
             max_pending=args.max_pending,
         ),
+        prompts={group: table.caption()} if table is not None else None,
     )
     server = start_server(
-        engine, image_featurizer(cfg.model, bert_tok),
+        engine, image_featurizer(cfg.model, bert_tok, table),
         lambda seq: decode_sequence(bert_tok, seq),
         host=args.host, port=args.port,
         request_timeout_s=args.request_timeout_s,

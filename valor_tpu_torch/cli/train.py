@@ -16,15 +16,18 @@ not exist or holds no ``ckpt/step_N`` (the JAX package trains from random
 weights there); ``--zero_shot true`` evaluates and stops; ``--first_eval``
 evaluates before training.  Evaluation flows run ``validate_ret``,
 ``validate_cap`` (caption metrics over the whole set, with step dumps and
-``submit_format`` files under ``<output_dir>/results_test_<name>``) or
-``validate_qa`` (accuracy, with the ground-truth and prediction dumps there).
+``submit_format`` files under ``<output_dir>/results_test_<name>``),
+``validate_qa`` (accuracy, with the ground-truth and prediction dumps there) or
+``validate_pt`` (masked-token accuracies and a recall per contrastive group).
+``--scst_finetuning true`` finetunes captions by SCST, its reward fitted on the
+first train flow's annotations; it takes its weights from a caption run with
+``--pretrain_dir <caption run>``.  ``use_task_prompt`` adds the task prompts
+to every batch (``data/prompts.py``).
 
 One process on one card: the JAX package's device mesh, ``jax.distributed``,
 ``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.  Not
-ported yet, and raising before any work: pretraining validation
-(``validate_pt``) and task prompts (the task-prompt slice), SCST finetuning
-(the SCST slice), and a ``--checkpoint`` that is a file (a converted torch
-artifact: the released-weights slice).
+ported yet, and raising before any work: a ``--checkpoint`` that is a file (a
+converted torch artifact: the released-weights slice).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import random
 import sys
 from typing import Any, Dict, Optional
 
-from valor_tpu_torch.cli.build import PROMPT_SLICE, SCST_SLICE, WEIGHTS_SLICE
+from valor_tpu_torch.cli.build import WEIGHTS_SLICE
 from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
@@ -76,17 +79,14 @@ def _parse_value(s: str):
 
 def make_validate_fn(cfg: Config, tokenizers):
     """``run(model, step) -> {name: report}`` over the evaluation flows:
-    ``ret`` through ``validate_ret``, ``cap`` through ``validate_cap`` and
-    ``qa`` through ``validate_qa``, as the JAX package's; a ``pt`` flow
-    raises here, before training starts."""
+    ``ret`` through ``validate_ret``, ``cap`` through ``validate_cap``, ``qa``
+    through ``validate_qa`` and ``pt`` through ``validate_pt``, as the JAX
+    package's."""
     from valor_tpu_torch.cli.build import build_val_loaders
     from valor_tpu_torch.eval import validate as V
     from valor_tpu_torch.train.step import eval_step
 
     val_loaders = build_val_loaders(cfg, tokenizers)
-    for name, _, task in val_loaders:
-        if task.family == "pt":
-            raise NotImplementedError(f"pt validation ({name}, validate_pt) comes with {PROMPT_SLICE}")
     bert_tok = tokenizers[0]
     m, out_dir = cfg.model, cfg.train.output_dir or "output"
 
@@ -107,13 +107,15 @@ def make_validate_fn(cfg: Config, tokenizers):
                     model, iter(loader), task, bert_tok, ann, caption_type=m.caption_type,
                     max_len=m.max_generation_len, beam_size=m.beam_size, result_dir=result_dir,
                     step=step, submit_format=cfg.train.submit_format or None)
-            else:
+            elif task.family == "qa":
                 with open(flow.datasets[0].txt) as f:
                     answers = json.load(f)
                 reports[name] = V.validate_qa(
                     model, iter(loader), task, bert_tok, answers, caption_type=m.caption_type,
                     max_len=m.max_generation_len, beam_size=m.beam_size_qa, result_dir=result_dir,
                     step=step, dset_name=name)
+            else:
+                reports[name] = V.validate_pt(model, eval_step, iter(loader), task, m.contra_type)
         return reports
 
     return run
@@ -150,8 +152,6 @@ def main(argv=None):
     dev_args, argv = pre.parse_known_args(argv)
     device = resolve_device(dev_args.device)
     cfg = parse_cli(argv)
-    if cfg.model.scst_finetuning:
-        raise NotImplementedError(f"SCST finetuning comes with {SCST_SLICE}")
     if cfg.train.pretrain_dir:
         from valor_tpu_torch.core.config import inherit_pretrain_config
 
@@ -207,8 +207,15 @@ def main(argv=None):
         for name, rep in validate_fn(state.model, 0).items():
             LOGGER.info(f"first-eval {name}: {rep}")
 
+    scorer = None
+    if cfg.model.scst_finetuning:
+        from valor_tpu_torch.eval.scorer import Scorer
+
+        ds = cfg.data_train[0].datasets[0]
+        with open(ds.ids_path) as f:
+            scorer = Scorer(ds.txt, json.load(f), tokenizers[0])
     trainer = Trainer(cfg, state, meta, validate_fn=validate_fn, saver=saver,
-                      prefetch=cfg.train.prefetch)
+                      prefetch=cfg.train.prefetch, scorer=scorer)
     trainer.run()
     for loader in meta.name2loader.values():
         loader.close()

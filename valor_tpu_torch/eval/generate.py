@@ -10,8 +10,11 @@
     lm queries are [BOS, state...] scoring the last position.
 
 Every step re-runs the fusion encoder on a fixed-size token buffer (no
-self-attention K/V cache), exactly as the JAX package does; with
-cross-attention the per-layer media K/V are projected once per rollout.
+self-attention K/V cache for the text), exactly as the JAX package does; with
+cross-attention the per-layer media K/V are projected once per rollout, and
+without it (``multimodal_use_cross_attn=False``: the media join the sequence)
+the self-attention K/V of the [prompt | video | audio] context are computed
+once per rollout and every step attends to them (``fusion_ctx_kv``).
 The decode runs eagerly: a step's kernels are launched one by one.
 """
 
@@ -146,16 +149,21 @@ def make_fusion_decoder(
     """Bind fixed media and prompt inputs into a DecoderFn over the text buffer.
 
     With cross-attention the per-layer cross K/V are projected once here and
-    reused by every decode step."""
+    reused by every decode step; without it the [prompt | media] context's
+    self-attention K/V are computed once here (exact under the causal-prefix
+    mask, see ``models/bert.py:precompute_ctx_kv``)."""
     has_media = video_input is not None or audio_input is not None
     cross_kv = None
     if model.cfg.multimodal_use_cross_attn and has_media:
         cross_kv = model.fusion_cross_kv(video_input, audio_input)
         video_input = audio_input = None  # the media now live in the cache
     elif not model.cfg.multimodal_use_cross_attn and (has_media or prompt_tokens is not None):
-        raise NotImplementedError(
-            "decoding with in-sequence media (multimodal_use_cross_attn=False, the "
-            "context-K/V decode) is not ported yet")
+        ctx_kv, ctx_mask = model.fusion_ctx_kv(prompt_tokens, video_input, audio_input)
+
+        def ctx_decoder(tokens, token_mask):
+            return model.fusion_logits_ctx(tokens, token_mask, ctx_kv, ctx_mask)
+
+        return ctx_decoder
 
     def decoder(tokens, token_mask):
         return model.fusion_logits(
@@ -210,23 +218,11 @@ class Generator:
             x = torch.from_numpy(x)
         return x.to(self.model.device)
 
-    @torch.inference_mode()
-    def generate(
-        self,
-        batch: Dict[str, Any],
-        groups: Tuple[str, ...],
-        *,
-        caption_type: str = "unimlm",
-        max_len: int = 30,
-        beam_size: int = 1,
-        mode: str = "greedy",
-        generator: Optional[torch.Generator] = None,
-        prompt_key: str = "prompt_tokens_caption",
-    ) -> Dict[str, torch.Tensor]:
-        """Encode the batch's media once (clip-span ``audio_waveforms`` through
-        the device fbank first), then decode each modality group.
-        Returns {'generated_sequences_<g>': [B, max_len] int32,
-        'logprobs_<g>': [B, max_len] fp32}, on the model's device."""
+    def encode(self, batch: Dict[str, Any], groups: Tuple[str, ...]):
+        """The fusion-space (video_input, audio_input) of the batch's media for
+        ``groups`` (None where no group uses a modality), clip-span
+        ``audio_waveforms`` through the device fbank first.  Autograd follows
+        the caller's mode (SCST encodes under ``torch.no_grad``)."""
         m = self.model
         video_input = audio_input = None
         if any("v" in g for g in groups) and batch.get("video_pixels") is not None:
@@ -243,6 +239,25 @@ class Generator:
                 ).to(m.dtype)
             if spec is not None:
                 audio_input = m.audio_fusion_input(m.encode_audio(self._tensor(spec)))
+        return video_input, audio_input
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        batch: Dict[str, Any],
+        groups: Tuple[str, ...],
+        *,
+        caption_type: str = "unimlm",
+        max_len: int = 30,
+        beam_size: int = 1,
+        mode: str = "greedy",
+        generator: Optional[torch.Generator] = None,
+        prompt_key: str = "prompt_tokens_caption",
+    ) -> Dict[str, torch.Tensor]:
+        """Encode the batch's media once (``encode``), then decode each
+        modality group.  Returns {'generated_sequences_<g>': [B, max_len]
+        int32, 'logprobs_<g>': [B, max_len] fp32}, on the model's device."""
+        video_input, audio_input = self.encode(batch, groups)
         tile = batch.get("tile_index")
         if tile is not None:
             tile = self._tensor(tile).long()

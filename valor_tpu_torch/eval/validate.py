@@ -13,7 +13,9 @@ batch through ``eval/generate.py:Generator``, decode to text on the host and
 score the whole merged set in one call (CIDEr-D's document frequencies are
 those of the set), writing the JAX package's dump files.  The JAX package
 merges the per-host shards before scoring; one process holds them all here.
-``validate_pt`` is not ported yet (the task-prompt slice).
+
+Pretraining (``validate_pt``): masked-token accuracies of the caption and MLM
+objectives through ``eval_step``, and a retrieval recall per contrastive group.
 """
 
 from __future__ import annotations
@@ -301,6 +303,66 @@ def validate_qa(
     report = {"accuracy": qa_accuracy(preds, gts)}
     for g in groups[1:]:
         report[f"{g}_accuracy"] = qa_accuracy(group_preds[g], gts)
+    return report
+
+
+def validate_pt(model, eval_step, loader, task: TaskSpec, contra_type: str = "fine") -> Dict[str, float]:
+    """Pretraining proxy metrics over the batches of ``loader`` (reference
+    test.py:415-665, as the JAX package reports them): per group, the
+    caption and MLM token accuracies on the masked positions, with one
+    masked-token denominator per objective shared by its groups (test.py:
+    464/482), the aggregates ``caption_token_acc`` and ``mlm_token_acc``, in
+    percent rounded to 2 decimals; and ``contra_recall_{g}``, the forward R@1
+    of every contrastive group over the whole set (``retrieval_scores``: the
+    fine groups through the fused fine-score kernel on the card).  The hit
+    counts stay on the device until the end; one process holds every shard,
+    so the JAX package's merge across hosts is the identity here."""
+    objectives = {"caption": task.caption_groups, "mlm": task.mlm_groups}
+    hits = {kind: {g: 0 for g in groups} for kind, groups in objectives.items()}
+    totals = {kind: 0 for kind in objectives}
+    feats_all: Dict[str, List[torch.Tensor]] = {k: [] for k in _FEATURE_KEYS}
+    ids: List = []
+    ids_txt: List = []
+    for batch in loader:
+        batch = dict(batch)
+        batch_ids = batch.pop("ids", None)
+        batch_ids_txt = batch.pop("ids_txt", None)
+        batch.pop("sample_num", None)
+        out = eval_step(model, batch, task)
+        for kind, groups in objectives.items():
+            lab = out.get(f"txt_labels_{kind}")
+            if not groups or lab is None:
+                continue
+            m = lab != -1
+            totals[kind] = totals[kind] + m.sum()
+            for g in groups:
+                scores = out.get(f"{kind}_scores_{g}")
+                if scores is not None:
+                    hits[kind][g] = hits[kind][g] + ((scores.argmax(-1) == lab) & m).sum()
+        if task.contra_groups:
+            for k in _FEATURE_KEYS:
+                if out.get(k) is not None:
+                    feats_all[k].append(out[k] if k == "txt_tokens" else out[k].float())
+            if batch_ids is not None:
+                ids.extend(batch_ids)
+            if batch_ids_txt is not None:
+                ids_txt.extend(batch_ids_txt)
+    report: Dict[str, float] = {}
+    for kind, groups in objectives.items():
+        total = int(totals[kind])
+        if not total:
+            continue
+        hit = {g: int(v) for g, v in hits[kind].items()}
+        for g in groups:
+            report[f"{kind}_acc_{g}"] = round(100.0 * hit[g] / total, 2)
+        report[f"{kind}_token_acc"] = round(100.0 * sum(hit.values()) / (total * len(hit)), 2)
+    if task.contra_groups:
+        feats, ids, ids_txt = _gather_eval_features(feats_all, ids, ids_txt)
+        if feats.get("feat_t") is not None and feats["feat_t"].shape[0] > 0:
+            for g in task.contra_groups:
+                score = retrieval_scores(model, feats, g, contra_type).cpu().numpy()
+                row_ids = (ids_txt or ids) if g[0] == "t" else ids
+                report[f"contra_recall_{g}"] = retrieval_report(score, ids, row_ids)["forward_r1"]
     return report
 
 

@@ -11,7 +11,9 @@
   * BertFusionEncoder: [text | prompt | video | audio] input assembly with the
     bidirectional, causal-prefix or full-masker mask; video and audio join the
     sequence only when cross-attention is off.  ``cross_kv_list`` carries the
-    per-layer cross-attention K/V that the decode projects once per rollout.
+    per-layer cross-attention K/V that the decode projects once per rollout;
+    without cross-attention ``precompute_ctx_kv`` and ``decode_with_ctx`` cache
+    the [prompt | media] context's self-attention K/V once per rollout.
 """
 
 from __future__ import annotations
@@ -127,9 +129,12 @@ class BertFusionLayer(nn.Module):
                 out["cross_attn_a"] = self.cross_attn_a.compute_kv(audio_feat.to(self.dtype))
         return out
 
-    def forward(self, x, bias, video_feat, audio_feat, cross_kv: Optional[dict] = None):
+    def forward(self, x, bias, video_feat, audio_feat, cross_kv: Optional[dict] = None,
+                self_extra_kv=None):
+        """``self_extra_kv`` (k, v): cached keys and values that self-attention
+        takes beside those of ``x`` (the context-K/V decode)."""
         c = self.cfg
-        x = self.self_attn(x, x, bias)
+        x = self.self_attn(x, x, bias, extra_kv=self_extra_kv)
         has_media = video_feat is not None or audio_feat is not None or bool(cross_kv)
         if c.has_cross_attn and has_media:
             t = c.cross_attn_type
@@ -192,6 +197,49 @@ class BertFusionEncoder(nn.Module):
     def precompute_cross_kv(self, video_feat, audio_feat) -> list:
         """Per-layer cross-attention K/V for the decode fast path."""
         return [layer.compute_cross_kv(video_feat, audio_feat) for layer in self.layers]
+
+    def precompute_ctx_kv(self, task_prompt, video_feat, audio_feat):
+        """Self-attention K/V of the [prompt | video | audio] context, per layer,
+        for the decode without cross-attention (media in the sequence).
+
+        Under the causal-prefix mask (``ops/masks.py``) no context position
+        attends to the text, so the context's hidden states do not depend on
+        the text: the stack run on the context alone gives them exactly, and
+        every decode step reuses their K/V.  Returns (kv_list, ctx_mask [B, Nc])."""
+        feats, masks = [], []
+        if task_prompt is not None:
+            feats.append(self.embeddings(task_prompt, "prompt"))
+            masks.append((task_prompt != 0).float())
+        for f in (video_feat, audio_feat):
+            if f is not None:
+                feats.append(f.to(self.dtype))
+                masks.append(torch.ones(f.shape[:2], device=f.device))
+        x = torch.cat(feats, dim=1) if len(feats) > 1 else feats[0]
+        ctx_mask = torch.cat(masks, dim=1) if len(masks) > 1 else masks[0]
+        bias = ((1.0 - ctx_mask) * -1e4)[:, None, None, :]
+        kv_list = []
+        for layer in self.layers:
+            kv_list.append(layer.self_attn.compute_kv(x))
+            x = layer(x, bias, None, None)
+        return kv_list, ctx_mask
+
+    def decode_with_ctx(self, tokens: torch.Tensor, token_mask: torch.Tensor, ctx_kv_list: list,
+                        ctx_mask: torch.Tensor) -> torch.Tensor:
+        """The text buffer [B, N] through the stack, each layer's
+        self-attention taking the cached context K/V as extra keys: causal over
+        the text (and ``token_mask``), the whole valid context for every query."""
+        x = self.embeddings(tokens, None, False)
+        b, n = tokens.shape
+        nc = ctx_mask.shape[1]
+        idx = torch.arange(n, device=tokens.device)
+        causal = (idx[None, :] <= idx[:, None]).float()[None]  # [1, N, N]
+        text_part = causal * token_mask.float()[:, None, :]
+        ctx_part = ctx_mask[:, None, :].expand(b, n, nc)
+        mask = torch.cat([text_part, ctx_part], dim=-1)
+        bias = ((1.0 - mask) * -1e4)[:, None]
+        for layer, kv in zip(self.layers, ctx_kv_list):
+            x = layer(x, bias, None, None, self_extra_kv=kv)
+        return x
 
     def forward(
         self,

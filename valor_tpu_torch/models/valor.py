@@ -5,7 +5,8 @@ tower, the BERT fusion encoder and its prediction head, the contrastive heads
 and fine-grained token weights, the adapters and the frame and type
 embeddings.  Caption generation calls ``encode_video``, ``encode_audio``,
 ``video_fusion_input``, ``audio_fusion_input``, ``fusion_logits`` and
-``fusion_cross_kv``; training calls the model on a batch and a task
+``fusion_cross_kv`` (or, without cross-attention, ``fusion_ctx_kv`` and
+``fusion_logits_ctx``); training calls the model on a batch and a task
 (``forward_pt``: the contrastive, caption and MLM losses; ``forward_ret``: the
 contrastive loss of the retrieval groups, or with ``compute_loss=False`` the
 features that retrieval evaluation scores).  A batch may carry clip-span
@@ -269,6 +270,20 @@ class VALORModel(nn.Module):
     def fusion_cross_kv(self, video_input, audio_input) -> list:
         """Per-layer cross-attention K/V for decoding."""
         return self.multimodal_encoder.precompute_cross_kv(video_input, audio_input)
+
+    def fusion_ctx_kv(self, prompt_tokens, video_input, audio_input):
+        """The [prompt | media] context's per-layer self-attention K/V and its
+        mask, for decoding with the media in the sequence
+        (``multimodal_use_cross_attn=False``)."""
+        media = video_input if video_input is not None else audio_input
+        if media is not None:
+            prompt_tokens = bcast_prompt(prompt_tokens, media.shape[0])
+        return self.multimodal_encoder.precompute_ctx_kv(prompt_tokens, video_input, audio_input)
+
+    def fusion_logits_ctx(self, tokens, token_mask, ctx_kv_list, ctx_mask) -> torch.Tensor:
+        """Score every text position, attending to the cached context. [B, N, V]."""
+        out = self.multimodal_encoder.decode_with_ctx(tokens, token_mask, ctx_kv_list, ctx_mask)
+        return self.cls_head(out, self.multimodal_encoder.embedding_table())
 
     # -- contrastive features and losses ---------------------------------------
     def project_text(self, pooled):

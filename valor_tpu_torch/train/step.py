@@ -7,7 +7,8 @@ them to the optimizer.  The JAX step returns a new state; this one updates the
 model, the optimizer and ``state.step`` in place.  Its three parts run in
 ``torch.profiler.record_function`` ranges (``RANGES``), which a profiler trace
 reads (``tools/profile_training.py``) and which do nothing otherwise.
-``eval_step`` is the loss-free forward of evaluation (``make_eval_step``).
+``eval_step`` is the loss-free forward of evaluation (``make_eval_step``);
+``scst_update`` the REINFORCE update of SCST finetuning (``make_scst_step``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch.profiler import record_function
 from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope
+from valor_tpu_torch.tasks.scst import scst_loss
 from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
 RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
@@ -85,6 +87,38 @@ def train_step(
     metrics["total_loss"] = total.detach()
     metrics["grad_norm"] = global_norm(grads)
     return metrics
+
+
+def scst_update(
+    state: TrainState, batch: Dict[str, Any], sequences: torch.Tensor, rewards: torch.Tensor,
+    caption_type: str, group: str,
+) -> Dict[str, torch.Tensor]:
+    """One REINFORCE update of the fusion stack and its head on a sampled
+    rollout (``tasks/scst.py:scst_loss``; ``batch`` holds the fusion-space
+    media of one encode).  The JAX loss runs outside ``train_step`` and so
+    without dropout: the model is in eval mode for the forward and backward,
+    and its training mode is restored after.  Every parameter gets a gradient,
+    zeros for the towers that encoded the media without autograd (as
+    ``jax.grad`` gives them), so the optimizer decays them as the JAX step
+    does.  ``state.step`` counts the update.  Returns ``{"loss": ...}``, a
+    device scalar."""
+    model = state.model
+    params = [p for p in model.parameters()]
+    fwd, bwd, upd = RANGES
+    was_training = model.training
+    model.eval()
+    try:
+        with record_function(fwd):
+            loss = scst_loss(model, batch, sequences, rewards, caption_type,
+                             use_video="v" in group, use_audio="a" in group)
+        with record_function(bwd):
+            grads = param_grads(loss, params)
+    finally:
+        model.train(was_training)
+    with record_function(upd):
+        state.optimizer.update(grads)
+    state.step += 1
+    return {"loss": loss.detach()}
 
 
 def eval_step(model: nn.Module, batch: Dict[str, Any], task: TaskSpec) -> Dict[str, Any]:

@@ -16,9 +16,13 @@ in micro-batches.  At each log point the meters go to ``TB_LOGGER`` too, with
 the data-stall share (host time blocked on the input pipeline over the
 window); ``data_wait_s`` keeps that host time over the whole run.
 
-SCST finetuning (``scst_finetuning`` on a ``cap`` task) is not ported and
-raises; ``train_inner_steps`` (steps fused into one compiled call on a TPU) is
-read and ignored.
+SCST finetuning (``scst_finetuning`` on a ``cap`` task; reference
+model/pretrain.py:741-791) runs ``scst_step`` in place of ``train_step``: the
+media encoded once without autograd, for each caption group a greedy
+(baseline) and a sampled rollout, the host CIDEr+BLEU reward of both
+(``eval/scorer.py``), the advantage sample - alpha * greedy, and one REINFORCE
+update (``train/step.py:scst_update``).  ``train_inner_steps`` (steps fused
+into one compiled call on a TPU) is read and ignored.
 """
 
 from __future__ import annotations
@@ -29,18 +33,26 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+import numpy as np
+
 from valor_tpu_torch.core.config import Config
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, RunningMeter
-from valor_tpu_torch.data.loader import DevicePrefetcher
 from valor_tpu_torch.core.tasks import TaskSpec, parse_task
-from valor_tpu_torch.train.step import TrainState, to_device, train_step
+from valor_tpu_torch.data.loader import DevicePrefetcher
+from valor_tpu_torch.eval.generate import Generator, _decode
+from valor_tpu_torch.eval.scorer import AdaptiveAlpha, Scorer
+from valor_tpu_torch.eval.validate import eval_mode
+from valor_tpu_torch.models.valor import EOS_TOKEN
+from valor_tpu_torch.ops.layers import _mix
+from valor_tpu_torch.train.step import TrainState, scst_update, to_device, train_step
 
 
 class Trainer:
     """``validate_fn(model, step) -> {name: report}`` and ``saver.save(state,
     step, best_name=...)`` / ``saver.finish()`` may be None.  ``step_hook(step,
     task_name, metrics)`` is called after every micro-step with that step's
-    device metrics (a measurement hook; None by default)."""
+    device metrics (a measurement hook; None by default).  SCST needs
+    ``scorer``, the reward over the training annotations."""
 
     def __init__(
         self,
@@ -52,6 +64,7 @@ class Trainer:
         saver=None,
         step_hook: Optional[Callable[[int, str, Dict[str, torch.Tensor]], None]] = None,
         prefetch: bool = True,
+        scorer: Optional[Scorer] = None,
     ):
         self.cfg = cfg
         self.state = state
@@ -69,6 +82,8 @@ class Trainer:
         self.history: collections.deque = collections.deque(maxlen=10000)
         self._task_cache: Dict[str, TaskSpec] = {}
         self._pending: list = []
+        self.scorer = scorer
+        self.alpha = AdaptiveAlpha()
 
     def _meter(self, name: str) -> RunningMeter:
         if name not in self.meters:
@@ -115,9 +130,10 @@ class Trainer:
             task_name, batch = item
             spec = self._spec(task_name.split("--")[0])
             if self.cfg.model.scst_finetuning and spec.family == "cap":
-                raise NotImplementedError("SCST finetuning comes with the SCST slice")
-            metrics = train_step(self.state, to_device(batch, self.device), spec, t.seed,
-                                 grad_dtype=t.grad_dtype)
+                metrics = self.scst_step(to_device(batch, self.device), batch.get("ids"), spec)
+            else:
+                metrics = train_step(self.state, to_device(batch, self.device), spec, t.seed,
+                                     grad_dtype=t.grad_dtype)
             micro += 1
             self._pending.append((micro, task_name, metrics))
             if self.step_hook is not None:
@@ -164,3 +180,53 @@ class Trainer:
                                 best_name = val_name
         if self.saver is not None:
             self.saver.save(self.state, step, best_name=best_name)
+
+    def scst_step(self, batch: Dict[str, torch.Tensor], ids, spec: TaskSpec) -> Dict[str, torch.Tensor]:
+        """One SCST batch (``valor_tpu/train/trainer.py:scst_step``): the media
+        encoded once, without dropout and without autograd; then for each
+        caption group a greedy and a sampled rollout of ``max_generation_len``
+        tokens, the reward of both on the host (the two device-to-host copies
+        the step needs), ``AdaptiveAlpha.update``, the advantage sample - alpha
+        * greedy and one REINFORCE update, which advances ``state.step``.  The
+        sampled rollouts of every group draw from one seed, from
+        ``train.seed`` and the step, on the decode's device (as the JAX step
+        uses one key for every group).  Returns ``scst_reward_{g}`` (the mean
+        sampled reward) and ``caption_loss_{g}`` as device scalars."""
+        if self.scorer is None:
+            raise ValueError("SCST needs a Scorer over the training annotations")
+        c = self.cfg.model
+        model = self.state.model
+        generator = Generator(model)
+        with torch.no_grad(), eval_mode(model):
+            video_input, audio_input = generator.encode(batch, spec.caption_groups)
+        prompt = batch.get("prompt_tokens_caption")
+        seed = _mix(self.cfg.train.seed, self.state.step)
+        metrics: Dict[str, torch.Tensor] = {}
+        for g in spec.caption_groups:
+            v = video_input if "v" in g else None
+            a = audio_input if "a" in g else None
+            sampler = torch.Generator(device=self.device).manual_seed(seed)
+            with torch.no_grad(), eval_mode(model):
+                seq_g, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "greedy",
+                                   prompt, v, a, None)
+                seq_s, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "sample",
+                                   prompt, v, a, sampler)
+            r_greedy = self.scorer(ids, [_strip(s) for s in seq_g.cpu().numpy()])
+            r_sample = self.scorer(ids, [_strip(s) for s in seq_s.cpu().numpy()])
+            self.alpha.update(r_sample, r_greedy)
+            rewards = torch.from_numpy(r_sample - r_greedy * self.alpha.value()).to(self.device)
+            scst_batch = {"video_input": v, "audio_input": a, "prompt_tokens_caption": prompt}
+            m = scst_update(self.state, scst_batch, seq_s, rewards, c.caption_type, g)
+            metrics[f"scst_reward_{g}"] = torch.tensor(float(np.mean(r_sample)), device=self.device)
+            metrics[f"caption_loss_{g}"] = m["loss"]
+        return metrics
+
+
+def _strip(seq: np.ndarray) -> list:
+    """The ids of a generated row before its first EOS."""
+    out = []
+    for t in seq.tolist():
+        if t == EOS_TOKEN:
+            break
+        out.append(int(t))
+    return out
