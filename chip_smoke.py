@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 9; any failure ends
-the run with a traceback and a non-zero exit code, and no result line:
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, 19, 9; any
+failure ends the run with a traceback and a non-zero exit code, and no result
+line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
      and the build of every kernel from ``valor_tpu_torch/csrc``: one nvcc a
-     source, all started together;
+     source and g++ for the C++ decoder (``csrc/host``), all started together;
   2. the LayerNorm kernel against its plain version at the shapes the serving
      and pretraining paths give it, bf16 -> bf16 and f32 -> f32 (and the mixed
      pairs at the fusion shape), with its device time (from CUDA graph
@@ -133,16 +134,55 @@ the run with a traceback and a non-zero exit code, and no result line:
      ``validate_pt``; the batches carry the task's prompt arrays, losses and
      report finite, one fine-score launch a fine contrastive group, the
      LayerNorm launches those of the path; it prints samples/s from disk
-     against phase 8's in-memory rate, ``validate_pt`` items/s and peak memory;
-  9. every shape that the main paths of phases 4, 8, 12, 14, 15, 16, 17 and 18
+     against phase 8's in-memory rate, ``validate_pt`` items/s and peak memory,
+     and which decoder ran (``transforms`` none: the C++ decoder of
+     ``data/native.py`` for every item where it builds, else PIL for all);
+  19. the C++ decoder (``csrc/host/valor_native.cpp``, built with the host
+     compiler) against the PIL route on phase 14's 256 evaluation ids (8
+     frames of 320 x 240 each, to 224 px, uint8): whether it built (else the
+     compiler's message), frames/s of each route single-threaded and from 8
+     threads, and their agreement (correlation per item above 0.98);
+  20. video in: four synthetic 10 s clips (320 x 240 at 4 fps with a tone;
+     encoded by ffmpeg where there is one, else written for a stand-in
+     ``ffmpeg`` put at the front of ``PATH``), ``python -m
+     valor_tpu_torch.cli.extract`` over them (the layout read back as
+     ``cli.train`` reads it), then ``cli.infer``'s ``main`` on one clip at the
+     full width of ``configs/caption-msrvtt.json`` with ``--checkpoint`` phase
+     15's caption run, at beam 3 and with a question: the restored weights
+     equal the run's, each caption equal to an in-process
+     ``Generator.generate`` on the same pixels, the LayerNorm launches those
+     of one decode; it prints the seconds of extraction, featurizing, model
+     build with restore, and generation;
+  21. serving video: ``cli/serve.py``'s ``serve`` in this process at the full
+     width of ``configs/caption-valor32k.json`` with ``--checkpoint`` phase
+     15's run, bucket 16, the ``video_path`` featurizer at 8 frames and 2
+     clips: 16 concurrent ``video_path`` requests, 2 with questions, and a
+     missing video (a 400); every served caption equal to an in-process one
+     at its bucket size, the launches those of the batches; it prints latency
+     p50 and p95 at the client, captions/s and the featurizer's share;
+  22. weights in: synthetic files in the released layouts at VALOR-base width
+     (a CLIP ViT-B/16 JIT archive, a BERT-base ``.bin``, an AudioSet AST
+     checkpoint, a whole VALOR ``.pt``), then ``cli.train`` on phase 15's
+     dataset for 5 steps with ``$VALOR_PRETRAINED_DIR`` at the encoder files,
+     and again with ``--checkpoint`` the ``.pt``: every converted tensor in
+     the model after the restore and traced to its source, the first loss
+     finite, K1 both ways as counted; it prints each conversion's seconds and
+     peak resident size, each taken in a fresh process that only converts;
+  9. every shape that the main paths of phases 4, 8, 12, 14-18 and 20-22
      handed each kernel is held against the plain version: listed where phase
      2, 6 or 10 compared it, compared here where they did not.
 
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
-pretraining, retrieval, cli_train, cap_train, qa_train, scst_train and
-pt_prompt_train), and as its last line
+serve_video, pretraining, retrieval, cli_train, cap_train, qa_train,
+scst_train, infer, weights_train and pt_prompt_train), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
+
+    python3 chip_smoke.py --phase18
+
+runs phases 1, 8 and 18 alone in one process, on phase 14's dataset written
+for it (no training run on it): phase 18's rate apart from the phases that
+precede it in a whole run.  It prints no result line.
 """
 
 from __future__ import annotations
@@ -393,6 +433,7 @@ def check_scores(got, ref, what: str) -> float:
 def phase_card_and_build():
     import torch
 
+    from valor_tpu_torch.data import native
     from valor_tpu_torch.ops.kernels import _build
 
     smi = subprocess.run(
@@ -403,9 +444,11 @@ def phase_card_and_build():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.monotonic()
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, side by side
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc a source and g++ for the decoder, side by side
+        decoder = pool.submit(native.available)
         list(pool.map(_build.load_library, names))
-    log(f"build: {names} in {time.monotonic() - t0:.1f} s")
+        built = decoder.result()
+    log(f"build: {names} and the decoder ({'built' if built else 'not built'}) in {time.monotonic() - t0:.1f} s")
     return smi
 
 
@@ -647,7 +690,7 @@ def phase_http(model, cfg):
 
     from PIL import Image
 
-    from valor_tpu_torch.cli.serve import image_featurizer, start_server
+    from valor_tpu_torch.cli.serve import production_featurizer, start_server
     from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
     from valor_tpu_torch.eval.validate import decode_sequence
     from valor_tpu_torch.serve import InferenceEngine, ServeConfig
@@ -667,7 +710,7 @@ def phase_http(model, cfg):
         cfg_s = ServeConfig(buckets=(1, 4, 16), max_wait_ms=50.0, group="tva",
                             max_len=cfg.max_generation_len)
         with InferenceEngine(model, cfg_s) as eng:
-            server = start_server(eng, image_featurizer(cfg, tok),
+            server = start_server(eng, production_featurizer(cfg, tok),
                                   lambda s: decode_sequence(tok, s), port=0)
             try:
                 base = "http://%s:%d" % server.server_address
@@ -2423,6 +2466,7 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
     from valor_tpu_torch.cli.train import main
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data import native
     from valor_tpu_torch.ops.kernels import fine_score as K2
     from valor_tpu_torch.ops.kernels import layernorm as K
 
@@ -2448,11 +2492,22 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
         with record_trainers(sync, cuda) as runs, record_pt_validations(sync) as evals, \
                 record_batch_keys() as keys, record_ln_calls() as (sigs_fwd, sigs_bwd), \
                 record_fine_calls() as fine_calls:
+            with open("/proc/self/statm") as f:  # what earlier phases leave in this process
+                rss0 = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+            threads0, tmp_used0 = sorted(t.name for t in threading.enumerate()), shutil.disk_usage(tmp).used / 2**30
             K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+            calls0 = native.CALLS
             trainer = main(["--config", cfg_path] + ([] if cuda else ["--device", device]))
             launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+            native_calls = native.CALLS - calls0
         with open(paths["val_ids"]) as f:
             n_val = len(json.load(f))
+    # transforms "none": every item decodes through the C++ decoder where it builds, else with PIL
+    if native.available() and native_calls < steps * batch_size + n_val:
+        raise AssertionError(f"{native_calls} native decodes for {steps * batch_size + n_val} items or more: "
+                             "a transforms-none path decoded with PIL")
+    if not native.available() and native_calls:
+        raise AssertionError(f"{native_calls} native decodes, but the decoder did not build")
 
     rec, history = runs[0], list(trainer.history)
     model = trainer.state.model
@@ -2489,7 +2544,9 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
         "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
         "max_txt_len": cfg.data_train[0].max_txt_len, "video_transforms": cfg.data_train[0].datasets[0].video_transforms,
         "use_task_prompt": cfg.model.use_task_prompt, "val_items": n_val, "val_batch": val_batch,
-        "steps": steps, "median_step_s": median, "samples_per_s": batch_size / median,
+        "decoder": "native" if native.available() else "PIL (the C++ decoder did not build)",
+        "native_calls": native_calls, "rss_at_start_gib": rss0, "threads_at_start": threads0,
+        "tmp_used_at_start_gib": tmp_used0, "steps": steps, "median_step_s": median, "samples_per_s": batch_size / median,
         "step_s": [float(v) for v in step_s], "data_wait_s": [float(v) for v in wait_s],
         "data_stall_share": float(wait_s[2:].sum() / timed.sum()),
         "device_idle_share": "not measured (no profiler trace in this phase)",
@@ -2506,6 +2563,620 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
         summary["in_memory_samples_per_s"] = synthetic["samples_per_s"]
         summary["disk_over_in_memory"] = summary["samples_per_s"] / synthetic["samples_per_s"]
     log("cli_pt_prompts " + json.dumps(summary))
+    return summary
+
+
+# -- phases 19-22: video in and weights in --------------------------------------
+@contextlib.contextmanager
+def pil_decoding():
+    """Inside the block ``VideoMapper`` decodes with PIL, as without the C++ decoder."""
+    from valor_tpu_torch.data import native
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def phase_decoder(paths, n_frames: int = 8, resolution: int = 224, threads: int = 8):
+    """The C++ decoder (``data/native.py``, built from
+    ``csrc/host/valor_native.cpp``) against the PIL route on phase 14's
+    evaluation ids (``paths``): whether it built (the compiler's message if
+    not), frames/s of ``VideoMapper(transforms="none", output_uint8=True)`` at
+    ``resolution`` through each decoder, single-threaded and from ``threads``
+    loader threads, and the two decoders' agreement (correlation per item
+    above 0.98, ``tests/test_native.py``'s bar; largest difference and share
+    of pixels that differ)."""
+    from valor_tpu_torch.data import native
+    from valor_tpu_torch.data.pipeline import VideoMapper
+
+    with open(paths["val_ids"]) as f:
+        ids = json.load(f)
+    mapper = VideoMapper(paths["frames"], resolution, sample_num=n_frames, transforms="none",
+                         training=False, output_uint8=True)
+    built = native.available()
+
+    def run(n_threads):
+        t0 = time.perf_counter()
+        if n_threads == 1:
+            outs = [mapper[i] for i in ids]
+        else:
+            with ThreadPoolExecutor(n_threads) as pool:
+                outs = list(pool.map(mapper.__getitem__, ids))
+        dt = time.perf_counter() - t0
+        if any(o is None or o.shape != (n_frames, resolution, resolution, 3) for o in outs):
+            raise AssertionError("a frame did not decode")
+        return len(ids) * n_frames / dt, outs
+
+    summary = {"native_built": built, "build_error": native.BUILD_ERROR, "items": len(ids),
+               "frames": len(ids) * n_frames, "resolution": resolution, "threads": threads}
+    with pil_decoding():
+        summary["pil_frames_per_s_1_thread"], pil = run(1)
+        summary["pil_frames_per_s_threads"], _ = run(threads)
+    if built:
+        calls = native.CALLS
+        summary["native_frames_per_s_1_thread"], nat = run(1)
+        summary["native_frames_per_s_threads"], _ = run(threads)
+        if native.CALLS - calls != 2 * len(ids):
+            raise AssertionError(f"{native.CALLS - calls} native calls for {2 * len(ids)} items")
+        corr, diff_max, differ = [], 0, 0
+        for a, b in zip(nat, pil):
+            a, b = a.astype(np.float32).ravel(), b.astype(np.float32).ravel()
+            corr.append(float(np.corrcoef(a, b)[0, 1]))
+            diff_max = max(diff_max, int(np.abs(a - b).max()))
+            differ += int((a != b).sum())
+        summary.update(corr_min=min(corr), corr_mean=float(np.mean(corr)), max_abs_diff_u8=diff_max,
+                       share_of_values_that_differ=differ / (len(ids) * n_frames * resolution ** 2 * 3))
+        if min(corr) <= 0.98:
+            raise AssertionError(f"native against PIL: correlation {min(corr)} <= 0.98")
+        summary["native_over_pil_threads"] = summary["native_frames_per_s_threads"] / summary[
+            "pil_frames_per_s_threads"]
+    else:
+        summary["native_frames_per_s_1_thread"] = summary["native_frames_per_s_threads"] = "not built"
+    log(("decoder: built" if built else f"decoder: not built, frames decode with PIL: {native.BUILD_ERROR}"))
+    log("decoder " + json.dumps(summary))
+    return summary
+
+
+@contextlib.contextmanager
+def ffmpeg_on_path(bin_dir: str):
+    """Yields (the ffmpeg that ``PATH`` finds or "", a line that says which):
+    a real ffmpeg where there is one, else ``data/synthetic.py``'s stand-in,
+    put at the front of ``PATH`` for the block."""
+    import os
+
+    from valor_tpu_torch.data.synthetic import write_ffmpeg_stand_in
+
+    real = shutil.which("ffmpeg") or ""
+    path0 = os.environ["PATH"]
+    if real:
+        version = subprocess.run([real, "-version"], capture_output=True, text=True).stdout.splitlines()
+        line = f"ffmpeg: {version[0] if version else real}"
+    else:
+        os.environ["PATH"] = f"{os.path.dirname(write_ffmpeg_stand_in(bin_dir))}{os.pathsep}{path0}"
+        line = "ffmpeg: stand-in"
+    log(line)
+    try:
+        yield real, line
+    finally:
+        os.environ["PATH"] = path0
+
+
+@contextlib.contextmanager
+def record_models():
+    """Yields a list that fills with every model ``models/bridge.py:load_model``
+    builds inside the block."""
+    from valor_tpu_torch.models import bridge
+
+    models, fn0 = [], bridge.load_model
+
+    def fn1(*a, **kw):
+        models.append(fn0(*a, **kw))
+        return models[-1]
+
+    bridge.load_model = fn1
+    try:
+        yield models
+    finally:
+        bridge.load_model = fn0
+
+
+def check_restored(model, run_dir: str) -> int:
+    """Every parameter of ``model`` equals the latest checkpoint's of
+    ``run_dir`` (in the model's type); returns how many were compared."""
+    import torch
+
+    from valor_tpu_torch.cli.train import restore_weights
+
+    saved = restore_weights(run_dir)["params"]
+    sd = model.state_dict()
+    if set(sd) != set(saved):
+        raise AssertionError(f"restored keys differ: {sorted(set(sd) ^ set(saved))[:5]}")
+    for k, v in sd.items():
+        if not torch.equal(v.cpu(), saved[k].to(v.dtype)):
+            raise AssertionError(f"{k} differs from the checkpoint of {run_dir}")
+    return len(sd)
+
+
+def phase_extract_infer(cap_paths: dict, cap_run: str, n_clips: int = 4, seconds: float = 10.0,
+                        clip_size=(320, 240), device: str = "cuda", overrides=None, root=None):
+    """``cli.extract``, then ``cli.infer`` at the full width of
+    ``configs/caption-msrvtt.json`` with ``--checkpoint`` phase 15's caption run
+    (``cap_run``; its vocabulary and merges in ``cap_paths``): ``n_clips``
+    synthetic clips of ``seconds`` s of ``clip_size`` frames at 4 fps with a
+    tone (encoded by ffmpeg where there is one, else in the stand-in's
+    container), extracted by ``python -m valor_tpu_torch.cli.extract`` (the
+    layout read back through ``VideoMapper`` and ``AudioMapper`` as
+    ``cli.train`` reads it), then ``cli.infer``'s ``main`` on the first clip at
+    beam 3 and with a question for ``qa%tva``.  Checks: the restored weights
+    equal the run's, each caption equals an in-process ``Generator.generate``
+    on the same pixels and weights, the LayerNorm launches those of one
+    decode, no fine-score launch.  ``overrides`` shrink the model for a CPU
+    rehearsal; with ``root`` the clips stay there for phase 21."""
+    import io
+
+    import torch
+
+    from valor_tpu_torch.cli import infer
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.data.pipeline import AudioMapper, VideoMapper
+    from valor_tpu_torch.data.synthetic import write_video_clip
+    from valor_tpu_torch.eval.generate import Generator
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", device]
+
+    def edit(raw):
+        raw.update(**(overrides or {}))
+
+    with (contextlib.nullcontext(root) if root else tempfile.TemporaryDirectory(prefix="valor_infer_")) as tmp, \
+            ffmpeg_on_path(os.path.join(tmp, "bin")) as (ffmpeg, ffmpeg_line), \
+            tempfile.TemporaryDirectory(prefix="valor_infer_cfg_") as cfg_tmp, \
+            cli_run(cap_paths, cfg_tmp, "caption-msrvtt.json", edit) as cfg_path:
+        cfg = load_config(cfg_path).model
+        clips_dir = os.path.join(tmp, "clips")
+        os.makedirs(clips_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        clips = [write_video_clip(os.path.join(clips_dir, f"clip{i}.mp4"), seconds, clip_size, fps=4,
+                                  tone_hz=220.0 * (i + 1), seed=10 + i, ffmpeg=ffmpeg) for i in range(n_clips)]
+        clips_s = time.perf_counter() - t0
+        ext = os.path.join(tmp, "extracted")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "valor_tpu_torch.cli.extract", "--video_dir", clips_dir,
+                        "--out_dir", ext, "--fps", "4", "--workers", str(n_clips)], check=True, cwd=str(ROOT))
+        extract_s = time.perf_counter() - t0
+        ids = sorted(os.listdir(os.path.join(ext, "frames_fps4")))
+        if ids != [f"clip{i}" for i in range(n_clips)]:
+            raise AssertionError(f"cli.extract wrote {ids}")
+        frames_per_clip = [len(os.listdir(os.path.join(ext, "frames_fps4", v))) for v in ids]
+        vm = VideoMapper(os.path.join(ext, "frames_fps4"), cfg.video_resolution, sample_num=4,
+                         transforms="crop_flip", training=True, output_uint8=True)
+        am = AudioMapper(os.path.join(ext, "audio_22050hz"), sample_num=1, melbins=cfg.audio_melbins,
+                         target_length=cfg.audio_target_length, training=True, device_fbank=True)
+        for v in ids:
+            if vm[v] is None or vm[v].shape != (4, cfg.video_resolution, cfg.video_resolution, 3) \
+                    or not (am[v]["valid_frames"] > 0).all():
+                raise AssertionError(f"the extracted layout of {v} does not read back")
+
+        runs = {}
+        with record_models() as models, record_ln_calls() as (sigs, _):
+            for name, argv in (("caption", ["--beam_size", "3"]),
+                               ("question", ["--task", "qa%tva", "--question", "what is the man playing",
+                                             "--beam_size", "1"])):
+                out = io.StringIO()
+                K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+                with contextlib.redirect_stdout(out):
+                    result = infer.main(["--video_path", clips[0], "--config", cfg_path, "--checkpoint", cap_run,
+                                         *argv, *dev_args])
+                launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+                runs[name] = dict(result, printed=out.getvalue().splitlines(), launches=launches)
+                log(f"cli.infer {name}: {runs[name]['printed']}")
+        for (name, run), model in zip(runs.items(), models):
+            expected = (expected_ln_launches(model, prompt=name == "question"), 0, 0) if cuda else (0, 0, 0)
+            if run["launches"] != expected:
+                raise AssertionError(f"cli.infer {name}: launches {run['launches']} != {expected}")
+            run["parameters_checked"] = check_restored(model, cap_run)
+            beam = 3 if name == "caption" else 1
+            groups = tuple(run["sequences"])
+            direct = Generator(model).generate(run["batch"], groups, caption_type=cfg.caption_type,
+                                               max_len=cfg.max_generation_len, beam_size=beam)
+            for g in groups:
+                if not np.array_equal(direct[f"generated_sequences_{g}"][0].cpu().numpy(), run["sequences"][g]):
+                    raise AssertionError(f"cli.infer {name} [{g}] differs from the in-process Generator")
+            if run["printed"] != [f"[{g}] {run['captions'][g]}" for g in groups]:
+                raise AssertionError(f"cli.infer {name} printed {run['printed']}")
+        del models[:]
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    summary = {
+        "config": "configs/caption-msrvtt.json", "checkpoint": "phase 15's caption run", "ffmpeg": ffmpeg_line,
+        "clips": n_clips, "clip_seconds": seconds, "clip_size": list(clip_size), "clips_written_s": clips_s,
+        "cli_extract_s": extract_s, "frames_per_clip": frames_per_clip,
+        "infer": {name: {"seconds": r["seconds"], "captions": r["captions"], "printed": r["printed"],
+                         "layernorm_launches_fwd_bwd": list(r["launches"][:2]),
+                         "fine_score_launches": r["launches"][2], "parameters_checked": r["parameters_checked"],
+                         "video_pixels": list(r["batch"]["video_pixels"].shape),
+                         "audio_spectrograms": list(r["batch"]["audio_spectrograms"].shape)}
+                  for name, r in runs.items()},
+        "layernorm_launches_fwd_bwd": [sum(r["launches"][0] for r in runs.values()), 0],
+        "fine_score_launches": 0, "layernorm_calls": sorted(sigs),
+        "clip_paths": clips,
+    }
+    log("extract_infer " + json.dumps({k: v for k, v in summary.items() if k != "layernorm_calls"}))
+    return summary
+
+
+def phase_serve_video(cap_paths: dict, cap_run: str, clips, n_requests: int = 16, bucket: int = 16,
+                      device: str = "cuda", overrides=None):
+    """``cli/serve.py``'s ``serve`` in this process (as phase 5 serves) at the
+    full width of ``configs/caption-valor32k.json`` with ``--checkpoint``
+    phase 15's caption run, bucket ``bucket``, and the ``video_path``
+    featurizer at 8 frames and 2 clips: a warm-up request a clip, then a
+    burst of ``n_requests`` ``video_path`` requests from as many threads over
+    ``clips`` (phase 20's), then two with questions, and one for a missing
+    video (a 400).  Checks: every status 200, each served caption equal to an
+    in-process ``Generator.generate`` of its item at its bucket size with the
+    run's weights (the served row's tokens, and the reply's text its decode),
+    the LayerNorm launches those of the batches served.  It
+    prints latency p50 and p95 at the client (featurizing included),
+    captions/s and the featurizer's share of a request."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from valor_tpu_torch.cli import serve as S
+    from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
+    from valor_tpu_torch.eval.generate import Generator
+    from valor_tpu_torch.eval.validate import decode_sequence
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    from valor_tpu_torch.cli import infer
+
+    cuda = device == "cuda"
+    featurized, ffmpeg_s = [], []  # (payload, item, seconds); seconds in ffmpeg
+    fz0, ex0 = S.production_featurizer, infer.extract_frames_and_wav
+
+    def timed_extract(*a, **kw):
+        t0 = time.perf_counter()
+        ex0(*a, **kw)
+        ffmpeg_s.append(time.perf_counter() - t0)
+
+    def timed_featurizer(*a, **kw):
+        fn = fz0(*a, **kw)
+
+        def featurize(payload):
+            t0 = time.perf_counter()
+            item = fn(payload)
+            featurized.append((payload, item, time.perf_counter() - t0))
+            return item
+
+        return featurize
+
+    def edit(raw):
+        raw.update(**(overrides or {}))
+
+    with tempfile.TemporaryDirectory(prefix="valor_serve_video_") as tmp, \
+            ffmpeg_on_path(os.path.join(tmp, "bin")) as (_, ffmpeg_line), \
+            cli_run(cap_paths, tmp, "caption-valor32k.json", edit) as cfg_path:
+        vocab0, S.DEFAULT_BERT_VOCAB = S.DEFAULT_BERT_VOCAB, cap_paths["vocab"]  # read at import, as $VALOR_BERT_VOCAB
+        S.production_featurizer, infer.extract_frames_and_wav = timed_featurizer, timed_extract
+        try:
+            t0 = time.perf_counter()
+            server, engine = S.serve(["--config", cfg_path, "--checkpoint", cap_run, "--port", "0",
+                                      "--bucket", str(bucket), "--max_wait_ms", "50",
+                                      *([] if cuda else ["--device", device])])
+            build_s = time.perf_counter() - t0
+        finally:
+            S.production_featurizer, S.DEFAULT_BERT_VOCAB = fz0, vocab0
+            infer.extract_frames_and_wav = ex0
+        submitted, submit0 = [], engine.submit
+
+        def submit(item, **kw):  # the served rows, beside the texts the HTTP replies carry
+            fut = submit0(item, **kw)
+            submitted.append((item, fut))
+            return fut
+
+        engine.submit = submit
+        tok = BertTokenizer(cap_paths["vocab"])
+        base = "http://%s:%d" % server.server_address
+
+        def post(payload):
+            req = urllib.request.Request(base + "/generate", data=json.dumps(payload).encode())
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    code, out = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                code, out = e.code, json.loads(e.read())
+            return code, out, time.perf_counter() - t0
+
+        try:
+            params_checked = check_restored(engine.model, cap_run)
+            with ThreadPoolExecutor(len(clips)) as pool:  # warm-up: one request a clip
+                warm = list(pool.map(lambda c: post({"video_path": c}), clips))
+            if any(c != 200 for c, _, _ in warm):
+                raise AssertionError(f"warm-up: {[(c, o) for c, o, _ in warm]}")
+            featurized.clear()
+            ffmpeg_s.clear()
+            submitted.clear()
+            engine.reset_stats()
+            payloads = [{"video_path": clips[j % len(clips)]} for j in range(n_requests)]
+            questions = [{"video_path": clips[0], "question": "what is the man playing"},
+                         {"video_path": clips[1], "question": "who is on the grass"}]
+            with record_ln_calls() as (sigs, _):
+                K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(n_requests) as pool:
+                    burst = list(pool.map(post, payloads))
+                wall = time.perf_counter() - t0
+                video_batches = engine.stats()["batches"]
+                with ThreadPoolExecutor(2) as pool:
+                    asked = list(pool.map(post, questions))
+                launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+            stats = engine.stats()
+            missing = post({"video_path": os.path.join(tmp, "missing.mp4")})
+            if missing[0] != 400:
+                raise AssertionError(f"a missing video: expected 400, got {missing[:2]}")
+            codes = [c for c, _, _ in burst + asked]
+            if any(c != 200 for c in codes):
+                raise AssertionError(f"status codes {codes}: {[o for c, o, _ in burst + asked if c != 200]}")
+            per_batch = expected_ln_launches(engine.model)
+            per_q = expected_ln_launches(engine.model, prompt=True)
+            q_batches = stats["batches"] - video_batches
+            expected = (video_batches * per_batch + q_batches * per_q, 0, 0) if cuda else (0, 0, 0)
+            if launches != expected:
+                raise AssertionError(f"serving launches {launches} != {expected} "
+                                     f"({video_batches} + {q_batches} batches)")
+            keys = {id(item): (payload["video_path"], payload.get("question")) for payload, item, _ in featurized}
+            gen, refs, L = Generator(engine.model), {}, engine.cfg.max_len
+            for item, fut in submitted[:len(payloads) + len(questions)]:
+                row = fut.result(timeout=0)
+                key = (*keys[id(item)], row["bucket"])
+                if key not in refs:  # the item alone at its bucket size: rows do not mix in the decode
+                    batch = {k: np.stack([v] * row["bucket"]) for k, v in item.items()}
+                    if engine.prompts:
+                        batch["prompt_tokens_caption"] = engine.prompts[engine.cfg.group]
+                    refs[key] = gen.generate(batch, (engine.cfg.group,), caption_type=engine.cfg.caption_type,
+                                             max_len=L)[f"generated_sequences_{engine.cfg.group}"][0].cpu().numpy()
+                if not np.array_equal(row["sequences"], refs[key]):
+                    raise AssertionError(f"served {row['sequences']} != in-process {refs[key]} for {key}")
+            want = sorted(decode_sequence(tok, refs[(*keys[id(i)], f.result(timeout=0)["bucket"])])
+                          for i, f in submitted[:len(payloads) + len(questions)])
+            if sorted(o["text"] for _, o, _ in burst + asked) != want:
+                raise AssertionError("the HTTP replies' texts are not the served rows' decodes")
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.shutdown()
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    lat = np.asarray([s_ for _, _, s_ in burst])
+    feat = [s_ for p, _, s_ in featurized if "question" not in p]
+    summary = {
+        "config": "configs/caption-valor32k.json", "checkpoint": "phase 15's caption run", "ffmpeg": ffmpeg_line,
+        "bucket": bucket, "frames": 8, "clips": 2, "requests": n_requests, "questions": len(questions),
+        "server_build_s": build_s, "parameters_checked": params_checked,
+        "status_codes": sorted(set(codes)), "missing_video": missing[0],
+        "latency_p50_s": float(np.percentile(lat, 50)), "latency_p95_s": float(np.percentile(lat, 95)),
+        "captions_per_s": n_requests / wall, "burst_wall_s": wall,
+        "featurize_mean_s": float(np.mean(feat)), "featurize_share": float(np.mean(feat) / lat.mean()),
+        "ffmpeg_mean_s": float(np.mean(ffmpeg_s)), "ffmpeg_share": float(np.mean(ffmpeg_s) / lat.mean()),
+        "batches": stats["batches"], "video_batches": video_batches, "engine_latency_p50_s": stats["latency_p50_s"],
+        "buckets": sorted({o["bucket"] for _, o, _ in burst + asked}), "rows_checked": len(burst + asked),
+        "distinct_references": len(refs), "texts": sorted({o["text"][:60] for _, o, _ in burst + asked}),
+        "layernorm_launches": launches[0], "fine_score_launches": launches[2],
+        "ln_per_batch": per_batch, "ln_per_question_batch": per_q, "layernorm_calls": sorted(sigs),
+    }
+    log("serve_video " + json.dumps({k: v for k, v in summary.items() if k != "layernorm_calls"}))
+    return summary
+
+
+CONVERT_CHILD = """
+import json, resource, sys, time
+from valor_tpu_torch.cli.build import convert_public
+from valor_tpu_torch.core.config import load_config
+from valor_tpu_torch.models.convert import load_converted
+cfg_path, kind, path = sys.argv[1:]
+mcfg = load_config(cfg_path).model
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+t0 = time.perf_counter()
+if kind == "valor":
+    load_converted(path, resolution=mcfg.video_resolution)
+else:
+    convert_public(kind, path, mcfg)
+seconds = time.perf_counter() - t0
+peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print(json.dumps({"call": kind, "seconds": seconds, "peak_rss_gib": peak / 2**20, "rss_before_gib": before / 2**20}))
+"""
+# a process started by this one inherits its peak resident size (ru_maxrss) through the exec; one
+# started by a small launcher does not
+LAUNCHER = "import subprocess, sys; sys.exit(subprocess.run([sys.executable, *sys.argv[1:]]).returncode)"
+
+
+def conversion_cost(cfg_path: str, kind: str, path: str) -> dict:
+    """Seconds and peak resident size (``ru_maxrss``) of one conversion, each
+    in a fresh process that only imports the port and converts, started
+    through ``LAUNCHER``: the conversion of ``cli/build.py:convert_public``, or
+    ``load_converted`` for ``kind`` "valor", as ``cli.train`` calls them."""
+    out = subprocess.run([sys.executable, "-c", LAUNCHER, "-c", CONVERT_CHILD, cfg_path, kind, path],
+                         cwd=str(ROOT), capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"converting {kind} ({path}) failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def check_layout(sources, converted, restored, ast_grid=None) -> dict:
+    """Every converted tensor (``converted``: a ``state_dict`` that the port's
+    converters gave) is in the restored model (``restored``) bit for bit, and
+    comes from its source file (``sources``: the files' state dicts, as
+    tensors): it equals a source tensor, or a third of one (the q/k/v split of
+    an ``in_proj``/``qkv``), or is the AST position embedding resized from the
+    12 x 101 grid to ``ast_grid``.  Returns the counts of each kind."""
+    import torch
+
+    from valor_tpu_torch.train.checkpoints import bilinear_resize_pos_embed_2d
+
+    def fp(t):
+        flat = t.reshape(-1)
+        return tuple(t.shape), tuple(flat[:4].tolist()), float(flat.double().sum())
+
+    index = {}
+    for sd in sources:
+        for k, t in sd.items():
+            t = t.detach().float()
+            index.setdefault(fp(t), []).append(t)
+            if ("in_proj" in k or "qkv" in k) and t.shape[0] % 3 == 0:
+                for part in t.chunk(3, 0):
+                    index.setdefault(fp(part), []).append(part)
+    ast_pos = [sd[n][0].float().numpy() for sd in sources for n in sd if n.endswith("v.pos_embed")]
+    counts = {"converted": len(converted), "equal_to_a_source_tensor": 0, "resized": 0}
+    for k, t in converted.items():
+        if k not in restored or not torch.equal(restored[k].detach().float().cpu(), t):
+            raise AssertionError(f"{k}: the restored model does not hold the converted tensor")
+        if any(torch.equal(t, s) for s in index.get(fp(t), [])):
+            counts["equal_to_a_source_tensor"] += 1
+        elif k.endswith("position_embeddings") and ast_pos and np.array_equal(t.numpy(), bilinear_resize_pos_embed_2d(
+                np.concatenate([ast_pos[0][:1], ast_pos[0][2:]]), (12, 101), ast_grid, has_cls=True)):
+            counts["resized"] += 1
+        else:
+            raise AssertionError(f"{k}: no source tensor gives it")
+    return counts
+
+
+def phase_weights_in(cap_paths: dict, steps: int = 5, device: str = "cuda", overrides=None, seed: int = 0):
+    """Weights in at the full width of ``configs/caption-msrvtt.json``:
+    synthetic files in the released layouts (``data/synthetic.py``: a CLIP
+    ViT-B/16 JIT archive, a BERT-base ``.bin``, an AudioSet AST checkpoint and
+    a whole VALOR ``.pt``; random values under the real names and shapes),
+    then ``cli.train`` on phase 15's caption dataset for ``steps`` steps twice:
+    with ``$VALOR_PRETRAINED_DIR`` at the three encoder files, and with
+    ``--checkpoint`` the ``.pt``.  Checks, per run: every converted tensor is
+    in the model after the restore and comes from its source
+    (``check_layout``, all of them), the first loss finite, the LayerNorm
+    launches those of the path.  It prints each conversion's seconds and peak
+    resident size, each taken in a fresh process (``conversion_cost``)."""
+    import torch
+
+    from valor_tpu_torch.cli import build as B
+    from valor_tpu_torch.cli import train as T
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.synthetic import write_released_checkpoints
+    from valor_tpu_torch.models import convert as C
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="valor_weights_") as tmp:
+        pdir = os.path.join(tmp, "pretrained")
+
+        def edit(raw):
+            point_at(raw, cap_paths)
+            raw["data_cfg"]["val"] = []
+            raw.update(output_dir=os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
+                       first_eval=False, **(overrides or {}))
+
+        with cli_run(cap_paths, tmp, "caption-msrvtt.json", edit) as cfg_path:
+            cfg = load_config(cfg_path)
+            spec = parse_task(cfg.data_train[0].task)
+            t0 = time.perf_counter()
+            files = write_released_checkpoints(pdir, cfg.model, seed)
+            out["files_written_s"] = time.perf_counter() - t0
+            out["file_bytes"] = {k: os.path.getsize(p) for k, p in files.items()}
+            for run, argv in (("encoders", []), ("valor_pt", ["--checkpoint", files["valor"]])):
+                captured = []
+                adapted0, init0 = T._adapted, B.initialize_encoder_weights
+
+                def adapted1(state, params):
+                    sd = adapted0(state, params)
+                    captured.append({k: v.detach().cpu().clone() for k, v in sd.items()})
+                    return sd
+
+                def init1(mcfg, state_dict):
+                    sd = init0(mcfg, state_dict)
+                    captured.append({k: v.detach().cpu().clone() for k, v in sd.items()})
+                    return sd
+
+                T._adapted, B.initialize_encoder_weights = adapted1, init1
+                if run == "encoders":
+                    os.environ["VALOR_PRETRAINED_DIR"] = pdir
+                    found = [k for k, _ in B.public_weight_files(cfg.model)]
+                    if cuda and found != ["clip", "ast", "bert"]:  # VALOR-base finds all three files
+                        raise AssertionError(f"cli.train finds {found} of clip, ast and bert")
+                try:
+                    with record_trainers(sync, cuda) as runs, record_ln_calls() as (sigs_fwd, sigs_bwd):
+                        K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+                        trainer = T.main(["--config", cfg_path, "--output_dir", os.path.join(tmp, f"out_{run}"),
+                                          *argv, *([] if cuda else ["--device", device])])
+                        launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+                finally:
+                    T._adapted, B.initialize_encoder_weights = adapted0, init0
+                    os.environ["VALOR_PRETRAINED_DIR"] = os.path.join(tmp, "no_public_weights")
+                restored = captured[-1]  # after the encoder lookup, and after the --checkpoint load
+                if run == "encoders":
+                    sources = [C._load_torch(files[k]) for k in found]
+                    converted = {}
+                    for k, sd in zip(found, sources):
+                        converted.update(B.converted_state_dict(B.convert_public(k, sd, cfg.model)))
+                else:
+                    sources = [C._load_torch(files["valor"])]
+                    converted = B.converted_state_dict(C.convert_valor_full(sources[0], cfg.model.video_resolution))
+                m = cfg.model
+                dropped = sorted(set(converted) - set(restored))  # adapted away: the model has no such tensor
+                if cuda and dropped:
+                    raise AssertionError(f"{run}: converted tensors the VALOR-base model lacks: {dropped[:5]}")
+                converted = {k: v for k, v in converted.items() if k not in dropped}
+                layout = check_layout([{k: torch.from_numpy(np.asarray(v)) for k, v in s.items()} for s in sources],
+                                      converted, restored, (m.audio_melbins // m.audio_patch_size,
+                                                            m.audio_target_length // m.audio_patch_size))
+                del sources, converted, captured
+                history = list(trainer.history)
+                first = history[0][2]
+                if len(history) != steps or not all(np.isfinite(v) for v in first.values()):
+                    raise AssertionError(f"{run}: {len(history)} steps, first losses {first}")
+                per_step = expected_train_ln_launches(trainer.state.model, spec)
+                expected = (per_step * steps, per_step * steps, 0) if cuda else (0, 0, 0)
+                if launches != expected:
+                    raise AssertionError(f"{run}: launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+                rec = runs[0]
+                step_s = np.diff([rec["start"]] + rec["stamps"])
+                out[run] = {
+                    "conversions": [conversion_cost(cfg_path, k, files[k])
+                                    for k in (found if run == "encoders" else ["valor"])],
+                    "converted_tensors": layout, "not_in_model": len(dropped), "model_tensors": len(restored),
+                    "first_losses": first, "losses": [h[2][next(iter(first))] for h in history],
+                    "step_s": [float(v) for v in step_s], "max_memory_allocated_gib": rec["peak"] / 2**30,
+                    "layernorm_launches_fwd_bwd": list(launches[:2]), "fine_score_launches": launches[2],
+                    "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+                }
+                del trainer, runs, restored
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+    summary = dict(out, config="configs/caption-msrvtt.json", task=spec.raw, steps=steps,
+                   layernorm_launches_fwd_bwd=[sum(out[r]["layernorm_launches_fwd_bwd"][i]
+                                                   for r in ("encoders", "valor_pt")) for i in (0, 1)],
+                   fine_score_launches=0,
+                   layernorm_calls=sorted({tuple(s) for r in ("encoders", "valor_pt")
+                                           for s in out[r]["layernorm_calls"]}),
+                   layernorm_bwd_calls=sorted({tuple(s) for r in ("encoders", "valor_pt")
+                                               for s in out[r]["layernorm_bwd_calls"]}))
+    log("weights_in " + json.dumps({k: ({kk: vv for kk, vv in v.items() if "calls" not in kk}
+                                        if isinstance(v, dict) else v)
+                                    for k, v in summary.items() if "calls" not in k}))
     return summary
 
 
@@ -2547,12 +3218,34 @@ def phase_path_shapes(paths, ln_rows, bwd_rows, fs_rows):
     return out
 
 
-def main() -> int:
+def phase18_alone() -> None:
+    """Phases 1, 8 and 18, and phase 14's dataset written for phase 18."""
     import torch
 
+    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+
+    phase_card_and_build()
+    pretrain = phase_pretrain()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
+        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=640, n_val=256)
+        phase_cli_pt_prompts(paths, synthetic=pretrain)
+
+
+def main(argv=None) -> int:
+    import torch
+
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--phase18"]):
+        print("usage: python3 chip_smoke.py [--phase18]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args:
+        phase18_alone()
+        return 0
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.models.bridge import init_params, load_model
 
@@ -2598,23 +3291,32 @@ def main() -> int:
 
         phase_scst_prompt_card_vs_cpu()
         scst = phase_cli_scst(cap["paths"], cap["output_dir"], synthetic=cap)
-        shutil.rmtree(cap["output_dir"])
         gc.collect()
         torch.cuda.empty_cache()
         pt = phase_cli_pt_prompts(cli["paths"], synthetic=pretrain)
+        gc.collect()
+        torch.cuda.empty_cache()
+        infer = phase_extract_infer(cap["paths"], cap["output_dir"], root=os.path.join(work.name, "video"))
+        serve_video = phase_serve_video(cap["paths"], cap["output_dir"], infer["clip_paths"])
+        weights = phase_weights_in(cap["paths"])
+        shutil.rmtree(cap["output_dir"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_decoder(cli["paths"])
     finally:
         work.cleanup()
-    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, pt], ln_rows, bwd_rows,
-                               fs_rows)
+    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, infer, serve_video, weights, pt],
+                               ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
     trained = {"pretraining": pretrain, "retrieval": retrieval, "cli_train": cli, "cap_train": cap,
-               "qa_train": qa, "scst_train": scst, "pt_prompt_train": pt}
-    by_path = dict(serving=serving["layernorm_launches"],
+               "qa_train": qa, "scst_train": scst, "infer": infer, "weights_train": weights,
+               "pt_prompt_train": pt}
+    by_path = dict(serving=serving["layernorm_launches"], serve_video=serve_video["layernorm_launches"],
                    **{k: v["layernorm_launches_fwd_bwd"][0] for k, v in trained.items()})
-    bwd_by_path = dict(serving=0, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
-    fs_by_path = dict(serving=0, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
+    bwd_by_path = dict(serving=0, serve_video=0, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
+    fs_by_path = dict(serving=0, serve_video=0, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

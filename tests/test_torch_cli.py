@@ -223,15 +223,20 @@ def test_main_needs_a_card_unless_asked_for_the_cpu(config, monkeypatch):
 
 @pytest.mark.parametrize("case", ["checkpoint_file", "weights"])
 def test_unported_paths_raise(config, dataset, tmp_path, case):
+    """A ``--checkpoint`` file and public encoder weights are read now
+    (tests/test_torch_convert.py); one that cannot be read raises, naming the
+    file, before any training from random weights."""
     argv = []
     if case == "checkpoint_file":
         (tmp_path / "model.pt").write_bytes(b"")
-        argv = ["--checkpoint", str(tmp_path / "model.pt")]
+        argv, name = ["--checkpoint", str(tmp_path / "model.pt")], "model.pt"
     else:
         (tmp_path / "no_weights").mkdir()
         (tmp_path / "no_weights" / "bert-base-uncased.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="slice"):
+        name = "bert-base-uncased.bin"
+    with pytest.raises(ValueError, match=name):
         _main("--config", config(), *argv)
+    assert not (tmp_path / "out" / "ckpt").exists() or not os.listdir(tmp_path / "out" / "ckpt")
 
 
 @pytest.mark.parametrize("case", ["pt_val", "scst", "prompts"])

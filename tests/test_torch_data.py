@@ -10,9 +10,9 @@ tests/test_data.py) go through both packages.  Tolerances, with their reasons:
   * every host module (tokenizers, mappers, resampler, collate, sampler and
     task orders) exactly: the port runs the same numpy and PIL code.
 
-The JAX ``VideoMapper`` takes its C++ decoder where the library loads; the
-tests turn it off at run time (``monkeypatch``) so that both packages decode
-with PIL, the port's only decoder.  The prefetcher's tests are in
+Both ``VideoMapper``s take their C++ decoder for ``transforms="none"`` where
+the library loads; the PIL tests turn it off at run time (``monkeypatch``) in
+both packages (tests/test_torch_native.py holds the two decoders together).  The prefetcher's tests are in
 tests/test_torch_prefetch.py, which imports no JAX (its card test runs on a
 machine without it).
 """
@@ -215,10 +215,13 @@ def fixture_dataset(tmp_path):
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """The JAX mapper's PIL branch: its C++ decoder turned off for this test."""
+    """Both mappers' PIL branch: the C++ decoder of each package turned off for
+    this test (tests/test_torch_native.py holds the two decoders together)."""
     from valor_tpu.data import native
+    from valor_tpu_torch.data import native as tnative
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture

@@ -24,7 +24,7 @@ from PIL import Image
 from tests.test_data import TINY_VOCAB
 from tests.test_torch_models import torch_config
 from tests.conftest import tiny_model_config
-from valor_tpu_torch.cli.serve import image_featurizer, start_server
+from valor_tpu_torch.cli.serve import production_featurizer, start_server
 from valor_tpu_torch.eval.generate import Generator
 from valor_tpu_torch.models.bridge import init_params, load_model
 from valor_tpu_torch.serve import EngineOverloaded, InferenceEngine, ServeConfig
@@ -317,15 +317,15 @@ def test_image_featurizer_matches_jax_mapper(tmp_path):
     Image.fromarray(rng.randint(0, 256, (45, 61, 3), dtype=np.uint8)).save(tmp_path / "im.jpg")
     ref = VideoMapper(str(tmp_path), resolution=32, sample_num=1, datatype="image",
                       encoder_type=cfg.video_encoder_type, training=False, output_uint8=True)["im.jpg"]
-    item = image_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "im.jpg")})
+    item = production_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "im.jpg")})
     np.testing.assert_array_equal(item["video_pixels"], ref)
     assert item["audio_spectrograms"].shape == (2, 16, 32)
-    with pytest.raises(NotImplementedError):
-        image_featurizer(torch_config(cfg))({"video_path": "clip.mp4"})
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):  # video_path is served: a missing one is a 400
+        production_featurizer(torch_config(cfg))({"video_path": "clip.mp4"})
     with pytest.raises(RuntimeError, match="tokenizer"):  # a question needs the server's tokenizer
-        image_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "im.jpg"), "question": "what?"})
+        production_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "im.jpg"), "question": "what?"})
     with pytest.raises(FileNotFoundError):
-        image_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "missing.jpg")})
+        production_featurizer(torch_config(cfg))({"image_path": str(tmp_path / "missing.jpg")})
 
 
 def _tokenizers(tmp_path):
@@ -351,7 +351,7 @@ def test_question_featurizer_matches_jax(tmp_path, pad):
     if pad:
         payload["question_pad"] = pad
     ref = _production_featurize(Config(model=cfg), jtok)(payload)
-    item = image_featurizer(torch_config(cfg), ttok)(payload)
+    item = production_featurizer(torch_config(cfg), ttok)(payload)
     assert item.keys() == ref.keys()
     for k in ref:
         assert item[k].dtype == ref[k].dtype
@@ -377,12 +377,20 @@ def test_long_question_keeps_every_token(tmp_path):
     assert question_prompt(tok, "a cat", pad=32).shape == (32,)
 
 
-def test_serve_main_refuses_what_is_not_ported(tmp_path):
-    from valor_tpu_torch.cli.serve import main
+def test_serve_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A ``--checkpoint`` that holds no ``ckpt/step_N`` is an error naming the
+    path, never random weights served (F5's serving half: the JAX package
+    serves random weights there)."""
+    from tests.test_torch_cli import TINY
+    from valor_tpu_torch.cli import serve as S
 
-    config = str(REPO / "configs" / "caption-valor32k.json")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        main(["--config", config, "--checkpoint", str(tmp_path), "--device", "cpu"])
+    (tmp_path / "vocab.txt").write_text("\n".join(TINY_VOCAB))
+    monkeypatch.setattr(S, "DEFAULT_BERT_VOCAB", str(tmp_path / "vocab.txt"))
+    (tmp_path / "config.json").write_text(json.dumps(TINY))
+    (tmp_path / "run").mkdir()
+    for missing in (tmp_path / "run", tmp_path / "typo"):
+        with pytest.raises(FileNotFoundError, match=str(missing)):
+            S.main(["--config", str(tmp_path / "config.json"), "--checkpoint", str(missing), "--device", "cpu"])
 
 
 def test_prompted_question_featurizer_matches_jax(tmp_path):
@@ -400,7 +408,7 @@ def test_prompted_question_featurizer_matches_jax(tmp_path):
     jtable, ttable = JTable(bert_tokenizer=jtok), PromptTable(bert_tokenizer=ttok)
     payload = {"image_path": str(tmp_path / "im.jpg"), "question": "What is the cat on?"}
     ref = _production_featurize(Config(model=cfg), jtok, jtable)(payload)
-    item = image_featurizer(torch_config(cfg), ttok, ttable)(payload)
+    item = production_featurizer(torch_config(cfg), ttok, ttable)(payload)
     np.testing.assert_array_equal(item["question_prompt"], ref["question_prompt"])
     body = ttable.qa_body()[0].tolist()
     assert item["question_prompt"][1 : 1 + len(body)].tolist() == body

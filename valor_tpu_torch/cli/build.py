@@ -6,16 +6,15 @@ create_val_dataloaders :519-576).
 One process, one card: every loader is shard 0 of 1 and no mesh is read.  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
-``$VALOR_PRETRAINED_DIR``.  QA flows read ``data/vqa.py``'s mapper, dataset
-and collates.  With ``use_task_prompt`` every flow's collate adds the task
-prompts (``data/prompts.py:prompted_collate``).  Not ported yet, and raising:
-loading public encoder weights (the released-weights slice).
+``$VALOR_PRETRAINED_DIR`` (converted by ``models/convert.py``).  QA flows read
+``data/vqa.py``'s mapper, dataset and collates.  With ``use_task_prompt`` every
+flow's collate adds the task prompts (``data/prompts.py:prompted_collate``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from valor_tpu_torch.core.config import Config, DataFlowConfig, ModelConfig
 from valor_tpu_torch.core.logging import LOGGER
@@ -24,8 +23,6 @@ from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSamp
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
 from valor_tpu_torch.data.prompts import maybe_prompt_table, prompted_collate
 from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
-
-WEIGHTS_SLICE = "the released-weights slice"
 
 
 def bert_vocab_path() -> str:
@@ -152,32 +149,82 @@ _AST_WEIGHTS = "audioset_10_10_0.4593.pth"
 _BERT_WEIGHTS = "bert-base-uncased.bin"
 
 
-def initialize_encoder_weights(mcfg: ModelConfig, state_dict):
-    """The JAX package's public-checkpoint lookup (reference
-    model/modeling.py:560-660): ``initial_vision`` gates CLIP/VideoSwin and
-    AST, ``initial_multimodal`` BERT, each a file under
-    ``$VALOR_PRETRAINED_DIR`` (default ``pretrained_weights/``).  With no such
-    file the encoders stay random-init, as there.  Converting a file that is
-    there is not ported yet: it raises rather than train from random weights
-    the caller meant to replace."""
+def converted_state_dict(tree) -> Dict[str, Any]:
+    """A converted flax-layout tree (``models/convert.py``) as ``state_dict``
+    entries (``models/bridge.py:params_from_jax``).  VideoSwin weights raise:
+    the port has no VideoSwin tower yet."""
+    from valor_tpu_torch.models.bridge import params_from_jax
+
+    if "video_encoder" in tree:
+        raise NotImplementedError("VideoSwin weights: the port has no VideoSwin tower yet")
+    return params_from_jax(tree)
+
+
+def public_weight_files(mcfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(kind, path) of each public encoder checkpoint that ``mcfg`` asks for
+    and ``$VALOR_PRETRAINED_DIR`` (default ``pretrained_weights/``) holds, in
+    the JAX package's order: ``initial_vision`` gates CLIP/VideoSwin (+AST),
+    ``initial_multimodal`` BERT (+cls head)."""
     pdir = os.environ.get("VALOR_PRETRAINED_DIR", "pretrained_weights")
-    wanted = []
+    wanted = []  # (kind, file name)
     if mcfg.initial_vision:
         if mcfg.video_encoder_type.startswith("clip") or mcfg.txt_encoder_type.startswith("clip"):
             name = (mcfg.video_encoder_type if mcfg.video_encoder_type.startswith("clip")
                     else mcfg.txt_encoder_type)
-            wanted.append(_CLIP_WEIGHTS.get(name, ""))
+            wanted.append(("clip", _CLIP_WEIGHTS.get(name, "")))
         if mcfg.video_encoder_type.startswith("videoswin"):
-            wanted.append(_SWIN_WEIGHTS.get(mcfg.video_encoder_type, ""))
-        wanted.append(_AST_WEIGHTS)
+            wanted.append(("videoswin", _SWIN_WEIGHTS.get(mcfg.video_encoder_type, "")))
+        wanted.append(("ast", _AST_WEIGHTS))
     if mcfg.initial_multimodal:
-        wanted.append(_BERT_WEIGHTS)
-    found = [f for f in wanted if f and os.path.exists(os.path.join(pdir, f))]
-    if found:
-        raise NotImplementedError(
-            f"public encoder weights {found} under {pdir!r}: loading them comes with {WEIGHTS_SLICE}")
-    LOGGER.info(f"no public encoder weights under {pdir!r}; encoders random-init")
+        wanted.append(("bert", _BERT_WEIGHTS))
+    return [(kind, os.path.join(pdir, f)) for kind, f in wanted if f and os.path.exists(os.path.join(pdir, f))]
+
+
+def convert_public(kind: str, path: str, mcfg: ModelConfig):
+    """The flax-layout tree of one public encoder checkpoint
+    (``models/convert.py``) at ``mcfg``'s resolution and spectrogram grid."""
+    from valor_tpu_torch.models import convert as C
+
+    if kind == "clip":
+        return C.convert_clip(path, resolution=mcfg.video_resolution)
+    if kind == "ast":
+        return C.convert_ast(path, melbins=mcfg.audio_melbins, target_length=mcfg.audio_target_length,
+                             patch=mcfg.audio_patch_size)
+    return {"videoswin": C.convert_videoswin, "bert": C.convert_bert}[kind](path)
+
+
+def initialize_encoder_weights(mcfg: ModelConfig, state_dict):
+    """Load public encoder checkpoints at model construction (the JAX
+    package's lookup; reference model/modeling.py:560-660): each file of
+    ``public_weight_files`` converted and shape-adapted onto ``state_dict`` in
+    that order.  Missing files are skipped with a log line, so random-init
+    runs (tests, ablations) proceed."""
+    from valor_tpu_torch.train.checkpoints import adapt_pretrained_params
+
+    pdir = os.environ.get("VALOR_PRETRAINED_DIR", "pretrained_weights")
+    found = public_weight_files(mcfg)
+    for kind, path in found:
+        LOGGER.info(f"initialising {kind} from {pdir}")
+        state_dict = adapt_pretrained_params(converted_state_dict(convert_public(kind, path, mcfg)), state_dict)
+    if not found:
+        LOGGER.info(f"no public encoder weights under {pdir!r}; encoders random-init")
     return state_dict
+
+
+def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, device=None):
+    """Weights for ``VALORModel(model_cfg)`` on ``device``: random from seed 0,
+    then, with ``checkpoint`` (one of the port's run directories), the
+    parameters of its latest ``ckpt/step_N`` shape-adapted over them
+    (``cli/train.py:restore_weights``, which raises ``FileNotFoundError`` where
+    the path or the checkpoint is missing)."""
+    from valor_tpu_torch.cli.train import restore_weights
+    from valor_tpu_torch.models.bridge import init_params
+    from valor_tpu_torch.train.checkpoints import adapt_pretrained_params
+
+    sd = init_params(model_cfg, 0, device)
+    if checkpoint:
+        sd = adapt_pretrained_params(restore_weights(checkpoint)["params"], sd)
+    return sd
 
 
 def build_model_and_state(cfg: Config, device):

@@ -1,33 +1,39 @@
 """HTTP serving frontend of the port (counterpart of ``valor_tpu/cli/serve.py``).
 
     python -m valor_tpu_torch.cli.serve --config configs/caption-valor32k.json \
-        --task cap%tva --port 8000 --bucket 16 --max_wait_ms 25
+        --task cap%tva --port 8000 --bucket 16 --max_wait_ms 25 [--checkpoint <run dir>]
 
 The model is resident on the CUDA card (``--device cpu`` runs it on the
 CPU), and concurrent requests are coalesced into padded fixed-bucket batches
 by ``valor_tpu_torch/serve/engine.py``; ``max_wait_ms`` bounds the batching
-latency added to any request.  Weights are random from seed 0: loading a
-trained checkpoint is not ported yet.  The WordPiece vocab is read from
+latency added to any request.  ``--checkpoint`` names one of the port's own run
+directories, whose latest ``ckpt/step_N`` is served (``FileNotFoundError``
+where there is none: the JAX package serves random weights there); without it
+the weights are random from seed 0.  The WordPiece vocab is read from
 ``$VALOR_BERT_VOCAB`` (``pretrained_weights/bert-base-uncased-vocab.txt`` by
 default).
 
 Endpoints (JSON in/out):
   GET  /healthz    -> {"ok": true}
   GET  /stats      -> engine counters + latency percentiles + decoders
-  POST /generate   -> {"image_path": ...} [+ "question", "question_pad", "group",
-                      "max_len", "beam_size"]
+  POST /generate   -> {"image_path": ...} or {"video_path": ...} [+ "question",
+                      "question_pad", "video_sample_num", "audio_sample_num",
+                      "group", "max_len", "beam_size"]
                       -> {"text": ..., "latency_s": ..., "batch_size": ..., "bucket": ...}
 
 Media arrive as server-local paths; featurization runs on the HTTP thread so
-the device worker never blocks on IO.  Only ``image_path`` is featurized so
-far: ``video_path`` needs the ffmpeg and fbank host path, not ported yet.  A
-``question`` becomes the QA prompt ``[CLS] question [SEP]``, zero-padded to
-``question_pad`` tokens (32 by default) so that requests batch together; a
-longer question is never cut (the JAX package cuts it at ``question_pad``):
-its pad grows to its length, rounded up to a multiple of 8.  A config with
-``use_task_prompt`` (a prompt-trained checkpoint) serves as evaluation runs
-it: the caption prompt goes to every caption decode, and the QA prompt's body
-follows the ``[CLS]`` of every question (``data/prompts.py``).
+the device worker never blocks on IO.  An image is one raw uint8 frame with
+silent audio; a video goes through ffmpeg (``cli/infer.py``'s
+``extract_frames_and_wav``) into ``video_sample_num`` raw uint8 frames (8 by
+default; the C++ decoder of ``data/native.py`` where it builds) and
+``audio_sample_num`` host log-mel clips (2).  A missing or unreadable medium
+is a 400.  A ``question`` becomes the QA prompt ``[CLS] question [SEP]``,
+zero-padded to ``question_pad`` tokens (32 by default) so that requests batch
+together; a longer question is never cut (the JAX package cuts it at
+``question_pad``): its pad grows to its length, rounded up to a multiple of 8.
+A config with ``use_task_prompt`` (a prompt-trained checkpoint) serves as
+evaluation runs it: the caption prompt goes to every caption decode, and the
+QA prompt's body follows the ``[CLS]`` of every question (``data/prompts.py``).
 """
 
 from __future__ import annotations
@@ -152,31 +158,63 @@ def question_prompt(bert_tok, question: str, pad: int = 32, body=()) -> np.ndarr
     return np.asarray(q + [0] * (width - len(q)), np.int32)
 
 
-def image_featurizer(model_cfg, bert_tok=None, prompt_table=None) -> FeaturizeFn:
-    """``image_path`` -> one raw uint8 frame plus silent spectrogram clips,
-    as the eval image mapper gives them, and with a ``question`` its prompt
-    (``question_prompt``, encoded by ``bert_tok``, with the QA prompt body of
-    ``prompt_table`` when there is one)."""
+def production_featurizer(model_cfg, bert_tok=None, prompt_table=None) -> FeaturizeFn:
+    """The request featurizer (the JAX package's ``_production_featurize``):
+    ``image_path`` -> one raw uint8 frame plus silent spectrogram clips, as the
+    eval image mapper gives them; ``video_path`` -> ffmpeg frames and wav in a
+    temporary directory, then ``video_sample_num`` raw uint8 frames from
+    ``VideoMapper`` and ``audio_sample_num`` log-mel clips from
+    ``AudioMapper``; with a ``question`` its prompt (``question_prompt``,
+    encoded by ``bert_tok``, with the QA prompt body of ``prompt_table`` when
+    there is one)."""
+    import subprocess
+    import tempfile
+
+    from valor_tpu_torch.cli.infer import extract_frames_and_wav
+    from valor_tpu_torch.data.pipeline import AudioMapper, VideoMapper, load_image_uint8
+
     body = prompt_table.qa_body()[0].tolist() if prompt_table is not None else ()
-    from valor_tpu_torch.data.pipeline import load_image_uint8
+
+    def video(payload: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        path = payload["video_path"]
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no such video: {path}")
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                extract_frames_and_wav(path, tmp)
+            except subprocess.CalledProcessError as e:  # ffmpeg cannot read it -> client 400
+                raise FileNotFoundError(f"unreadable video: {path} ({e})") from None
+            pixels = VideoMapper(
+                tmp, resolution=model_cfg.video_resolution,
+                sample_num=int(payload.get("video_sample_num", 8)), datatype="video",
+                encoder_type=model_cfg.video_encoder_type, training=False, output_uint8=True,
+            )["frames"]
+            if pixels is None:
+                raise FileNotFoundError(f"no readable frames in: {path}")
+            audio = AudioMapper(
+                tmp, sample_num=int(payload.get("audio_sample_num", 2)),
+                melbins=model_cfg.audio_melbins, target_length=model_cfg.audio_target_length,
+                training=False,
+            )["audio"]
+        return {"video_pixels": pixels, "audio_spectrograms": audio.astype(np.float32)}
 
     def featurize(payload: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        if payload.get("video_path"):
-            raise NotImplementedError(
-                "video_path is not ported yet (ffmpeg frames and fbank audio); send image_path")
-        if not payload.get("image_path"):
-            raise ValueError("payload needs image_path")
-        path = payload["image_path"]
-        try:
-            pixels = load_image_uint8(path, model_cfg.video_resolution)
-        except OSError as e:  # unreadable or missing image -> client 400
-            raise FileNotFoundError(f"unreadable image: {path} ({e})") from None
-        item = {
-            "video_pixels": pixels,
-            "audio_spectrograms": np.zeros(
-                (int(payload.get("audio_sample_num", 2)),
-                 model_cfg.audio_melbins, model_cfg.audio_target_length), np.float32),
-        }
+        if payload.get("image_path"):
+            path = payload["image_path"]
+            try:
+                pixels = load_image_uint8(path, model_cfg.video_resolution)
+            except OSError as e:  # unreadable or missing image -> client 400
+                raise FileNotFoundError(f"unreadable image: {path} ({e})") from None
+            item = {
+                "video_pixels": pixels,
+                "audio_spectrograms": np.zeros(
+                    (int(payload.get("audio_sample_num", 2)),
+                     model_cfg.audio_melbins, model_cfg.audio_target_length), np.float32),
+            }
+        elif payload.get("video_path"):
+            item = video(payload)
+        else:
+            raise ValueError("payload needs video_path or image_path")
         if payload.get("question"):
             if bert_tok is None:
                 raise RuntimeError("this featurizer was built without a tokenizer for questions")
@@ -196,7 +234,9 @@ def buckets_up_to(bucket: int):
     return tuple(out) + (bucket,)
 
 
-def main(argv=None):
+def serve(argv=None):
+    """Parse the CLI, build the model, the engine and the HTTP server, and
+    start serving on a daemon thread; returns (server, engine)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--checkpoint", default=None)
@@ -214,23 +254,22 @@ def main(argv=None):
     parser.add_argument("--device", default=None, help="torch device; the CUDA card by default")
     args = parser.parse_args(argv)
 
+    from valor_tpu_torch.cli.build import model_weights
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.core.tasks import parse_task
     from valor_tpu_torch.data.prompts import maybe_prompt_table
     from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
     from valor_tpu_torch.eval.validate import decode_sequence
-    from valor_tpu_torch.models.bridge import init_params, load_model
+    from valor_tpu_torch.models.bridge import load_model
     from valor_tpu_torch.serve import InferenceEngine, ServeConfig
 
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint (orbax checkpoints) is not ported yet")
     cfg = load_config(args.config)
     spec = parse_task(args.task)
     group = spec.caption_groups[0]
     bert_tok = BertTokenizer(DEFAULT_BERT_VOCAB)
     # the serving prompts follow the fusion encoder's tokenizer (BERT here)
     table = maybe_prompt_table(cfg.model, (bert_tok, None))
-    model = load_model(cfg.model, init_params(cfg.model, 0, args.device), args.device)
+    model = load_model(cfg.model, model_weights(cfg.model, args.checkpoint, args.device), args.device)
     engine = InferenceEngine(
         model,
         ServeConfig(
@@ -242,7 +281,7 @@ def main(argv=None):
         prompts={group: table.caption()} if table is not None else None,
     )
     server = start_server(
-        engine, image_featurizer(cfg.model, bert_tok, table),
+        engine, production_featurizer(cfg.model, bert_tok, table),
         lambda seq: decode_sequence(bert_tok, seq),
         host=args.host, port=args.port,
         request_timeout_s=args.request_timeout_s,
@@ -250,6 +289,11 @@ def main(argv=None):
     )
     LOGGER.info("serving %s on http://%s:%d (bucket %d, wait %.0f ms, %s)",
                 args.task, *server.server_address, args.bucket, args.max_wait_ms, model.device)
+    return server, engine
+
+
+def main(argv=None):
+    server, engine = serve(argv)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

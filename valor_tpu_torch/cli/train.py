@@ -13,8 +13,11 @@ there, at its micro-step; ``--checkpoint <dir>`` (one of the port's own run
 directories) and ``--pretrain_dir <dir>`` (with ``--pretrain_step``) load
 weights, shape-adapted, and raise ``FileNotFoundError`` where the path does
 not exist or holds no ``ckpt/step_N`` (the JAX package trains from random
-weights there); ``--zero_shot true`` evaluates and stops; ``--first_eval``
-evaluates before training.  Evaluation flows run ``validate_ret``,
+weights there); ``--checkpoint <file>`` converts a torch artifact (a released
+VALOR ``.pt``, a CLIP JIT archive, a BERT ``.bin``, an AST checkpoint) by key
+inspection (``models/convert.py:load_converted``) and loads it shape-adapted;
+``--zero_shot true`` evaluates and stops; ``--first_eval`` evaluates before
+training.  Evaluation flows run ``validate_ret``,
 ``validate_cap`` (caption metrics over the whole set, with step dumps and
 ``submit_format`` files under ``<output_dir>/results_test_<name>``),
 ``validate_qa`` (accuracy, with the ground-truth and prediction dumps there) or
@@ -25,9 +28,7 @@ first train flow's annotations; it takes its weights from a caption run with
 to every batch (``data/prompts.py``).
 
 One process on one card: the JAX package's device mesh, ``jax.distributed``,
-``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.  Not
-ported yet, and raising before any work: a ``--checkpoint`` that is a file (a
-converted torch artifact: the released-weights slice).
+``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import random
 import sys
 from typing import Any, Dict, Optional
 
-from valor_tpu_torch.cli.build import WEIGHTS_SLICE
 from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
@@ -191,11 +191,17 @@ def main(argv=None):
     elif cfg.train.checkpoint:
         path = cfg.train.checkpoint
         if os.path.isfile(path):
-            raise NotImplementedError(
-                f"--checkpoint {path!r} is not a run directory of this package; converting "
-                f"torch artifacts comes with {WEIGHTS_SLICE}")
-        restored = restore_weights(path)
-        state.model.load_state_dict(_adapted(state, restored["params"]))
+            # a torch artifact: full VALOR .pt / CLIP jit archive / bert bin / ast,
+            # converted by key inspection
+            from valor_tpu_torch.cli.build import converted_state_dict
+            from valor_tpu_torch.models.convert import load_converted
+
+            params = converted_state_dict(load_converted(path, resolution=cfg.model.video_resolution))
+            state.model.load_state_dict(_adapted(state, params))
+            del params
+        else:
+            restored = restore_weights(path)
+            state.model.load_state_dict(_adapted(state, restored["params"]))
     del restored  # a full-width payload holds 4.5 GB on the host
 
     if cfg.train.zero_shot:

@@ -11,10 +11,10 @@ Reproduces the reference data layer (data/data.py) with numpy outputs and
     train / centre in eval, :176-199 with split() :240-244), PIL decode,
     resize/crop_flip transforms, CLIP or ImageNet normalisation (:145-173),
     or raw uint8 rows that ``VALORModel.encode_video`` normalises on the
-    device.  Divergence: the port always decodes with PIL.  The JAX mapper
-    takes its C++ decoder (``native/``) for ``transforms == "none"`` when the
-    library loads; that decoder is not pixel-equal to PIL (its test asks
-    for correlation > 0.98), and the port has no copy of it yet.
+    device.  Video frames with ``transforms == "none"`` decode through the
+    C++ decoder (``data/native.py``, the port's own build of the JAX
+    package's ``native/``) where it builds, as the JAX mapper's do; it is not
+    pixel-equal to PIL (its test asks for correlation > 0.98).
   * AudioMapper: wav -> kaldi-style log-mel clips (:269-323) via
     ``data/fbank.py:fbank_np``, or clip-span waveforms for the device fbank
     (``device_fbank``); zero spectrogram (or ``valid_frames == -1``) when
@@ -38,6 +38,7 @@ import numpy as np
 from PIL import Image
 
 from valor_tpu_torch.core.logging import LOGGER
+from valor_tpu_torch.data import native
 from valor_tpu_torch.data.fbank import clip_span_samples, fbank_np
 from valor_tpu_torch.data.resample import resample
 
@@ -162,7 +163,8 @@ def load_image_uint8(path: str, resolution: int = 224, transforms: str = "none")
 
 class VideoMapper:
     """frame-dir (video) or single-image datasets -> [n, H, W, 3] float32
-    (or raw uint8 with ``output_uint8``), decoded with PIL."""
+    (or raw uint8 with ``output_uint8``), decoded with PIL, or with the C++
+    decoder for video frames under ``transforms == "none"``."""
 
     def __init__(
         self,
@@ -235,6 +237,15 @@ class VideoMapper:
                 names = sorted(os.listdir(frame_dir))
                 picks = chunk_pick(uniform_chunks(names, self.sample_num), self.training, rng)
                 paths = [os.path.join(frame_dir, p) for p in picks]
+                # the C++ decoder: threaded JPEG decode + antialiased resize
+                # (+ normalise) in one call, for a plain Resize((r, r)) only
+                if self.transforms == "none" and native.available():
+                    res = self.resolution
+                    if self.output_uint8:
+                        out, failed = native.decode_resize_batch_u8(paths, (res, res))
+                    else:
+                        out, failed = native.decode_resize_batch(paths, (res, res), self.mean, self.std)
+                    return None if failed else out
                 frames = [Image.open(p) for p in paths]
                 return self._finish(frames, rng)
             # image datasets: one frame; optional visual-genome crop syntax

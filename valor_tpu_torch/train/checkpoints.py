@@ -211,7 +211,8 @@ def adapt_pretrained_params(params: Mapping[str, Any], target: Mapping[str, torc
             mismatched.append(f"{key}: {src.shape} -> {tuple(dst.shape)}")
             out[key] = dst
             continue
-        out[key] = torch.as_tensor(np.ascontiguousarray(new)).to(dst.device, dst.dtype)
+        # reshape: np.ascontiguousarray makes a 0-d array (a temperature) 1-d
+        out[key] = torch.as_tensor(np.ascontiguousarray(new)).reshape(dst.shape).to(dst.device, dst.dtype)
     if missing:
         LOGGER.info(f"missing keys (target-init): {missing[:20]}{'...' if len(missing) > 20 else ''}")
     if mismatched:
