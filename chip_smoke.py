@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, 19, 9; any
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, a-e, 19, 9; any
 failure ends the run with a traceback and a non-zero exit code, and no result
 line:
 
@@ -11,7 +11,9 @@ line:
      and the build of every kernel from ``valor_tpu_torch/csrc``: one nvcc a
      source and g++ for the C++ decoder (``csrc/host``), all started together;
   2. the LayerNorm kernel against its plain version at the shapes the serving
-     and pretraining paths give it, bf16 -> bf16 and f32 -> f32 (and the mixed
+     and pretraining paths give it (and VALOR-large's ViT-L rows at C 1024,
+     VideoSwin-B's first stage at C 128 and its last merge at C 2048),
+     bf16 -> bf16 and f32 -> f32 (and the mixed
      pairs at the fusion shape), with its device time (from CUDA graph
      replays) beside the plain version's, ``F.layer_norm``'s and the bytes
      bound, and the host cost a call of the wrapper and of ``F.layer_norm``;
@@ -28,8 +30,9 @@ line:
      question (a short one and one of 40 ids, which no pad cuts);
   6. the LayerNorm backward kernel against its plain version at the shapes
      the pretraining step gives it at batch 32 (and a ragged and a 4096-wide
-     one), bf16 and f32 (and x and dy in different types at the fusion
-     shape), with its device time beside the plain version's,
+     one, and phase 2's ViT-L and VideoSwin rows), bf16 and f32 (and x and
+     dy in different types at the fusion shape), with its device time beside
+     the plain version's,
      the ATen backward of ``F.layer_norm`` (``library_ms``) and the bytes
      bound, the host cost a call of the wrapper and of the ATen backward,
      the grid (one launch a call, one [2, C] partial a block), and dw and db
@@ -45,8 +48,9 @@ line:
      launches equal to the LayerNorms each step runs;
   10. the fine-score kernel (K2) against its plain version at the MSR-VTT
      1k-A shapes of the four fine groups (tva, tv, vta, atv; 1000 x 1000) and
-     the MSCOCO 5k gallery (25000 captions x 5000 images, V = 1), fp32 and tva
-     also bf16, plus the three edge cases of tests/test_pallas.py at D = 512,
+     the MSCOCO 5k gallery (25000 captions x 5000 images, V = 1), and tva at
+     VALOR-large's D = 768, fp32 and tva also bf16, plus the three edge cases
+     of tests/test_pallas.py at D = 512,
      with its device time (CUDA graph replays) beside the plain version's, the
      fp32 GEMM of the same product (``torch.matmul``, TF32 off; a yardstick,
      not the same function), both bounds, and the wrapper's host cost a call;
@@ -168,13 +172,39 @@ line:
      the model after the restore and traced to its source, the first loss
      finite, K1 both ways as counted; it prints each conversion's seconds and
      peak resident size, each taken in a fresh process that only converts;
-  9. every shape that the main paths of phases 4, 8, 12, 14-18 and 20-22
-     handed each kernel is held against the plain version: listed where phase
-     2, 6 or 10 compared it, compared here where they did not.
+  a. the tiny config's MoE (4 experts, every other layer), grouped-query
+     (one K/V head) and VideoSwin (``videoswin_tiny_test``, BERT text)
+     variants on the card against the CPU, fp32 with TF32 off: one
+     pretraining step each to phase 7's tolerances (with ``moe_aux``), and
+     phase 3's greedy and beam-3 sequences and decoder logits;
+  b. MoE pretraining from disk: ``configs/pretrain-valor-base-moe.json``'s
+     first flow (8 experts, top-2, every other fusion layer) through
+     ``cli.train`` on phase 14's dataset at batch 32, 10 steps and
+     ``validate_pt``, as phase 18 without prompts; it prints samples/s against
+     phase 18's, peak memory, ``moe_aux`` a step over its weight and each MoE
+     layer's share of dropped choices, over all tokens and over non-pad
+     tokens;
+  c. VALOR-large pretraining from disk: ``configs/pretrain-valor-large.json``
+     (ViT-L/14, CLIP-L text, task prompts) the same way, at the largest batch
+     of 64, 32, 16 and 8 whose synthetic training step fits on the card;
+  d. VideoSwin caption finetuning from disk: ``configs/caption-msrvtt.json``
+     with ``videoswin_base_k600_22k`` video and BERT text on phase 15's
+     dataset, as phase 15 with 5 steps and one validation (beam 3), at the
+     config's batch 64 or the largest that fits; it prints the Swin widths
+     that K1 saw and its launches at each;
+  e. grouped-query serving: ``configs/caption-valor32k.json`` with 4 of 12
+     cross-attention K/V heads through phase 4's checks at bucket 16, with the
+     cross-K/V cache's bytes against 12 heads; and ``configs/caption-mscoco.json``
+     at 392 px (577 tokens a frame) in memory, phase 8's way: ``cap%tv`` at
+     batch 64 with one frame, one warm-up and ten timed steps;
+  9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22 and
+     b-e handed each kernel is held against the plain version: listed where
+     phase 2, 6 or 10 compared it, compared here where they did not.
 
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
-serve_video, pretraining, retrieval, cli_train, cap_train, qa_train,
-scst_train, infer, weights_train and pt_prompt_train), and as its last line
+serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
+qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
+large_train, swin_cap_train and mscoco_train), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
 
@@ -183,6 +213,12 @@ It exits non-zero without printing them where CUDA is unavailable.
 runs phases 1, 8 and 18 alone in one process, on phase 14's dataset written
 for it (no training run on it): phase 18's rate apart from the phases that
 precede it in a whole run.  It prints no result line.
+
+    python3 chip_smoke.py --families
+
+runs phases 1 and a-e alone, on phase 14's and 15's datasets written for
+them, then phase 9 over the shapes they handed the kernels.  It prints no
+result line.
 """
 
 from __future__ import annotations
@@ -217,6 +253,9 @@ LN_SHAPES = [  # name, rows, cols, eps: what the serving and pretraining paths h
     ("clip_text_32x40", 32 * 40, 512, 1e-5),
     ("fusion_32x40", 32 * 40, 768, 1e-12),
     ("ragged", 1000, 500, 1e-5),
+    ("vit_l14_32x4frames", 32 * 4 * 257, 1024, 1e-5),  # VALOR-large's video tower
+    ("swin_b_stage0_64x4frames", 64 * 4 * 56 * 56, 128, 1e-5),  # VideoSwin-B's first stage
+    ("swin_b_merge2_64x4frames", 64 * 4 * 7 * 7, 2048, 1e-5),  # its last patch merge
 ]
 LN_BWD_SHAPES = [  # name, rows, cols, eps: what the pretraining step at batch 32 hands the backward
     ("vit_b16_32x4frames", 32 * 4 * 197, 768, 1e-5),
@@ -225,6 +264,9 @@ LN_BWD_SHAPES = [  # name, rows, cols, eps: what the pretraining step at batch 3
     ("fusion_32x40", 32 * 40, 768, 1e-12),
     ("ragged", 1000, 500, 1e-5),
     ("wide", 2048, 4096, 1e-5),
+    ("vit_l14_32x4frames", 32 * 4 * 257, 1024, 1e-5),
+    ("swin_b_stage0_64x4frames", 64 * 4 * 56 * 56, 128, 1e-5),
+    ("swin_b_merge2_64x4frames", 64 * 4 * 7 * 7, 2048, 1e-5),
 ]
 # (x dtype, out dtype for the forward or dy dtype for the backward): both kernels
 # take each type on either side; the matched pairs at every shape, the mixed
@@ -241,6 +283,7 @@ FS_SHAPES = [  # name, A, B, T, V, D: what the retrieval evaluation hands the fi
     ("msrvtt_vta", 1000, 1000, 8, 34, 512),  # frames x (32 tokens + 2 clips)
     ("msrvtt_atv", 1000, 1000, 2, 40, 512),  # clips x (32 tokens + 8 frames)
     ("mscoco_5k", 25000, 5000, 32, 1, 512),  # 5 captions an image, one image token
+    ("msrvtt_tva_d768", 1000, 1000, 32, 10, 768),  # VALOR-large's CLIP-L embedding
 ]
 FS_EDGES = [  # name, A, B, T, V: the cases of tests/test_pallas.py::TestFineScoreFused, at D = 512
     ("unaligned", 9, 21, 7, 5), ("negative_rows", 4, 4, 3, 2), ("masked_tokens_zero", 5, 6, 4, 3),
@@ -515,7 +558,8 @@ def phase_layernorm():
 
 
 # -- phase 3 ------------------------------------------------------------------
-def phase_card_vs_cpu():
+def phase_card_vs_cpu(cfg=None):
+    """``cfg`` None is the tiny config; phase a passes its MoE, GQA and VideoSwin variants."""
     import torch
 
     from valor_tpu_torch.eval.generate import Generator, make_fusion_decoder
@@ -523,7 +567,7 @@ def phase_card_vs_cpu():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = tiny_config()
+    cfg = cfg or tiny_config()
     sd = init_params(cfg, seed=0, device="cpu")
     models = {"cpu": load_model(cfg, sd, "cpu"),
               "cuda": load_model(cfg, {k: v.cuda() for k, v in sd.items()}, "cuda")}
@@ -568,6 +612,11 @@ def _stack(items):
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
+def video_tower(model):
+    """The model's video tower: VideoSwin's or CLIP's."""
+    return model.video_encoder if model.is_videoswin else model.clip_vision
+
+
 def expected_ln_launches(model, prompt: bool = False) -> int:
     """LayerNorm launches of one served or validated cap%tva batch: every
     LayerNorm of the two encoders and the adapters once, and every LayerNorm
@@ -580,7 +629,7 @@ def expected_ln_launches(model, prompt: bool = False) -> int:
     def count(*mods):
         return sum(isinstance(x, LayerNorm) for m in mods if m is not None for x in m.modules())
 
-    encode = count(model.clip_vision, model.audio_encoder,
+    encode = count(video_tower(model), model.audio_encoder,
                    getattr(model, "video_adapter_ln", None), getattr(model, "audio_adapter_ln", None))
     step = count(model.multimodal_encoder, model.cls_head) + prompt
     return encode + step * model.cfg.max_generation_len
@@ -840,12 +889,15 @@ def phase_layernorm_bwd():
 
 
 # -- phase 7 ------------------------------------------------------------------
-def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prompts: bool = False):
+def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prompts: bool = False,
+                            cfg_kw=None):
     """One training step of ``task_name`` on the tiny config (fp32,
-    caption_type lm, dropout 0: no random draws) on the card and on the CPU
+    caption_type lm, dropout 0: no random draws; ``cfg_kw`` changes it, as
+    phase a's MoE, GQA and VideoSwin variants) on the card and on the CPU
     from the same weights; a QA task takes a multi-answer batch with
     ``tile_index`` and ``answer_weights`` (``data/synthetic.py:qa_batch``);
     ``prompts`` adds the task prompts of ``use_task_prompt`` to the batch.
+    With MoE layers the losses carry ``moe_aux`` as ``train_step`` adds it.
     Losses within 1e-4; gradients within 1e-4 absolute and relative (fp32
     sums in another order); updated parameters: every element within one
     learning-rate step and 99.9 % within 2 % of one (Adam turns a relative
@@ -857,13 +909,14 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prom
     from valor_tpu_torch.data.synthetic import pretrain_batch, qa_batch
     from valor_tpu_torch.models.bridge import init_params, train_model
     from valor_tpu_torch.ops.kernels import layernorm as K
-    from valor_tpu_torch.ops.layers import RNGStreams, rng_scope
+    from valor_tpu_torch.ops.layers import RNGStreams, rng_scope, sow_scope
     from valor_tpu_torch.train.optimizer import build_optimizer
-    from valor_tpu_torch.train.step import param_grads
+    from valor_tpu_torch.train.step import moe_aux_weight_for, param_grads, with_moe_aux
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(tiny_config(), caption_type="lm", dropout=0.0, use_task_prompt=prompts)
+    cfg = dataclasses.replace(tiny_config(), caption_type="lm", dropout=0.0, use_task_prompt=prompts,
+                              **(cfg_kw or {}))
     lr = 1e-3
     tcfg = TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr, num_train_steps=10, grad_norm=0.5)
     sd = init_params(cfg, seed=0, device="cpu")
@@ -879,7 +932,9 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prom
         batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
         fwd, bwd = K.LAUNCHES, K.LAUNCHES_BWD
         with rng_scope(RNGStreams(0)):
-            losses = model(batch, task)
+            with sow_scope() as sown:
+                losses = model(batch, task)
+            losses = with_moe_aux(losses, sown, moe_aux_weight_for(cfg))
             params = list(model.parameters())
             grads = param_grads(sum(losses.values()), params)
         opt.update(grads)
@@ -902,7 +957,8 @@ def phase_train_card_vs_cpu(device: str = "cuda", task_name: str = PT_TASK, prom
     if device == "cuda" and (launches[0] <= 0 or launches[0] != launches[1]):
         raise AssertionError(f"card training step launched {launches} layernorm kernels (fwd, bwd)")
     grad_err = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
-    out = {"task": task_name, "prompts": sorted(k for k in data if k.startswith("prompt_tokens")),
+    out = {"task": task_name, "cfg_kw": cfg_kw or {},
+           "prompts": sorted(k for k in data if k.startswith("prompt_tokens")),
            "losses_cuda": l_gpu, "losses_cpu": l_cpu, "max_loss_diff": loss_err,
            "max_grad_diff": grad_err, "max_param_diff": float(diff.max()),
            "params_within_2pct_step": within, "layernorm_launches_fwd_bwd": launches}
@@ -934,7 +990,7 @@ def expected_train_ln_launches(model, spec) -> int:
 
     n, adapters = 0, spec.family in ("pt", "cap", "qa")
     if spec.uses_video:
-        n += count(model.clip_vision) + adapters * count(getattr(model, "video_adapter_ln", None))
+        n += count(video_tower(model)) + adapters * count(getattr(model, "video_adapter_ln", None))
     if spec.uses_audio:
         n += count(model.audio_encoder) + adapters * count(getattr(model, "audio_adapter_ln", None))
     prompted = model.cfg.use_task_prompt and spec.family != "qa"
@@ -944,8 +1000,12 @@ def expected_train_ln_launches(model, spec) -> int:
     return n + fusion * (len(spec.caption_groups) + len(spec.mlm_groups))
 
 
-def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str = "cuda"):
-    """``cfg`` None is VALOR-base; a CPU rehearsal passes a tiny config and device "cpu"."""
+def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str = "cuda",
+                   config: str = "pretrain-valor-base.json", task: str = PT_TASK, frames: int = 4,
+                   n_txt: int = 40, label: str = "pretrain"):
+    """``cfg`` None is ``configs/<config>``'s model (VALOR-base pretraining by
+    default; phase e runs ``caption-mscoco.json`` at 392 px on ``cap%tv`` with
+    one frame); a CPU rehearsal passes a tiny config and device "cpu"."""
     import torch
 
     from valor_tpu_torch.core.config import Config, load_config
@@ -957,7 +1017,7 @@ def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str 
     from valor_tpu_torch.train.step import TrainState
     from valor_tpu_torch.train.trainer import Trainer
 
-    full = load_config(str(ROOT / "configs" / "pretrain-valor-base.json"))
+    full = load_config(str(ROOT / "configs" / config))
     cfg = cfg or full.model
     # the schedule spans this run: warm-up to the config's peak rate in the first step
     tcfg = dataclasses.replace(full.train, num_train_steps=steps + 1)
@@ -967,17 +1027,18 @@ def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str 
     model = train_model(cfg, init_params(cfg, seed=0, device=device), device)
     state = TrainState(model, build_optimizer(model, tcfg, cfg.frozen_vision, cfg.frozen_multimodal))
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"VALOR-base pretraining model ({cfg.dtype}, {n_params / 1e6:.1f} M params, "
+    log(f"{config} model ({cfg.dtype}, {n_params / 1e6:.1f} M params, "
         f"remat {cfg.checkpointing}) built in {time.monotonic() - t0:.1f} s")
-    data = pretrain_batch(cfg, batch_size, frames=4, clips=1, n_txt=40, seed=0)
-    per_step = expected_train_ln_launches(model, parse_task(PT_TASK))
+    data = pretrain_batch(cfg, batch_size, frames=frames, clips=1, n_txt=n_txt, seed=0)
+    spec = parse_task(task)
+    per_step = expected_train_ln_launches(model, spec)
     stamps = []
 
     def hook(micro, task_name, metrics):
         sync()
         stamps.append(time.perf_counter())
 
-    trainer = Trainer(Config(model=cfg, train=tcfg), state, [(PT_TASK, data)] * (steps + 1),
+    trainer = Trainer(Config(model=cfg, train=tcfg), state, [(task, data)] * (steps + 1),
                       step_hook=hook)
     sync()
     if cuda:
@@ -1002,17 +1063,16 @@ def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str 
         raise AssertionError(f"layernorm launches (fwd, bwd) {launches} != {steps + 1} steps x {per_step}")
     median = float(np.median(step_s[1:]))
     summary = {
+        "config": f"configs/{config}", "task": task, "frames": frames, "video_resolution": cfg.video_resolution,
         "batch": batch_size, "timed_steps": steps, "median_step_s": median,
         "samples_per_s": batch_size / median, "warmup_step_s": float(step_s[0]),
         "step_s": [float(v) for v in step_s],
         "max_memory_allocated_gib": peak / 2**30, "params_m": n_params / 1e6,
-        "total_loss": totals, "contra_loss": [h[2]["contra_loss"] for h in trainer.history],
-        "caption_loss": [h[2]["caption_loss"] for h in trainer.history],
-        "grad_norm": [h[2]["grad_norm"] for h in trainer.history],
+        "total_loss": totals, **{k: [h[2][k] for h in trainer.history] for k in trainer.history[0][2]},
         "layernorm_launches_fwd_bwd": launches, "per_step": per_step,
         "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
     }
-    log("pretrain " + json.dumps(summary))
+    log(f"{label} " + json.dumps(summary))
     return summary
 
 
@@ -1828,7 +1888,7 @@ def record_batch_rows():
 
 
 def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "cuda", overrides=None,
-                       synthetic=None, out_dir=None):
+                       synthetic=None, out_dir=None, batch_size=None, label=None):
     """``valor_tpu_torch.cli.train`` from disk at the full width of
     ``configs/caption-msrvtt.json`` (``kind`` "cap") or ``configs/qa-msrvtt.json``
     ("qa"), with only the dataset paths (``paths``, a ``data/synthetic.py``
@@ -1839,7 +1899,8 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     ``overrides`` shrink the model for a CPU rehearsal (device "cpu");
     ``synthetic`` is a from-disk summary whose samples/s this run's is set against;
     ``out_dir``, where given, is the run's ``output_dir`` and stays (phase 17
-    takes its weights from phase 15's)."""
+    takes its weights from phase 15's); ``batch_size``, where given, replaces
+    the train flows' (phase d: the largest that fits)."""
     import os
 
     import torch
@@ -1858,6 +1919,8 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
         point_at(raw, paths)
         raw.update(output_dir=out_dir or os.path.join(tmp, "out"), num_train_steps=steps, valid_steps=0,
                    **(overrides or {}))
+        for flow in raw["data_cfg"]["train"] if batch_size else ():
+            flow["batch_size"] = batch_size
 
     with tempfile.TemporaryDirectory(prefix=f"valor_cli_{kind}_") as tmp, \
             cli_run(paths, tmp, name, edit) as cfg_path:
@@ -1943,7 +2006,8 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     summary["output_dir"] = out_dir
     if synthetic:
         summary["retrieval_from_disk_samples_per_s"] = synthetic["samples_per_s"]
-    log(f"cli_{kind} " + json.dumps(summary))
+    summary["model"] = {k: getattr(cfg.model, k) for k in ("video_encoder_type", "txt_encoder_type")}
+    log(f"{label or 'cli_' + kind} " + json.dumps(summary))
     return summary
 
 
@@ -2446,19 +2510,62 @@ def record_pt_validations(sync):
         V.validate_pt = fn0
 
 
+@contextlib.contextmanager
+def record_moe_routing():
+    """Yields a list that fills with (module, kept choices, choices, kept
+    choices of non-pad tokens, choices of non-pad tokens) of every
+    training-mode MoE routing, the counts as device scalars (no
+    synchronisation).  A token is pad where the fusion layer's padding term
+    (its first bias term, [B, 1, 1, S]) masks it as a key."""
+    from valor_tpu_torch.models import bert as B
+    from valor_tpu_torch.ops import moe as M
+    from valor_tpu_torch.ops.layers import NEG_INF
+
+    calls, route0, layer0, valid = [], M.MoEMlpBlock.route, B.BertFusionLayer.forward, [None]
+
+    def layer1(self, x, bias, *args, **kw):
+        pad = bias[0] if isinstance(bias, (tuple, list)) else bias
+        valid[0] = None if pad is None else (pad[:, 0, 0, :] > NEG_INF / 2)
+        return layer0(self, x, bias, *args, **kw)
+
+    def route1(self, x):
+        r = route0(self, x)
+        if self.training:
+            v = valid[0]
+            if v is None or tuple(v.shape) != tuple(x.shape[:2]):
+                raise AssertionError(f"MoE input {tuple(x.shape)} without its padding term")
+            v = v.to(r.keep.dtype)
+            calls.append((self, r.keep.sum(), r.sel.sum(),
+                          (r.keep.sum((0, 3)) * v).sum(), (r.sel.sum((0, 3)) * v).sum()))
+        return r
+
+    M.MoEMlpBlock.route, B.BertFusionLayer.forward = route1, layer1
+    try:
+        yield calls
+    finally:
+        M.MoEMlpBlock.route, B.BertFusionLayer.forward = route0, layer0
+
+
 def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val_batch: int = 64,
-                         device: str = "cuda", overrides=None, synthetic=None):
-    """Prompted pretraining from disk through ``cli.train``'s ``main``:
-    ``configs/pretrain-valor-base.json``'s first train flow
-    (``pt_contra%tva%tv%ta_caption%tva%tv%ta``, 4 frames, 1 clip, 40 tokens,
-    ``video_transforms`` none) with ``use_task_prompt`` on (VALOR-large's
-    setting, at VALOR-base width), pointed at phase 14's dataset (``paths``),
-    at ``batch_size``, and one evaluation flow of the same task over its
-    evaluation ids (the config has none): ``steps`` steps, then
+                         device: str = "cuda", overrides=None, synthetic=None,
+                         config: str = "pretrain-valor-base.json", prompts: bool = True,
+                         label: str = "cli_pt_prompts"):
+    """Pretraining from disk through ``cli.train``'s ``main``: the first train
+    flow of ``configs/<config>`` (phase 18: ``pretrain-valor-base.json``,
+    ``pt_contra%tva%tv%ta_caption%tva%tv%ta``, 4 frames, 1 clip, 40 tokens,
+    ``video_transforms`` none) with ``use_task_prompt`` set to ``prompts``
+    (on in phase 18: VALOR-large's setting, at VALOR-base width; phase b runs
+    ``pretrain-valor-base-moe.json`` without, phase c
+    ``pretrain-valor-large.json`` with), pointed at phase 14's dataset
+    (``paths``), at ``batch_size``, and one evaluation flow of the same task
+    over its evaluation ids (the config has none): ``steps`` steps, then
     ``validate_pt``.  Checks: the training batches carry the prompt arrays of
-    the task, every loss finite, every report key present and finite, one
-    fine-score launch a fine contrastive group, the LayerNorm launches those of
-    the path.  ``overrides`` shrink the run for a CPU rehearsal."""
+    the task (none without prompts), every loss finite, every report key
+    present and finite, one fine-score launch a fine contrastive group, the
+    LayerNorm launches those of the path.  With MoE layers it reports
+    ``moe_aux`` a step over its weight (1 when balanced) and each layer's
+    share of dropped choices, over all tokens and over non-pad tokens.
+    ``overrides`` shrink the run for a CPU rehearsal."""
     import os
 
     import torch
@@ -2483,15 +2590,15 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
         val.update(batch_size=val_batch, epoch=1)
         raw["data_cfg"] = {"train": [flow], "val": [val]}
         raw.update(output_dir=os.path.join(tmp, "pt_out"), num_train_steps=steps, valid_steps=0,
-                   first_eval=False, use_task_prompt=True, **(overrides or {}))
+                   first_eval=False, use_task_prompt=prompts, **(overrides or {}))
 
     with tempfile.TemporaryDirectory(prefix="valor_cli_pt_") as tmp, \
-            cli_run(paths, tmp, "pretrain-valor-base.json", edit) as cfg_path:
+            cli_run(paths, tmp, config, edit) as cfg_path:
         cfg = load_config(cfg_path)
         spec = parse_task(cfg.data_train[0].task)
         with record_trainers(sync, cuda) as runs, record_pt_validations(sync) as evals, \
                 record_batch_keys() as keys, record_ln_calls() as (sigs_fwd, sigs_bwd), \
-                record_fine_calls() as fine_calls:
+                record_fine_calls() as fine_calls, record_moe_routing() as routing:
             with open("/proc/self/statm") as f:  # what earlier phases leave in this process
                 rss0 = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
             threads0, tmp_used0 = sorted(t.name for t in threading.enumerate()), shutil.disk_usage(tmp).used / 2**30
@@ -2511,9 +2618,9 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
 
     rec, history = runs[0], list(trainer.history)
     model = trainer.state.model
-    prompt_keys = ({"prompt_tokens_contra"} if spec.contra_groups else set()) | \
-        ({"prompt_tokens_caption"} if spec.caption_groups else set()) | \
-        {f"prompt_tokens_mlm_{g}" for g in spec.mlm_groups}
+    prompt_keys = (({"prompt_tokens_contra"} if spec.contra_groups else set()) |
+                   ({"prompt_tokens_caption"} if spec.caption_groups else set()) |
+                   {f"prompt_tokens_mlm_{g}" for g in spec.mlm_groups}) if prompts else set()
     if len(keys) != steps or any({k for k in ks if k.startswith("prompt_tokens")} != prompt_keys for ks in keys):
         raise AssertionError(f"training batches' prompt keys {[k for k in keys[0] if 'prompt' in k]}, "
                              f"expected {sorted(prompt_keys)}")
@@ -2540,7 +2647,7 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
     timed = step_s[2:]
     median = float(np.median(timed))
     summary = {
-        "config": "configs/pretrain-valor-base.json (first train flow)", "task": spec.raw, "batch": batch_size,
+        "config": f"configs/{config} (first train flow)", "task": spec.raw, "batch": batch_size,
         "frames": cfg.data_train[0].video_sample_num, "clips": cfg.data_train[0].audio_sample_num,
         "max_txt_len": cfg.data_train[0].max_txt_len, "video_transforms": cfg.data_train[0].datasets[0].video_transforms,
         "use_task_prompt": cfg.model.use_task_prompt, "val_items": n_val, "val_batch": val_batch,
@@ -2562,7 +2669,24 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
     if synthetic:
         summary["in_memory_samples_per_s"] = synthetic["samples_per_s"]
         summary["disk_over_in_memory"] = summary["samples_per_s"] / synthetic["samples_per_s"]
-    log("cli_pt_prompts " + json.dumps(summary))
+    if cfg.model.fusion_moe_experts:
+        from valor_tpu_torch.ops.moe import MoEMlpBlock
+
+        names = {m: n for n, m in model.named_modules() if isinstance(m, MoEMlpBlock)}
+        kept, chosen, kept_tok, chosen_tok = {}, {}, {}, {}
+        for mod, k, n, kt, nt in routing:
+            for acc, val in ((kept, k), (chosen, n), (kept_tok, kt), (chosen_tok, nt)):
+                acc[names[mod]] = acc.get(names[mod], 0.0) + float(val)
+        if sorted(kept) != sorted(names.values()):
+            raise AssertionError(f"MoE layers routed {sorted(kept)}, built {sorted(names.values())}")
+        summary["moe_aux_over_weight"] = [h[2]["moe_aux"] / cfg.model.fusion_moe_aux_weight for h in history]
+        summary["moe_dropped_share"] = {n: 1.0 - kept[n] / chosen[n] for n in sorted(kept)}
+        summary["moe_dropped_share_non_pad"] = {n: 1.0 - kept_tok[n] / chosen_tok[n] for n in sorted(kept)}
+        summary["moe_non_pad_share"] = {n: chosen_tok[n] / chosen[n] for n in sorted(kept)}
+        summary["moe"] = {"experts": cfg.model.fusion_moe_experts, "top_k": cfg.model.fusion_moe_top_k,
+                          "every": cfg.model.fusion_moe_every,
+                          "capacity_factor": cfg.model.fusion_moe_capacity_factor}
+    log(f"{label} " + json.dumps(summary))
     return summary
 
 
@@ -3180,6 +3304,166 @@ def phase_weights_in(cap_paths: dict, steps: int = 5, device: str = "cuda", over
     return summary
 
 
+# -- phases a-e: MoE fusion, grouped-query cross-attention, VideoSwin, VALOR-large, 392 px MSCOCO --
+FAMILIES = {  # phase a's tiny variants
+    "moe": {"fusion_moe_experts": 4, "fusion_moe_every": 2},
+    "gqa": {"fusion_cross_attn_kv_heads": 1},
+    "videoswin": {"video_encoder_type": "videoswin_tiny_test", "txt_encoder_type": "bert_base_uncased",
+                  "init_clip_head": False},
+}
+SWIN_CAPTION = {"video_encoder_type": "videoswin_base_k600_22k", "txt_encoder_type": "bert_base_uncased"}
+
+
+def phase_families_card_vs_cpu(device: str = "cuda"):
+    """Phase a: the tiny MoE, GQA and VideoSwin variants on the card against
+    the CPU, fp32 with TF32 off: one pretraining step each to phase 7's
+    tolerances (losses 1e-4; with MoE the losses carry ``moe_aux``), and
+    greedy and beam-3 ``cap%tva`` sequences equal token for token with the
+    decoder logits within 1e-4 (phase 3's checks)."""
+    out = {}
+    for name, kw in FAMILIES.items():
+        out[name] = phase_train_card_vs_cpu(device, cfg_kw=kw)
+        if device == "cuda":
+            phase_card_vs_cpu(dataclasses.replace(tiny_config(), **kw))
+    return out
+
+
+def largest_batch(config: str, task: str, n_txt: int = 40, overrides=None) -> tuple:
+    """The largest of 64, 32, 16 and 8 at which one training step of
+    ``configs/<config>``'s model (``overrides`` applied) on a synthetic batch
+    of ``task`` (4 frames, 1 clip, ``n_txt`` tokens) fits on the card, tried from the largest, one step each, until
+    one does not run out of memory; and {batch: peak GiB or "out of memory"}.
+    The weights are N(0, 0.02) drawn on the card: only the memory counts."""
+    import torch
+
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.synthetic import pretrain_batch
+    from valor_tpu_torch.models.valor import VALORModel
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState, moe_aux_weight_for, train_step
+
+    candidates = (64, 32, 16, 8)
+    full = load_config(str(ROOT / "configs" / config), overrides)
+    m = full.model
+    model = VALORModel(m, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02)
+    state = TrainState(model.train(), build_optimizer(model, full.train, m.frozen_vision, m.frozen_multimodal))
+    spec, tried, found = parse_task(task), {}, None
+    aux_w = moe_aux_weight_for(m)
+    for b in candidates:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            batch = {k: torch.from_numpy(v).cuda() for k, v in pretrain_batch(m, b, 4, 1, n_txt).items()}
+            train_step(state, batch, spec, 0, full.train.grad_dtype, aux_w)
+            torch.cuda.synchronize()
+            tried[b] = torch.cuda.max_memory_allocated() / 2**30
+            found = b
+        except torch.OutOfMemoryError:
+            tried[b] = "out of memory"
+        batch = None
+        if found:
+            break
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"largest batch of {config} {overrides or ''} on {task}: {found} (peak GiB by batch {tried})")
+    if found is None:
+        raise AssertionError(f"{config}: no batch of {candidates} fits on the card")
+    return found, tried
+
+
+def swin_ln_launches(steps: int, val_batches: int) -> dict:
+    """K1 launches of phase d's VideoSwin tower by width, {C: [forward,
+    backward]}: each of its LayerNorms of width C once a training step both
+    ways and once a validation batch forward (phase d checks that the path's
+    total equals the model's count)."""
+    from collections import Counter
+
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.models.valor import VALORModel
+    from valor_tpu_torch.ops.layers import LayerNorm
+
+    model = VALORModel(load_config(str(ROOT / "configs" / "caption-msrvtt.json"), SWIN_CAPTION).model, "meta")
+    widths = Counter(m.weight.shape[0] for m in model.video_encoder.modules() if isinstance(m, LayerNorm))
+    return {c: [n * (steps + val_batches), n * steps] for c, n in sorted(widths.items())}
+
+
+def phase_gqa_serving(kv_heads: int = 4):
+    """Phase e, serving: ``configs/caption-valor32k.json`` with
+    ``fusion_cross_attn_kv_heads`` ``kv_heads`` (bf16, seeded random weights)
+    through phase 4's checks and rates at bucket 16, and the bytes of a
+    bucket-16 batch's cross-attention K/V cache against the same cache at
+    every head."""
+    import torch
+
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.models.bridge import init_params, load_model
+
+    cfg = load_config(str(ROOT / "configs" / "caption-valor32k.json"),
+                      {"fusion_cross_attn_kv_heads": kv_heads}).model
+    model = load_model(cfg, init_params(cfg, seed=0, device="cuda"), "cuda")
+    summary = phase_serving(model, cfg)
+    batch = _stack(_items(cfg, 16))
+    with torch.inference_mode():
+        v = model.video_fusion_input(model.encode_video(torch.from_numpy(batch["video_pixels"]).cuda()))
+        a = model.audio_fusion_input(model.encode_audio(torch.from_numpy(batch["audio_spectrograms"]).cuda()))
+        kv = model.fusion_cross_kv(v, a)
+    heads = {t.shape[1] for layer in kv for pair in layer.values() for t in pair}
+    if heads != {kv_heads}:
+        raise AssertionError(f"cross-K/V cache heads {heads}, expected {kv_heads}")
+    nbytes = sum(t.numel() * t.element_size() for layer in kv for pair in layer.values() for t in pair)
+    summary.update(kv_heads=kv_heads, heads=cfg.fusion_heads, cross_kv_bytes_bucket16=nbytes,
+                   cross_kv_bytes_at_every_head=nbytes * cfg.fusion_heads // kv_heads)
+    log("gqa_serving " + json.dumps({k: v for k, v in summary.items() if k != "layernorm_calls"}))
+    del model, kv, v, a
+    return summary
+
+
+def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
+    """Phases a-e on phase 14's (``cli_paths``) and phase 15's (``cap_paths``)
+    datasets; ``pt`` is phase 18's summary, which phase b's rate is set
+    against.  Returns {path name: summary}."""
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"families_card_vs_cpu": phase_families_card_vs_cpu()}
+    moe = phase_cli_pt_prompts(cli_paths, config="pretrain-valor-base-moe.json", prompts=False,
+                               label="cli_moe")
+    if pt:
+        moe["phase18_samples_per_s"] = pt["samples_per_s"]
+        moe["over_phase18"] = moe["samples_per_s"] / pt["samples_per_s"]
+    out["moe_train"] = moe
+    free()
+    batch, tried = largest_batch("pretrain-valor-large.json", PT_TASK)
+    out["large_train"] = dict(phase_cli_pt_prompts(cli_paths, batch_size=batch, config="pretrain-valor-large.json",
+                                                   label="cli_large"), batch_probe=tried)
+    free()
+    batch, tried = largest_batch("caption-msrvtt.json", "cap%tva", n_txt=30, overrides=SWIN_CAPTION)
+    swin = phase_cli_finetune("cap", cap_paths, steps=5, batch_size=batch,
+                              overrides=dict(SWIN_CAPTION, first_eval=False), label="cli_swin_cap")
+    swin["batch_probe"] = tried
+    swin["swin_layernorm_widths"] = sorted({c for _, c, eps, *_ in swin["layernorm_calls"] if eps == 1e-5})
+    swin["swin_layernorm_launches_by_width"] = swin_ln_launches(swin["steps"], swin["val_batches"])
+    log("swin " + json.dumps({k: swin[k] for k in ("batch_probe", "swin_layernorm_widths",
+                                                   "swin_layernorm_launches_by_width")}))
+    out["swin_cap_train"] = swin
+    free()
+    out["gqa_serving"] = phase_gqa_serving()
+    free()
+    out["mscoco_train"] = phase_pretrain(batch_size=64, steps=10, config="caption-mscoco.json", task="cap%tv",
+                                         frames=1, n_txt=30, label="mscoco_392")
+    free()
+    return out
+
+
 # -- phase 9 ------------------------------------------------------------------
 def phase_path_shapes(paths, ln_rows, bwd_rows, fs_rows):
     """Every shape that the main paths (``paths``: the summaries of phases 4,
@@ -3233,18 +3517,38 @@ def phase18_alone() -> None:
         phase_cli_pt_prompts(paths, synthetic=pretrain)
 
 
+def families_alone() -> None:
+    """Phases 1 and a-e, on phase 14's and phase 15's datasets written for
+    them (no earlier training run on them), then phase 9 over every shape
+    that they handed the kernels."""
+    import torch
+
+    from valor_tpu_torch.data.synthetic import write_caption_dataset, write_retrieval_dataset
+
+    phase_card_and_build()
+    with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
+        ret = write_retrieval_dataset(os.path.join(tmp, "ret"), n_train=640, n_val=256)
+        cap = write_caption_dataset(os.path.join(tmp, "cap"), 320, 128)
+        paths = phases_families(ret, cap)
+    torch.cuda.empty_cache()
+    phase_path_shapes([v for k, v in paths.items() if k != "families_card_vs_cpu"], [], [], [])
+
+
 def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--phase18"]):
-        print("usage: python3 chip_smoke.py [--phase18]", file=sys.stderr)
+    if args not in ([], ["--phase18"], ["--families"]):
+        print("usage: python3 chip_smoke.py [--phase18 | --families]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if args:
+    if args == ["--phase18"]:
         phase18_alone()
+        return 0
+    if args == ["--families"]:
+        families_alone()
         return 0
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.models.bridge import init_params, load_model
@@ -3302,21 +3606,24 @@ def main(argv=None) -> int:
         shutil.rmtree(cap["output_dir"])
         gc.collect()
         torch.cuda.empty_cache()
+        families = phases_families(cli["paths"], cap["paths"], pt)
         phase_decoder(cli["paths"])
     finally:
         work.cleanup()
-    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, infer, serve_video, weights, pt],
-                               ln_rows, bwd_rows, fs_rows)
+    family_paths = {k: v for k, v in families.items() if k != "families_card_vs_cpu"}
+    shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, infer, serve_video, weights, pt,
+                                *family_paths.values()], ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
     trained = {"pretraining": pretrain, "retrieval": retrieval, "cli_train": cli, "cap_train": cap,
                "qa_train": qa, "scst_train": scst, "infer": infer, "weights_train": weights,
-               "pt_prompt_train": pt}
-    by_path = dict(serving=serving["layernorm_launches"], serve_video=serve_video["layernorm_launches"],
+               "pt_prompt_train": pt, **{k: v for k, v in family_paths.items() if k != "gqa_serving"}}
+    served = {"serving": serving, "serve_video": serve_video, "gqa_serving": family_paths["gqa_serving"]}
+    by_path = dict(**{k: v["layernorm_launches"] for k, v in served.items()},
                    **{k: v["layernorm_launches_fwd_bwd"][0] for k, v in trained.items()})
-    bwd_by_path = dict(serving=0, serve_video=0, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
-    fs_by_path = dict(serving=0, serve_video=0, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
+    bwd_by_path = dict(**{k: 0 for k in served}, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
+    fs_by_path = dict(**{k: 0 for k in served}, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

@@ -210,9 +210,53 @@ def test_released_layout_writers_convert_alike():
     assert all(tuple(full[k].shape) == tuple(target[k].shape) for k in target)
 
 
-def test_videoswin_weights_raise_in_the_port():
-    with pytest.raises(NotImplementedError, match="VideoSwin"):
-        converted_state_dict(TC.convert_videoswin(synth_videoswin_sd()))
+def test_videoswin_weights_convert_into_the_model(tmp_path, monkeypatch):
+    """A VideoSwin file in the released layout (``backbone.*``: two stages of
+    two blocks, window (2, 7, 7), the second block without a qkv bias) under
+    ``$VALOR_PRETRAINED_DIR``, found by the tower's name and converted and
+    adapted into the tiny model by each package
+    (``cli/build.py:initialize_encoder_weights``, through
+    ``converted_state_dict``): the same weights tensor for tensor, every file
+    tensor in the port's tower, and the same video features within 1e-4."""
+    from tests.test_torch_models import jax_layout, jax_shapes
+    from valor_tpu.cli.build import initialize_encoder_weights as jinit
+    from valor_tpu.models import videoswin as jvs
+    from valor_tpu_torch.cli import build as TB
+    from valor_tpu_torch.cli.build import initialize_encoder_weights as tinit
+    from valor_tpu_torch.models import videoswin as tvs
+    from valor_tpu_torch.models.bridge import init_params
+
+    name = "videoswin_base_k600_22k"  # the file name's key; the widths stay tiny
+    swin = dict(embed_dim=8, depths=(2, 2), num_heads=(2, 2), window_size=(2, 7, 7))
+    monkeypatch.setitem(jvs._PRESETS, name, jvs.SwinConfig(**swin))
+    monkeypatch.setitem(tvs._PRESETS, name, tvs.SwinConfig(**swin))
+    d = tmp_path / "pretrained"
+    d.mkdir()
+    file_sd = synth_videoswin_sd()
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in file_sd.items()}},
+               str(d / TB._SWIN_WEIGHTS[name]))
+    monkeypatch.setenv("VALOR_PRETRAINED_DIR", str(d))
+    cfg = tiny_model_config(video_encoder_type=name, txt_encoder_type="bert_base_uncased",
+                            init_clip_head=False, initial_multimodal=False)
+    tcfg = torch_config(cfg)
+    jm = JaxVALOR(cfg)
+    start = init_params(tcfg, 0, "cpu")
+    got = tinit(tcfg, dict(start))
+    jparams = jinit(cfg, jax_layout(start, jax_shapes(jm, TASK)))
+    want = params_from_jax(_np(jparams))
+    assert got.keys() == want.keys() == start.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+    from_file = converted_state_dict(TC.convert_videoswin(file_sd))
+    assert len(from_file) == len(file_sd) and all(k.startswith("video_encoder.") for k in from_file)
+    for k, v in from_file.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    assert got["video_encoder.patch_embed.weight"].shape == (8, 3, 2, 4, 4)
+    video = tiny_batch(seed=4)["video_pixels"]
+    with torch.no_grad():
+        out = load_model(tcfg, got, "cpu").encode_video(torch.from_numpy(video))
+    ref = jm.apply({"params": jparams}, video, method=jm.encode_video)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
 
 
 def _jax_init(cfg):

@@ -170,6 +170,49 @@ def tiny_models(task=PT_TASK, kernel_scale=1.0, **cfg_kw):
     return jm, params, tm
 
 
+def jax_layout(sd, shapes):
+    """The port's ``state_dict`` ``sd`` as a JAX parameter tree of the structure
+    of ``shapes`` (the inverse of ``params_from_jax``, which must name a port
+    parameter for every JAX leaf)."""
+    def leaf(path, shape):
+        *mods, name = [k.key for k in path]
+        key = ".".join(mods + ["weight" if name in ("kernel", "scale", "embedding") else name])
+        t = sd[key].detach().cpu().numpy()
+        if name == "kernel":
+            t = np.ascontiguousarray(t.transpose(tuple(range(2, t.ndim)) + (1, 0)))
+        assert t.shape == tuple(shape.shape), key
+        return t
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_shapes(jm, task=PT_TASK, **batch_kw):
+    """The structure and shapes of a JAX model's parameter tree: ``jax.eval_shape``
+    of its init on ``tiny_batch(**batch_kw)``, which traces and computes nothing."""
+    spec = parse_task(task)
+    return jax.eval_shape(lambda r, b: jm.init(r, b, spec, True, True),
+                          {"params": jax.random.PRNGKey(0), "mask": jax.random.PRNGKey(1)},
+                          tiny_batch(**batch_kw))["params"]
+
+
+def seeded_models(task=PT_TASK, seed=0, res=32, **cfg_kw):
+    """(jax model, jax params, torch model) holding the port's seeded weights
+    (``init_params``, N(0, 1/fan_in) kernels: attention sharp enough that
+    captions follow their media).  The JAX tree's structure comes from
+    ``jax.eval_shape`` of its init, which traces and computes nothing, and
+    ``jax_layout`` fills it: every JAX parameter must have its port
+    counterpart and the two key sets must be equal.  ``res``: the frames'
+    size of the init batch."""
+    from valor_tpu_torch.models.bridge import init_params
+
+    cfg = tiny_model_config(**cfg_kw)
+    jm = JaxVALOR(cfg)
+    sd = init_params(torch_config(cfg), seed, "cpu")
+    params = jax_layout(sd, jax_shapes(jm, task, res=res))
+    assert set(params_from_jax(_np(params))) == set(sd)
+    return jm, params, load_model(torch_config(cfg), sd, "cpu")
+
+
 @pytest.mark.parametrize("fusion_hidden", [32, 48])  # 48: through the adapters
 @torch.no_grad()
 def test_encode_video_uint8_and_fusion_inputs(fusion_hidden):

@@ -377,6 +377,22 @@ def test_long_question_keeps_every_token(tmp_path):
     assert question_prompt(tok, "a cat", pad=32).shape == (32,)
 
 
+@pytest.mark.parametrize("arch", [{"fusion_moe_experts": 4, "fusion_moe_every": 2},
+                                  {"fusion_cross_attn_kv_heads": 1}], ids=["moe", "gqa"])
+def test_engine_serves_the_moe_and_gqa_configs(arch):
+    """The engine needs nothing of its own for MoE fusion layers or
+    grouped-query cross-attention: served rows equal a direct decode (which
+    equals JAX's, tests/test_torch_moe.py and tests/test_torch_gqa.py)."""
+    cfg = torch_config(tiny_model_config(**arch))
+    model = load_model(cfg, init_params(cfg, seed=3, device="cpu"), "cpu")
+    pixels = np.random.RandomState(1).randint(0, 256, size=(4, 2, 32, 32, 3), dtype=np.uint8)
+    direct = _direct(model, pixels)
+    with InferenceEngine(model, ServeConfig(buckets=(4,), max_wait_ms=-1, group="tv", max_len=5)) as eng:
+        results = [f.result(timeout=120) for f in [eng.submit({"video_pixels": p}) for p in pixels]]
+    for i, r in enumerate(results):
+        np.testing.assert_array_equal(r["sequences"], direct[i])
+
+
 def test_serve_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """A ``--checkpoint`` that holds no ``ckpt/step_N`` is an error naming the
     path, never random weights served (F5's serving half: the JAX package

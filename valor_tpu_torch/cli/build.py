@@ -150,13 +150,11 @@ _BERT_WEIGHTS = "bert-base-uncased.bin"
 
 
 def converted_state_dict(tree) -> Dict[str, Any]:
-    """A converted flax-layout tree (``models/convert.py``) as ``state_dict``
-    entries (``models/bridge.py:params_from_jax``).  VideoSwin weights raise:
-    the port has no VideoSwin tower yet."""
+    """A converted flax-layout tree (``models/convert.py``: CLIP, VideoSwin's
+    ``video_encoder``, AST, BERT) as ``state_dict`` entries
+    (``models/bridge.py:params_from_jax``)."""
     from valor_tpu_torch.models.bridge import params_from_jax
 
-    if "video_encoder" in tree:
-        raise NotImplementedError("VideoSwin weights: the port has no VideoSwin tower yet")
     return params_from_jax(tree)
 
 

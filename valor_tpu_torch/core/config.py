@@ -118,7 +118,7 @@ class ModelConfig:
     # per-layer media K/V to this many heads (must divide fusion_heads),
     # each serving a group of query heads.  Cuts cross-attn K/V activation
     # bytes, their backward residuals, and the decode cross-KV cache by
-    # heads/kv_heads (ops/layers.py _grouped_attention).  0 = full
+    # heads/kv_heads (ops/layers.py dot_product_attention).  0 = full
     # multi-head (reference parity).
     fusion_cross_attn_kv_heads: int = 0
     fusion_moe_aux_weight: float = 0.01  # Switch load-balance loss weight

@@ -40,7 +40,9 @@ def pretrain_batch(cfg: ModelConfig, batch: int, frames: int = 4, clips: int = 1
                    n_txt: int = 40, seed: int = 0) -> Dict[str, np.ndarray]:
     rng = np.random.RandomState(seed)
     lengths = rng.randint(max(3, n_txt // 2), n_txt + 1, size=batch)
-    clip_vocab = text_preset(cfg.video_encoder_type).vocab_size
+    clip_name = next((n for n in (cfg.video_encoder_type, cfg.txt_encoder_type) if n.startswith("clip")),
+                     "clip_vit_base_16")  # CLIP ids are unused where neither tower is CLIP
+    clip_vocab = text_preset(clip_name).vocab_size
     bert = np.zeros((batch, n_txt), np.int64)
     clip = np.zeros((batch, n_txt), np.int64)
     for i, n in enumerate(lengths):

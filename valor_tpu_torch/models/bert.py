@@ -7,7 +7,11 @@
     output before its projection, and on the FFN output, as the JAX package.
   * Post-norm BertFusionLayer with optional per-layer cross-attention to video
     and audio in four topologies: va_concate, va_parallel, video_audio,
-    audio_video.
+    audio_video.  ``cross_attn_kv_heads`` > 0 projects the cross-attention K/V
+    to that many heads (grouped-query attention), and ``moe_experts`` > 0 swaps
+    the FFN of every ``moe_every``-th layer for ``ops.moe.MoEMlpBlock``
+    (``moe_mlp``), whose load-balancing aux each call sows
+    (``ops.layers.sow``).
   * BertFusionEncoder: [text | prompt | video | audio] input assembly with the
     bidirectional, causal-prefix or full-masker mask; video and audio join the
     sequence only when cross-attention is off.  ``cross_kv_list`` carries the
@@ -26,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from valor_tpu_torch.ops.layers import (
-    Dense, LayerNorm, MlpBlock, MultiHeadAttention, _param, dropout, run_layer,
+    Dense, LayerNorm, MlpBlock, MultiHeadAttention, _param, dropout, run_layer, sow,
 )
+from valor_tpu_torch.ops.moe import MoEMlpBlock
 from valor_tpu_torch.ops.masks import concat_key_mask, fusion_attention_bias_terms
 
 CROSS_ATTN_TYPES = ("va_concate", "va_parallel", "video_audio", "audio_video")
@@ -45,6 +50,11 @@ class BertConfig:
     dropout: float = 0.1  # hidden and attention dropout, in training mode only
     has_cross_attn: bool = False
     cross_attn_type: Optional[str] = None  # one of CROSS_ATTN_TYPES
+    moe_experts: int = 0  # > 0: a top-k MoE FFN on every moe_every-th layer
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_every: int = 1  # 1 = every layer, 2 = every other
+    cross_attn_kv_heads: int = 0  # > 0: grouped-query cross-attention K/V heads
 
 
 class BertEmbeddings(nn.Module):
@@ -81,9 +91,9 @@ class _ResidualAttn(nn.Module):
     """attention -> dense -> LN(residual): BertSelfOutput / BertCrossOutput."""
 
     def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, kv_heads: int = 0):
         super().__init__()
-        self.attn = MultiHeadAttention(width, num_heads, dtype, device, dropout)
+        self.attn = MultiHeadAttention(width, num_heads, dtype, device, dropout, kv_heads)
         self.ln = LayerNorm(width, 1e-12, dtype, device)
 
     def forward(self, x, kv, bias=None, extra_kv=None):
@@ -94,7 +104,7 @@ class _ResidualAttn(nn.Module):
 
 
 class BertFusionLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None, layer_idx: int = 0):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
@@ -103,12 +113,20 @@ class BertFusionLayer(nn.Module):
         if c.has_cross_attn:
             if c.cross_attn_type not in CROSS_ATTN_TYPES:
                 raise ValueError(f"unknown cross_attn_type {c.cross_attn_type!r}")
+            kvh = c.cross_attn_kv_heads
+            if kvh and h % kvh:
+                raise ValueError(f"{h} heads not divisible by {kvh} kv heads")
             if c.cross_attn_type == "va_concate":
-                self.cross_attn = _ResidualAttn(w, h, dtype, device, c.dropout)
+                self.cross_attn = _ResidualAttn(w, h, dtype, device, c.dropout, kvh)
             else:
-                self.cross_attn_v = _ResidualAttn(w, h, dtype, device, c.dropout)
-                self.cross_attn_a = _ResidualAttn(w, h, dtype, device, c.dropout)
-        self.mlp = MlpBlock(w, c.intermediate, "gelu", dtype, device)
+                self.cross_attn_v = _ResidualAttn(w, h, dtype, device, c.dropout, kvh)
+                self.cross_attn_a = _ResidualAttn(w, h, dtype, device, c.dropout, kvh)
+        self.use_moe = c.moe_experts > 0 and layer_idx % c.moe_every == c.moe_every - 1
+        if self.use_moe:
+            self.moe_mlp = MoEMlpBlock(w, c.moe_experts, c.intermediate, c.moe_top_k,
+                                       c.moe_capacity_factor, "gelu", dtype, device)
+        else:
+            self.mlp = MlpBlock(w, c.intermediate, "gelu", dtype, device)
         self.out_ln = LayerNorm(w, 1e-12, dtype, device)
 
     def compute_cross_kv(self, video_feat, audio_feat) -> dict:
@@ -170,7 +188,12 @@ class BertFusionLayer(nn.Module):
                     feat = video_feat if mod == "v" else audio_feat
                     if feat is not None:
                         x = getattr(self, f"cross_attn_{mod}")(x, feat)
-        return self.out_ln(x + dropout(self.mlp(x), c.dropout, self.training))
+        if self.use_moe:
+            h, aux = self.moe_mlp(x)
+            sow(aux)
+        else:
+            h = self.mlp(x)
+        return self.out_ln(x + dropout(h, c.dropout, self.training))
 
 
 class BertFusionEncoder(nn.Module):
@@ -184,7 +207,7 @@ class BertFusionEncoder(nn.Module):
         self.remat = remat
         self.embeddings = BertEmbeddings(cfg, dtype, device)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", BertFusionLayer(cfg, dtype, device))
+            self.add_module(f"layer_{i}", BertFusionLayer(cfg, dtype, device, i))
 
     @property
     def layers(self):

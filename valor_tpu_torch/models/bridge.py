@@ -3,19 +3,24 @@
 ``params_from_jax`` takes the flax parameter tree of ``valor_tpu`` as nested
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``, made by
 the caller) and returns the port's ``state_dict``.  The port names its modules
-as the flax tree does, so a path maps one to one; three leaves change layout:
+as the flax tree does, so a path maps one to one; these leaves change layout:
 
   * a flax ``Dense`` (and ``_KVDense``) kernel is [in, out]; a torch linear
     weight is [out, in];
   * a flax ``Conv`` kernel is [kh, kw, in, out] over NHWC input; a torch conv
     weight is [out, in, kh, kw];
+  * a flax 3D ``Conv`` kernel (VideoSwin's patch embed) is [kt, kh, kw, in,
+    out] over NDHWC input; a torch conv3d weight is [out, in, kt, kh, kw];
   * a flax ``LayerNorm`` ``scale`` and an ``Embed`` ``embedding`` are torch's
     ``weight``.
 
 Raw parameters keep their name and layout: the CLIP text tower's
 ``token_embedding``, ``positional_embedding`` and ``prompt_embedding``, the
 CLIP projections ``visual_proj`` and ``text_proj`` ([width, embed_dim], not
-transposed) and the scalars ``logit_scale`` and ``contra_temp``.
+transposed), the scalars ``logit_scale`` and ``contra_temp``, the MoE layers'
+``router`` [M, E] and expert stacks ``w1`` [E, M, H], ``b1`` [E, H], ``w2``
+[E, H, M], ``b2`` [E, M], and VideoSwin's ``relative_position_bias_table``
+[(2wd-1)(2wh-1)(2ww-1), heads].
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
         elif leaf in ("scale", "embedding"):
@@ -65,9 +72,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch
     Drawn on the CPU from one ``torch.Generator`` in ``state_dict`` order, so a
     seed gives the same weights on every device; then moved to ``device`` (the
     CUDA card when None).  LayerNorm scales are 1 and biases 0; matmul and
-    conv weights are N(0, 1/fan_in), which keeps activations at unit scale so
-    that the attention is sharp and each caption depends on its media, and so
-    are the CLIP projections ([in, out]); embeddings are N(0, 0.02).  The
+    conv weights (2D and 3D) are N(0, 1/fan_in), which keeps activations at
+    unit scale so that the attention is sharp and each caption depends on its
+    media, and so are the CLIP projections ([in, out]), the MoE router
+    ([M, E]) and expert stacks (``w1`` N(0, 1/M), ``w2`` N(0, 1/H)); the
+    expert biases are 0; embeddings and VideoSwin's relative-position bias
+    tables are N(0, 0.02).  The
     temperatures start where the JAX package starts them: ``logit_scale`` at
     log(1/0.07) and ``contra_temp`` at 0.07 (a N(0, 0.02) draw would put the
     temperature near 1 and flatten the contrastive loss)."""
@@ -86,9 +96,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch
                 t = torch.full(p.shape, math.log(1 / 0.07))
             elif p_name == "contra_temp":
                 t = torch.full(p.shape, 0.07)
-            elif p_name in ("visual_proj", "text_proj"):
+            elif p_name in ("visual_proj", "text_proj", "router"):
                 t = torch.empty(p.shape).normal_(0.0, p.shape[0] ** -0.5, generator=gen)
-            elif p_name in ("bias", "decoder_bias"):
+            elif p_name in ("w1", "w2"):  # [E, in, out]
+                t = torch.empty(p.shape).normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif p_name in ("bias", "decoder_bias", "b1", "b2"):
                 t = torch.zeros(p.shape)
             elif p_name == "weight":  # Dense [out, in] or conv [out, in, kh, kw]
                 fan_in = p.numel() // p.shape[0]

@@ -1,9 +1,13 @@
 """VALOR model (counterpart of ``valor_tpu/models/valor.py``).
 
-Builds the CLIP vision and text towers and their projections, the AST audio
-tower, the BERT fusion encoder and its prediction head, the contrastive heads
-and fine-grained token weights, the adapters and the frame and type
-embeddings.  Caption generation calls ``encode_video``, ``encode_audio``,
+Builds the video tower (CLIP vision, or VideoSwin), the CLIP text tower where
+either tower is CLIP (from the CLIP video preset, else from the text one) and,
+with a CLIP video tower, the CLIP projections (beside a VideoSwin tower the JAX
+package creates no CLIP vision or projection parameters), the AST audio tower,
+the BERT fusion encoder (with MoE FFNs and grouped-query cross-attention where
+the config asks) and its prediction head, the contrastive heads and
+fine-grained token weights, the adapters and the frame and type embeddings.
+Caption generation calls ``encode_video``, ``encode_audio``,
 ``video_fusion_input``, ``audio_fusion_input``, ``fusion_logits`` and
 ``fusion_cross_kv`` (or, without cross-attention, ``fusion_ctx_kv`` and
 ``fusion_logits_ctx``); training calls the model on a batch and a task
@@ -19,7 +23,8 @@ groups; ``forward_qa`` the answer loss of the QA collate's tiled rows
 ``answer_weights`` weighs the rows, normalised by the question count).
 
 Batch convention: video_pixels [B, n_frames, H, W, 3] (float, or raw uint8
-normalised here), audio_spectrograms [B, n_clips, melbins, target_length],
+normalised here with CLIP's statistics for a CLIP video tower and ImageNet's
+otherwise), audio_spectrograms [B, n_clips, melbins, target_length],
 bert_tokens / clip_tokens [B, N] with pad id 0.  Token masking draws from the
 "mask" stream and dropout from the "dropout" stream of the enclosing
 ``ops.layers.rng_scope``; dropout runs in training mode only.
@@ -38,12 +43,13 @@ from valor_tpu_torch.core.config import ModelConfig
 from valor_tpu_torch.core.device import resolve_device, torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.data.fbank import fbank_clips_from_spans
-from valor_tpu_torch.data.pipeline import CLIP_MEAN, CLIP_STD
+from valor_tpu_torch.data.pipeline import CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD
 from valor_tpu_torch.models.ast import ASTConfig, ASTEncoder
 from valor_tpu_torch.models.bert import BertConfig, BertFusionEncoder, BertPredictionHead
 from valor_tpu_torch.models.clip import (
     CLIPProjections, CLIPTextTransformer, CLIPVisionTransformer, text_preset, vision_preset,
 )
+from valor_tpu_torch.models.videoswin import SwinTransformer3D, swin_preset
 from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param, current_rng, remat_for
 from valor_tpu_torch.ops.masking import full_mask, lm_shift_labels, mask_tokens
 from valor_tpu_torch.tasks import losses as L
@@ -85,28 +91,35 @@ class VALORModel(nn.Module):
         c = self.cfg = cfg
         dev = resolve_device(device)
         dtype = self.dtype = torch_dtype(c.dtype)
-        if not c.video_encoder_type.startswith("clip"):
-            raise NotImplementedError(
-                f"video_encoder_type {c.video_encoder_type!r}: only the CLIP towers are ported")
         if not c.audio_encoder_type.startswith("ast"):
             raise NotImplementedError(f"audio_encoder_type {c.audio_encoder_type!r} (only 'ast')")
-        if c.fusion_moe_experts or c.fusion_cross_attn_kv_heads:
-            raise NotImplementedError("MoE and grouped-query fusion layers are not ported yet")
 
         def remat(which: str) -> bool:
             return remat_for(c.checkpointing, c.remat_scope, which)
 
+        self.is_clip_video = c.video_encoder_type.startswith("clip")
         self.is_clip_text = c.txt_encoder_type.startswith("clip")
-        vp = vision_preset(c.video_encoder_type, c.video_resolution)
-        tp = text_preset(c.video_encoder_type)
-        if c.clip_vision_layers:
-            vp = dataclasses.replace(vp, layers=c.clip_vision_layers)
-        if c.clip_text_layers:
-            tp = dataclasses.replace(tp, layers=c.clip_text_layers)
-        self.clip_vision = CLIPVisionTransformer(vp, dtype, dev, remat("vision"))
-        self.clip_text = CLIPTextTransformer(tp, dtype, dev, remat("text"))
-        self.clip_proj = CLIPProjections(vp.width, tp.width, tp.embed_dim, dev)
-        self.video_dim = vp.width
+        self.is_videoswin = c.video_encoder_type.startswith("videoswin")
+        if not (self.is_clip_video or self.is_videoswin):
+            raise ValueError(f"unknown video_encoder_type {c.video_encoder_type!r}")
+        if self.is_clip_video or self.is_clip_text:
+            clip_name = c.video_encoder_type if self.is_clip_video else c.txt_encoder_type
+            vp = vision_preset(clip_name, c.video_resolution)
+            tp = text_preset(clip_name)
+            if c.clip_vision_layers:
+                vp = dataclasses.replace(vp, layers=c.clip_vision_layers)
+            if c.clip_text_layers:
+                tp = dataclasses.replace(tp, layers=c.clip_text_layers)
+            if self.is_clip_video:
+                self.clip_vision = CLIPVisionTransformer(vp, dtype, dev, remat("vision"))
+                self.clip_proj = CLIPProjections(vp.width, tp.width, tp.embed_dim, dev)
+            self.clip_text = CLIPTextTransformer(tp, dtype, dev, remat("text"))
+            self.video_dim = vp.width
+            self.txt_dim = tp.width
+        if self.is_videoswin:
+            self.video_encoder = SwinTransformer3D(swin_preset(c.video_encoder_type), dtype, dev,
+                                                   remat("vision"))
+            self.video_dim = self.video_encoder.cfg.num_features
 
         ast_cfg = ASTConfig(
             hidden_size=c.audio_hidden, layers=c.audio_layers, heads=c.audio_heads,
@@ -123,23 +136,26 @@ class VALORModel(nn.Module):
             intermediate=c.fusion_intermediate, dropout=c.dropout,
             has_cross_attn=c.multimodal_use_cross_attn,
             cross_attn_type=c.cross_attn_type if c.multimodal_use_cross_attn else None,
+            moe_experts=c.fusion_moe_experts, moe_top_k=c.fusion_moe_top_k,
+            moe_every=c.fusion_moe_every, moe_capacity_factor=c.fusion_moe_capacity_factor,
+            cross_attn_kv_heads=c.fusion_cross_attn_kv_heads,
         )
         self.multimodal_encoder = BertFusionEncoder(self.bert_cfg, dtype, dev, remat("fusion"))
         h = self.multimodal_dim = c.fusion_hidden
         self.cls_head = BertPredictionHead(h, c.fusion_vocab, dtype, dev)
 
         # text encoder of the contrastive objective: the CLIP text tower, or a
-        # BERT without cross-attention (the fusion encoder itself when shared)
-        self.txt_dim = tp.width
+        # dense BERT without cross-attention (the fusion encoder itself when shared)
         if not self.is_clip_text:
             self.txt_dim = h
             if not c.share_txt_and_multimodal:
                 self.txt_encoder = BertFusionEncoder(
-                    dataclasses.replace(self.bert_cfg, has_cross_attn=False, cross_attn_type=None),
+                    dataclasses.replace(self.bert_cfg, has_cross_attn=False, cross_attn_type=None,
+                                        moe_experts=0),
                     dtype, dev, remat("text"))
 
-        # contrastive heads
-        self.use_clip_head = self.is_clip_text and c.init_clip_head
+        # contrastive heads: CLIP's projections only where both towers are CLIP
+        self.use_clip_head = self.is_clip_video and self.is_clip_text and c.init_clip_head
         if self.use_clip_head:
             contra_dim = tp.embed_dim
         else:
@@ -166,9 +182,9 @@ class VALORModel(nn.Module):
         if self.audio_dim != h:
             self.audio_adapter = Dense(self.audio_dim, h, dtype=dtype, device=dev)
             self.audio_adapter_ln = LayerNorm(h, 1e-12, dtype, dev)
-        self.register_buffer(
-            "pixel_stats", torch.tensor(np.stack([CLIP_MEAN, CLIP_STD]), device=dev),
-            persistent=False)
+        stats = (CLIP_MEAN, CLIP_STD) if self.is_clip_video else (IMAGENET_MEAN, IMAGENET_STD)
+        self.register_buffer("pixel_stats", torch.tensor(np.stack(stats), device=dev),
+                             persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -183,11 +199,16 @@ class VALORModel(nn.Module):
 
     # -- encoders ----------------------------------------------------------
     def encode_video(self, video_pixels: torch.Tensor) -> torch.Tensor:
-        """[B, n, H, W, 3] -> [B, n, 1 + g*g, C].  Raw uint8 pixels are
-        normalised here, (x/255 - mean)/std in fp32, then cast."""
+        """[B, n, H, W, 3] -> [B, n, 1 + g*g, C] (CLIP: every frame's tokens)
+        or [B, D', H'W', C] (VideoSwin: the feature volume's time steps).  Raw
+        uint8 pixels are normalised here, (x/255 - mean)/std in fp32, then cast."""
         if video_pixels.dtype == torch.uint8:
             mean, std = self.pixel_stats
             video_pixels = ((video_pixels.float() / 255.0 - mean) / std).to(self.dtype)
+        if self.is_videoswin:
+            out = self.video_encoder(video_pixels)
+            bb, d, hh, ww, cc = out.shape
+            return out.reshape(bb, d, hh * ww, cc)
         b, n = video_pixels.shape[:2]
         out = self.clip_vision(video_pixels.reshape((b * n,) + tuple(video_pixels.shape[2:])))
         return out.reshape(b, n, out.shape[1], out.shape[2])
@@ -219,7 +240,7 @@ class VALORModel(nn.Module):
         return feature
 
     def pool_video(self, feature, contra_type=None):
-        feature = feature[:, :, 0]
+        feature = feature.mean(2) if self.is_videoswin else feature[:, :, 0]
         return feature.mean(1) if (contra_type or self.cfg.contra_type) == "coarse" else feature
 
     def pool_audio(self, feature, contra_type=None):
@@ -293,8 +314,9 @@ class VALORModel(nn.Module):
         return self.clip_proj.project_visual(pooled) if self.use_clip_head else self.contra_head_v(pooled)
 
     def temperature(self) -> torch.Tensor:
-        """CLIP's learned logit scale (the video tower is always CLIP here)."""
-        return self.clip_proj.temperature()
+        """CLIP's learned logit scale with a CLIP video tower, otherwise the
+        learned scalar ``contra_temp``."""
+        return self.clip_proj.temperature() if self.is_clip_video else self.contra_temp
 
     def contra_features(self, txt_tokens, video_output, audio_output,
                         prompt_tokens=None) -> Dict[str, Any]:

@@ -131,10 +131,35 @@ def remat_for(checkpointing: bool, remat_scope: str, which: str) -> bool:
     return "all" in tokens or which in tokens
 
 
+_SOWN = threading.local()  # .values: the enclosing sow_scope's list, per thread
+
+
+@contextlib.contextmanager
+def sow_scope() -> Iterator[list]:
+    """Collect, inside the block and in this thread, every value that a module
+    hands ``sow`` (the MoE layers' load-balancing aux), one a module call, as
+    flax's ``sow`` into a mutable collection does; yields the list."""
+    prev = getattr(_SOWN, "values", None)
+    _SOWN.values = []
+    try:
+        yield _SOWN.values
+    finally:
+        _SOWN.values = prev
+
+
+def sow(value: torch.Tensor) -> None:
+    """Hand ``value`` to the enclosing ``sow_scope``; nothing outside one."""
+    values = getattr(_SOWN, "values", None)
+    if values is not None:
+        values.append(value)
+
+
 def run_layer(layer: nn.Module, remat: bool, *args):
     """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is set
     and autograd records.  A training layer draws its dropout from streams of
-    its own, forked here, which the recompute draws again."""
+    its own, forked here, which the recompute draws again.  A checkpointed
+    layer returns what it sows beside its output, so the values of the forward
+    reach the enclosing ``sow_scope`` once and the recompute's go nowhere."""
     rng = getattr(_RNG, "streams", None)
     fn = layer
     if layer.training and rng is not None:
@@ -145,7 +170,14 @@ def run_layer(layer: nn.Module, remat: bool, *args):
                 return layer(*a)
 
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        def sowing(*a):
+            with sow_scope() as values:
+                return fn(*a), values
+
+        out, values = checkpoint(sowing, *args, use_reentrant=False)
+        for v in values:
+            sow(v)
+        return out
     return fn(*args)
 
 
@@ -219,25 +251,33 @@ def _terms(bias: BiasTerms) -> Tuple[torch.Tensor, ...]:
 
 def dot_product_attention(
     q: torch.Tensor,  # [B, H, Q, D]
-    k: torch.Tensor,  # [B, H, K, D]
-    v: torch.Tensor,  # [B, H, K, D]
-    bias: BiasTerms = None,  # additive terms, each broadcastable to [B, H, Q, K]
+    k: torch.Tensor,  # [B, Hk, K, D], Hk divides H
+    v: torch.Tensor,  # [B, Hk, K, D]
+    bias: BiasTerms = None,  # additive terms, each [B|1, 1|H, Q|1, K]
     dtype=torch.float32,
 ) -> torch.Tensor:
-    """Masked scaled-dot-product attention.
+    """Masked scaled-dot-product attention, grouped-query where K/V have
+    fewer heads than the queries: query head h reads K/V head h // (H / Hk)
+    (Hk = H is full multi-head attention).  The queries of a group are
+    stacked as rows, [B, Hk, G*Q, D], so each K/V head serves its group in
+    one product and K/V are never repeated to the full head count.
 
     Scores are computed in fp32 (products of the compute-dtype inputs,
     accumulated in fp32), scaled, and each additive bias term is added in
     turn; the fp32 softmax is cast to the compute dtype for the product
     with V."""
-    if k.shape[1] != q.shape[1]:
-        raise NotImplementedError("grouped-query attention is not ported yet")
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores / math.sqrt(q.shape[-1])
+    b, h, qlen, depth = q.shape
+    hk = k.shape[1]
+    if h % hk:
+        raise ValueError(f"{h} query heads not divisible by {hk} kv heads")
+    g = h // hk
+    scores = torch.matmul(q.reshape(b, hk, g * qlen, depth).float(), k.float().transpose(-1, -2))
+    scores = (scores / math.sqrt(depth)).reshape(b, hk, g, qlen, -1)
     for term in _terms(bias):
-        scores = scores + term.float()
-    probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs.to(dtype), v)
+        term = term.float()
+        scores = scores + (term.unsqueeze(2) if term.shape[1] == 1 else term.unflatten(1, (hk, g)))
+    probs = torch.softmax(scores, dim=-1).to(dtype).reshape(b, hk, g * qlen, -1)
+    return torch.matmul(probs, v).reshape(b, h, qlen, depth)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -253,19 +293,25 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with additive bias terms and caller-managed K/V.
 
-    ``extra_kv`` = (k, v), each [B, H, E, D], is appended to the keys and
+    ``extra_kv`` = (k, v), each [B, Hk, E, D], is appended to the keys and
     values projected from ``kv_in``; with ``kv_in=None`` the keys and values
-    come from ``extra_kv`` alone (the decode path's cross-attention cache)."""
+    come from ``extra_kv`` alone (the decode path's cross-attention cache).
+    ``kv_heads`` (0: ``num_heads``) below ``num_heads`` projects K and V to
+    ``kv_heads`` heads of the same head width, each serving a group of query
+    heads; at ``num_heads`` the parameters are those of full multi-head
+    attention."""
 
     def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, kv_heads: int = 0):
         super().__init__()
         self.num_heads = num_heads
+        self.kv_heads = kv_heads or num_heads
         self.dtype = dtype
         self.dropout = dropout
+        kv_width = width // num_heads * self.kv_heads
         self.query = Dense(width, width, dtype=dtype, device=device)
-        self.key = Dense(width, width, dtype=dtype, device=device)
-        self.value = Dense(width, width, dtype=dtype, device=device)
+        self.key = Dense(width, kv_width, dtype=dtype, device=device)
+        self.value = Dense(width, kv_width, dtype=dtype, device=device)
         self.out = Dense(width, width, dtype=dtype, device=device)
 
     def forward(
@@ -277,8 +323,7 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         qh = split_heads(self.query(q_in), self.num_heads)
         if kv_in is not None:
-            kh = split_heads(self.key(kv_in), self.num_heads)
-            vh = split_heads(self.value(kv_in), self.num_heads)
+            kh, vh = self.compute_kv(kv_in)
             if extra_kv is not None:
                 ek, ev = extra_kv
                 kh = torch.cat([kh, ek.to(kh.dtype)], dim=2)
@@ -293,8 +338,8 @@ class MultiHeadAttention(nn.Module):
     def compute_kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Project and split K/V for caching (no attention)."""
         return (
-            split_heads(self.key(kv_in), self.num_heads),
-            split_heads(self.value(kv_in), self.num_heads),
+            split_heads(self.key(kv_in), self.kv_heads),
+            split_heads(self.value(kv_in), self.kv_heads),
         )
 
 

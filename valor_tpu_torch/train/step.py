@@ -1,7 +1,9 @@
 """One training step (counterpart of ``valor_tpu/train/step.py``).
 
 ``train_step`` runs the loss-dict forward of one (task, batch) pair in the
-seeded random streams of its micro-step, sums the losses in float32, takes
+seeded random streams of its micro-step, adds ``moe_aux`` (the weight times the
+mean of the load-balancing aux that the MoE layers sowed, one value a layer
+call) where a weight is given, sums the losses in float32, takes
 every parameter's gradient, casts the gradients to ``grad_dtype`` and hands
 them to the optimizer.  The JAX step returns a new state; this one updates the
 model, the optimizer and ``state.step`` in place.  Its three parts run in
@@ -22,7 +24,7 @@ from torch.profiler import record_function
 
 from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
-from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope
+from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope, sow_scope
 from valor_tpu_torch.tasks.scst import scst_loss
 from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
@@ -62,6 +64,22 @@ def param_grads(total: torch.Tensor, params) -> list:
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
+def moe_aux_weight_for(model_cfg) -> float:
+    """The weight of ``moe_aux``: ``fusion_moe_aux_weight`` where the fusion
+    stack has MoE layers, else 0."""
+    return model_cfg.fusion_moe_aux_weight if model_cfg.fusion_moe_experts > 0 else 0.0
+
+
+def with_moe_aux(losses: Dict[str, torch.Tensor], sown: list, weight: float) -> Dict[str, torch.Tensor]:
+    """``losses`` with ``moe_aux``, the weight times the mean of the aux that
+    the MoE layers sowed (one value a layer call), where a weight is given
+    and something was sown.  The mean over MoE layer calls keeps the balance
+    strength per layer whatever ``fusion_moe_every`` and the layer count."""
+    if not (weight and sown):
+        return losses
+    return dict(losses, moe_aux=weight * (sum(a.float() for a in sown) / len(sown)))
+
+
 def train_step(
     state: TrainState, batch: Dict[str, Any], task: TaskSpec, seed: int,
     grad_dtype: Optional[str] = None, moe_aux_weight: float = 0.0,
@@ -69,14 +87,14 @@ def train_step(
     """Forward, backward and optimizer update of one micro-batch.  Returns the
     losses, ``total_loss`` and the gradients' global norm, as device scalars:
     nothing here waits for the device."""
-    if moe_aux_weight:
-        raise NotImplementedError("the MoE load-balancing loss: MoE layers are not ported yet")
     model = state.model
     params = [p for p in model.parameters()]
     fwd, bwd, upd = RANGES
     with rng_scope(RNGStreams(_mix(seed, state.step))):
         with record_function(fwd):
-            losses = model(batch, task, True, True)
+            with sow_scope() as sown:
+                losses = model(batch, task, True, True)
+            losses = with_moe_aux(losses, sown, moe_aux_weight)
             total = sum(v.float() for v in losses.values())
         with record_function(bwd):
             grads = cast_grads(param_grads(total, params), grad_dtype)

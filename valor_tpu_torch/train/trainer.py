@@ -14,7 +14,9 @@ flight to the card, copied on a side stream while the step runs; a list of
 pairs is moved step by step.  A resumed state starts at its ``step``, counted
 in micro-batches.  At each log point the meters go to ``TB_LOGGER`` too, with
 the data-stall share (host time blocked on the input pipeline over the
-window); ``data_wait_s`` keeps that host time over the whole run.
+window); ``data_wait_s`` keeps that host time over the whole run.  With MoE
+fusion layers (``fusion_moe_experts`` > 0) every step's losses carry
+``moe_aux``, weighted by ``fusion_moe_aux_weight``.
 
 SCST finetuning (``scst_finetuning`` on a ``cap`` task; reference
 model/pretrain.py:741-791) runs ``scst_step`` in place of ``train_step``: the
@@ -44,7 +46,9 @@ from valor_tpu_torch.eval.scorer import AdaptiveAlpha, Scorer
 from valor_tpu_torch.eval.validate import eval_mode
 from valor_tpu_torch.models.valor import EOS_TOKEN
 from valor_tpu_torch.ops.layers import _mix
-from valor_tpu_torch.train.step import TrainState, scst_update, to_device, train_step
+from valor_tpu_torch.train.step import (
+    TrainState, moe_aux_weight_for, scst_update, to_device, train_step,
+)
 
 
 class Trainer:
@@ -84,6 +88,7 @@ class Trainer:
         self._pending: list = []
         self.scorer = scorer
         self.alpha = AdaptiveAlpha()
+        self.moe_aux_weight = moe_aux_weight_for(cfg.model)
 
     def _meter(self, name: str) -> RunningMeter:
         if name not in self.meters:
@@ -133,7 +138,7 @@ class Trainer:
                 metrics = self.scst_step(to_device(batch, self.device), batch.get("ids"), spec)
             else:
                 metrics = train_step(self.state, to_device(batch, self.device), spec, t.seed,
-                                     grad_dtype=t.grad_dtype)
+                                     grad_dtype=t.grad_dtype, moe_aux_weight=self.moe_aux_weight)
             micro += 1
             self._pending.append((micro, task_name, metrics))
             if self.step_hook is not None:
