@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, a-e, 19, 9; any
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, a-e, f, 19, 9; any
 failure ends the run with a traceback and a non-zero exit code, and no result
 line:
 
@@ -197,14 +197,33 @@ line:
      cross-K/V cache's bytes against 12 heads; and ``configs/caption-mscoco.json``
      at 392 px (577 tokens a frame) in memory, phase 8's way: ``cap%tv`` at
      batch 64 with one frame, one warm-up and ten timed steps;
-  9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22 and
-     b-e handed each kernel is held against the plain version: listed where
+  f. data parallelism across processes (``valor_tpu_torch/parallel``), one
+     card: (i) the tiny config, fp32, TF32 off: 2 gloo ranks of 4 rows against
+     1 process of 8 for one ``pt`` step with dropout and masks drawn (every
+     loss, the grad norm and every updated parameter within 1e-5) and
+     ``validate_ret`` over 9 items (reports equal); (ii) ``python -m
+     torch.distributed.run --standalone --nproc_per_node 2`` of ``cli.train``
+     with ``--dist_backend gloo``, both ranks on the card:
+     ``configs/pretrain-valor-base.json``'s first flow on phase 14's dataset,
+     global batch 32, 5 steps, ``validate_pt`` over the 256 evaluation ids;
+     per rank and in all samples/s (two processes sharing one card: no
+     scaling), peak memory, the gradient all-reduce's ms a step and bytes, K1
+     and K2 launches as counted, equal losses and reports; (iii) the same path
+     at ``--nproc_per_node 1 --dist_backend nccl``, 3 steps, its losses within
+     1e-6 of a plain one-process run of the same batches (a dataset that draws
+     nothing on the host), and the NCCL all-reduce's ms a step.  Each rank is
+     ``cli.train``'s ``main`` inside this script (``--ddp-worker``), which
+     counts its launches and times its all-reduce; a rank's failure or the
+     launcher's nonzero exit fails the run;
+  9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22, b-e
+     and f handed each kernel is held against the plain version: listed where
      phase 2, 6 or 10 compared it, compared here where they did not.
 
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
 serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
 qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
-large_train, swin_cap_train and mscoco_train), and as its last line
+large_train, swin_cap_train, mscoco_train, ddp_train (both ranks of phase
+f (ii)) and ddp_nccl_train (phase f (iii)'s NCCL run)), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
 
@@ -219,6 +238,12 @@ precede it in a whole run.  It prints no result line.
 runs phases 1 and a-e alone, on phase 14's and 15's datasets written for
 them, then phase 9 over the shapes they handed the kernels.  It prints no
 result line.
+
+    python3 chip_smoke.py --ddp
+
+runs phases 1 and f alone, on phase 14's 256 evaluation ids (and 160 training
+ids) written for it, then phase 9 over the shapes phase f handed the kernels.
+It prints no result line.
 """
 
 from __future__ import annotations
@@ -293,8 +318,12 @@ FS_EDGES = [  # name, A, B, T, V: the cases of tests/test_pallas.py::TestFineSco
 FS_TOL = "abs 1e-5 + rel 1e-5"
 
 
+T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on its own line, after the seconds since the script started."""
+    print(f"[{time.monotonic() - T0:7.1f} s] {msg}", flush=True)
 
 
 def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
@@ -2483,24 +2512,19 @@ def record_batch_keys():
 @contextlib.contextmanager
 def record_pt_validations(sync):
     """Yields a list that fills with (items, seconds between two
-    synchronisations, report) of every ``validate_pt`` call."""
+    synchronisations, report) of every ``validate_pt`` call (a rank's items
+    across processes)."""
     from valor_tpu_torch.eval import validate as V
 
     calls, fn0 = [], V.validate_pt
 
     def fn1(model, step_fn, loader, *a, **kw):
-        items = [0]
-
-        def counted(it):
-            for b in it:
-                items[0] += len(b["ids"])
-                yield b
-
+        counted = _Counted(loader)
         sync()
         t0 = time.perf_counter()
-        report = fn0(model, step_fn, counted(loader), *a, **kw)
+        report = fn0(model, step_fn, counted, *a, **kw)
         sync()
-        calls.append((items[0], time.perf_counter() - t0, report))
+        calls.append((counted.items, time.perf_counter() - t0, report))
         return report
 
     V.validate_pt = fn1
@@ -2546,6 +2570,24 @@ def record_moe_routing():
         M.MoEMlpBlock.route, B.BertFusionLayer.forward = route0, layer0
 
 
+def first_pt_flow(raw: dict, paths: dict, out_dir: str, steps: int, batch_size: int, val_batch, prompts: bool,
+                  overrides=None) -> None:
+    """A pretraining config ``raw`` cut to its first train flow, pointed at
+    phase 14's dataset (``paths``) at ``batch_size``, and with ``val_batch``
+    one evaluation flow of the same task over its evaluation ids (none where
+    None): ``steps`` steps, ``use_task_prompt`` set to ``prompts``."""
+    flow = raw["data_cfg"]["train"][0]
+    flow["datasets"][0].update(ids_path=paths["train_ids"], txt=paths["train_txt"],
+                               video=paths["frames"], audio=paths["audio"])
+    flow["batch_size"] = batch_size
+    val = json.loads(json.dumps(flow))
+    val["datasets"][0].update(ids_path=paths["val_ids"], txt=paths["val_txt"])
+    val.update(batch_size=val_batch, epoch=1)
+    raw["data_cfg"] = {"train": [flow], "val": [val] if val_batch else []}
+    raw.update(output_dir=out_dir, num_train_steps=steps, valid_steps=0, first_eval=False,
+               use_task_prompt=prompts, **(overrides or {}))
+
+
 def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val_batch: int = 64,
                          device: str = "cuda", overrides=None, synthetic=None,
                          config: str = "pretrain-valor-base.json", prompts: bool = True,
@@ -2581,16 +2623,7 @@ def phase_cli_pt_prompts(paths: dict, steps: int = 10, batch_size: int = 32, val
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     def edit(raw):
-        flow = raw["data_cfg"]["train"][0]
-        flow["datasets"][0].update(ids_path=paths["train_ids"], txt=paths["train_txt"],
-                                   video=paths["frames"], audio=paths["audio"])
-        flow["batch_size"] = batch_size
-        val = json.loads(json.dumps(flow))
-        val["datasets"][0].update(ids_path=paths["val_ids"], txt=paths["val_txt"])
-        val.update(batch_size=val_batch, epoch=1)
-        raw["data_cfg"] = {"train": [flow], "val": [val]}
-        raw.update(output_dir=os.path.join(tmp, "pt_out"), num_train_steps=steps, valid_steps=0,
-                   first_eval=False, use_task_prompt=prompts, **(overrides or {}))
+        first_pt_flow(raw, paths, os.path.join(tmp, "pt_out"), steps, batch_size, val_batch, prompts, overrides)
 
     with tempfile.TemporaryDirectory(prefix="valor_cli_pt_") as tmp, \
             cli_run(paths, tmp, config, edit) as cfg_path:
@@ -3464,6 +3497,411 @@ def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
     return out
 
 
+# -- phase f: data parallelism across processes ------------------------------------
+DDP_WORLD = 2
+DDP_TOL = 1e-5  # phase f (i), absolute and relative: fp32 with TF32 off, sums in another order
+NCCL_TOL = 1e-6  # phase f (iii): one NCCL rank against one process, the same arithmetic
+
+
+def _take(batch: dict, rows) -> dict:
+    """Rows ``rows`` of every array and list of a batch."""
+    return {k: ([v[i] for i in rows] if isinstance(v, list) else v[rows]) for k, v in batch.items()}
+
+
+def ddp_tiny_step(cfg, batch: dict, gallery: dict, eval_batch: int, shard: int = 0, n_shards: int = 1,
+                  device: str = "cuda") -> dict:
+    """Phase f (i) on one rank (or one process): one ``pt`` step on ``batch``
+    (dropout and unimlm masks drawn, an AdamW update) and ``validate_ret``
+    over this shard's batches of ``gallery``, on the card, fp32, TF32 off."""
+    import torch
+
+    from valor_tpu_torch.core.config import TrainConfig
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.loader import ShardedBatchSampler
+    from valor_tpu_torch.eval.validate import validate_ret
+    from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.ops.kernels import layernorm as K
+    from valor_tpu_torch.train.optimizer import build_optimizer, global_norm
+    from valor_tpu_torch.train.step import eval_step, losses_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr = 1e-3
+    model = train_model(cfg, init_params(cfg, seed=0, device=device), device)
+    opt = build_optimizer(model, TrainConfig(learning_rate=lr, clip_lr=lr, clip_lr_text=lr,
+                                             num_train_steps=10, grad_norm=0.5))
+    fwd = K.LAUNCHES
+    metrics, grads = losses_and_grads(model, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                      parse_task(PT_TASK), 11)
+    opt.update(grads)
+    out = {"losses": {k: float(v) for k, v in metrics.items()}, "grad_norm": float(global_norm(grads)),
+           "params": [p.detach().cpu() for p in model.parameters()], "layernorm_launches": K.LAUNCHES - fwd}
+    n = len(gallery["ids"])
+    sampler = ShardedBatchSampler(n, eval_batch, shard, n_shards, shuffle=False)
+    out["report"] = validate_ret(model, eval_step, [_take(gallery, idx) for idx in sampler],
+                                 parse_task(RET_TASK), cfg.contra_type)
+    return out
+
+
+def _ddp_tiny_rank(cfg, shards, gallery, eval_batch, device) -> dict:
+    from valor_tpu_torch.parallel import mesh as P
+
+    dp = P.init_data_parallel("gloo", device)
+    return dict(ddp_tiny_step(cfg, shards[dp.rank], gallery, eval_batch, dp.rank, dp.world, device),
+                device=str(dp.device), backend=dp.backend)
+
+
+def phase_ddp_tiny(device: str = "cuda") -> dict:
+    """Phase f (i): the tiny config, fp32, on the card: 2 gloo ranks of 4 rows
+    (``parallel/launch.py:run_local``, each rank rows r::2 of the global
+    batch) against 1 process of 8, one ``pt`` step with dropout and masks
+    drawn; every loss, the grad norm and every updated parameter within
+    ``DDP_TOL`` (absolute and relative, as the tests' ``assert_allclose``);
+    ``validate_ret`` over 9 items (5 and 4 a rank, the last batch ragged)
+    equal to one process's report."""
+    import torch
+
+    from valor_tpu_torch.data.synthetic import pretrain_batch, retrieval_batch
+    from valor_tpu_torch.parallel.launch import run_local
+
+    cfg = dataclasses.replace(tiny_config(), dropout=0.1, caption_type="unimlm")
+    batch = pretrain_batch(cfg, 8, frames=2, clips=1, n_txt=8, seed=21)
+    gallery = retrieval_batch(cfg, 9, frames=2, clips=1, n_txt=8, seed=22)
+    t0 = time.monotonic()
+    one = ddp_tiny_step(cfg, batch, gallery, 4, device=device)
+    ranks = run_local(_ddp_tiny_rank, DDP_WORLD, cfg, [_take(batch, slice(r, None, DDP_WORLD))
+                                                       for r in range(DDP_WORLD)], gallery, 2, device, timeout=300)
+    rank_device = "cuda:0" if device == "cuda" else device
+    errs = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}  # max |a - b|
+    worst = 0.0  # max |a - b| - DDP_TOL * |b|: within DDP_TOL as np.allclose(rtol=atol=DDP_TOL) reads it
+
+    def off(a, b):
+        return float((a - b).abs().max()), float(((a - b).abs() - DDP_TOL * b.abs()).max())
+
+    for r in ranks:
+        if r["backend"] != "gloo" or r["device"] != rank_device or r["losses"].keys() != one["losses"].keys():
+            raise AssertionError(f"phase f (i) rank ran {r['backend']} on {r['device']}, losses {r['losses']}")
+        pairs = {"loss": [(torch.tensor(r["losses"][k]), torch.tensor(v)) for k, v in one["losses"].items()],
+                 "grad_norm": [(torch.tensor(r["grad_norm"]), torch.tensor(one["grad_norm"]))],
+                 "param": list(zip(r["params"], one["params"]))}
+        for what, ab in pairs.items():
+            for a, b in ab:
+                e, w = off(a, b)
+                errs[what], worst = max(errs[what], e), max(worst, w)
+        if r["report"] != one["report"]:
+            raise AssertionError(f"phase f (i) validate_ret of a rank {r['report']} != one process's {one['report']}")
+        if r["layernorm_launches"] != one["layernorm_launches"] or (device == "cuda") != bool(r["layernorm_launches"]):
+            raise AssertionError(f"phase f (i) K1 launches {r['layernorm_launches']} != {one['layernorm_launches']}")
+    if worst > DDP_TOL:
+        raise AssertionError(f"phase f (i): 2 ranks x 4 against 1 x 8 differ by {errs} (tolerance {DDP_TOL} "
+                             "absolute and relative)")
+    out = {"world": DDP_WORLD, "backend": "gloo", "losses": one["losses"], "grad_norm": one["grad_norm"],
+           "max_abs_err": errs, "tolerance": DDP_TOL, "report": one["report"], "seconds": time.monotonic() - t0}
+    log("ddp tiny " + json.dumps(out))
+    return out
+
+
+class _Counted:
+    """A loader's batches, counting their items, with its ``sampler``
+    (``validate_pt`` reads it for the evaluation shards)."""
+
+    def __init__(self, loader):
+        self.loader, self.items = loader, 0
+        self.sampler = getattr(loader, "sampler", None)
+
+    def __iter__(self):
+        for b in self.loader:
+            self.items += len(b["ids"])
+            yield b
+
+
+def ddp_worker(out_dir: str, argv) -> int:
+    """One process of phase f under ``torch.distributed.run`` (or alone):
+    ``cli.train``'s ``main(argv)`` with this smoke's recorders, the kernel
+    counts set to 0 just before it and read just after, the gradient
+    all-reduce timed between two synchronisations; writes
+    ``<out_dir>/rank<RANK>.json``.  Flags first: ``--deterministic`` runs under
+    ``torch.use_deterministic_algorithms``, ``--no-save`` writes no checkpoint
+    (the run still waits at the save's barrier).  The process's standard error
+    (its native libraries' too) goes to ``<out_dir>/rank<RANK>.err``, with the
+    Python stacks of every thread should the process die on a signal."""
+    import faulthandler
+    import signal
+
+    err = open(os.path.join(out_dir, f"rank{os.environ.get('RANK', 0)}.err"), "w", buffering=1)
+    os.dup2(err.fileno(), 2)
+    faulthandler.enable(err, all_threads=True)
+    faulthandler.register(signal.SIGTERM, err, all_threads=True, chain=True)  # where the launcher stopped it
+
+    import torch
+    import torch.distributed as dist
+
+    from valor_tpu_torch.cli.train import main as train_main
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.ops.kernels import fine_score as K2
+    from valor_tpu_torch.ops.kernels import layernorm as K
+    from valor_tpu_torch.parallel import collectives as C
+
+    from valor_tpu_torch.train.checkpoints import ModelSaver
+
+    flags = set()
+    while argv[:1] and argv[0] in ("--deterministic", "--no-save"):
+        flags.add(argv.pop(0))
+    deterministic = "--deterministic" in flags
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    if "--no-save" in flags:
+        ModelSaver._write = lambda self, state, step, best_name: None
+    cuda = "--device" not in argv or argv[argv.index("--device") + 1].startswith("cuda")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reduce0, reduces, group = C.all_reduce_mean_, [], {}
+
+    def reduce1(tensors):
+        if not dist.is_initialized():  # one process: nothing to reduce
+            return reduce0(tensors)
+        sync()
+        t0 = time.perf_counter()
+        n = reduce0(tensors)
+        sync()
+        reduces.append(((time.perf_counter() - t0) * 1e3, n))
+        group.setdefault("backend", dist.get_backend())
+        return n
+
+    cfg = load_config(argv[argv.index("--config") + 1])
+    spec = parse_task(cfg.data_train[0].task)
+    C.all_reduce_mean_ = reduce1
+    try:
+        with record_trainers(sync, cuda) as runs, record_ln_calls() as (sigs_fwd, sigs_bwd), \
+                record_fine_calls() as fine_calls, record_pt_validations(sync) as calls:
+            K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
+            trainer = train_main(argv)
+            launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+    finally:
+        C.all_reduce_mean_ = reduce0
+    rec, history = runs[0], list(trainer.history)
+    model = trainer.state.model
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    step_s = np.diff([rec["start"]] + rec["stamps"])
+    local_batch = cfg.data_train[0].batch_size // world
+    median = float(np.median(step_s[1:])) if len(step_s) > 1 else float(step_s[0])
+    out = {
+        "rank": rank, "world": world, "backend": group.get("backend", "none (one process)"),
+        "device": str(model.device), "deterministic": deterministic, "steps": len(history),
+        "local_batch": local_batch, "global_batch": cfg.data_train[0].batch_size,
+        "step_s": [float(v) for v in step_s], "median_step_s": median,
+        "samples_per_s_rank": local_batch / median, "samples_per_s_global": local_batch * world / median,
+        "max_memory_allocated_gib": rec["peak"] / 2**30,
+        "losses": {k: [h[2][k] for h in history] for k in history[0][2]},
+        "allreduce_ms": [t for t, _ in reduces], "allreduce_bytes": sorted({n for _, n in reduces}),
+        "param_bytes_fp32": 4 * sum(p.numel() for p in model.parameters()),
+        "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "ln_per_step": expected_train_ln_launches(model, spec),
+        "validations": [{"items": n, "seconds": t, "report": rep} for n, t, rep in calls],
+        "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+    }
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_ranks(nproc, cfg_path: str, out_dir: str, backend=None, deterministic=False, timeout=600,
+              device: str = "cuda", save: bool = True) -> list:
+    """``ddp_worker`` in ``nproc`` ranks under ``python -m torch.distributed.run
+    --standalone`` (``nproc`` None: one process, no launcher); a nonzero exit
+    of the launcher, or of the process, fails the phase, and at ``timeout``
+    the whole process group is killed.  Returns each rank's summary."""
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    worker = [str(ROOT / "chip_smoke.py"), "--ddp-worker", out_dir] + (["--deterministic"] if deterministic else [])
+    worker += [] if save else ["--no-save"]
+    worker += ["--config", cfg_path] + (["--dist_backend", backend] if backend else [])
+    worker += [] if device == "cuda" else ["--device", device]
+    launcher = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"] if nproc else []
+    log_path = os.path.join(out_dir, "launcher.log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, *launcher, *worker], stdout=logf, stderr=subprocess.STDOUT,
+                                process_group=0, cwd=str(ROOT))
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)  # nothing it started outlives it
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        for r in range(nproc or 1):  # each rank's own last words come last
+            err_path = os.path.join(out_dir, f"rank{r}.err")
+            if os.path.exists(err_path):
+                with open(err_path, errors="replace") as f:
+                    tail += f"\n--- rank {r} standard error, its end ---\n" + f.read()[-4000:]
+        raise AssertionError(f"{'launcher' if nproc else 'process'} exit {rc}:\n{tail}")
+    out = []
+    for r in range(nproc or 1):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_ddp_base(paths: dict, steps: int = 5, batch_size: int = 32, val_batch: int = 64, pt=None,
+                   device: str = "cuda", overrides=None) -> dict:
+    """Phase f (ii): ``configs/pretrain-valor-base.json``'s first flow from
+    phase 14's dataset (``paths``) through ``cli.train`` under ``python -m
+    torch.distributed.run --standalone --nproc_per_node 2 ... --dist_backend
+    gloo``, both ranks on the one card: global batch ``batch_size`` (half a
+    rank), ``steps`` steps, then ``validate_pt`` over the evaluation ids.
+    Checks: every loss finite and the same on both ranks (the global batch's),
+    the gradient all-reduce's bytes those of the model's fp32 parameters, the
+    K1 launches of the path on each rank (as phase 18 counts them a step), one
+    K2 launch a fine group on each rank, and equal ``validate_pt`` reports."""
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.core.tasks import parse_task
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="valor_ddp_") as tmp, \
+            cli_run(paths, tmp, "pretrain-valor-base.json",
+                    lambda raw: first_pt_flow(raw, paths, os.path.join(tmp, "out"), steps, batch_size, val_batch,
+                                              False, overrides)) as cfg_path:
+        cfg = load_config(cfg_path)
+        ranks = run_ranks(DDP_WORLD, cfg_path, os.path.join(tmp, "ranks"), backend="gloo", timeout=900,
+                          device=device)
+        ckpts = sorted(os.listdir(os.path.join(tmp, "out", "ckpt")))
+    spec = parse_task(cfg.data_train[0].task)
+    with open(paths["val_ids"]) as f:
+        n_val = len(json.load(f))
+    fine_groups = spec.contra_groups if cfg.model.contra_type == "fine" else ()
+    reports = [r["validations"][0]["report"] if len(r["validations"]) == 1 else None for r in ranks]
+    for r in ranks:
+        per_step = r["ln_per_step"]
+        val_batches = -(-r["validations"][0]["items"] // (val_batch // DDP_WORLD))
+        want = (per_step * (steps + val_batches), per_step * steps, len(fine_groups)) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["backend"], r["device"]) != (DDP_WORLD, "gloo", "cuda:0" if device == "cuda" else device) \
+                or r["steps"] != steps:
+            raise AssertionError(f"phase f (ii) rank {r['rank']}: {r['world']} ranks, {r['backend']} on "
+                                 f"{r['device']}, {r['steps']} steps")
+        if not all(np.isfinite(v) for vs in r["losses"].values() for v in vs) or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"phase f (ii) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
+        if r["allreduce_bytes"] != [r["param_bytes_fp32"]] or len(r["allreduce_ms"]) != steps:
+            raise AssertionError(f"phase f (ii) gradient all-reduce {r['allreduce_bytes']} bytes in "
+                                 f"{len(r['allreduce_ms'])} calls, parameters {r['param_bytes_fp32']}")
+        if got != want:
+            raise AssertionError(f"phase f (ii) rank {r['rank']} launches (ln fwd, ln bwd, fine_score) {got} != {want}")
+        if reports[0] is None or r["validations"][0]["report"] != reports[0] \
+                or not all(np.isfinite(v) for v in reports[0].values()):
+            raise AssertionError(f"phase f (ii) validate_pt reports differ or are missing: {reports}")
+    if sum(r["validations"][0]["items"] for r in ranks) != n_val or ckpts != [f"step_{steps}"]:
+        raise AssertionError(f"phase f (ii): {[r['validations'][0]['items'] for r in ranks]} evaluation items "
+                             f"of {n_val}, checkpoints {ckpts}")
+    step_s = float(np.median([r["median_step_s"] for r in ranks]))
+    summary = {
+        "config": "configs/pretrain-valor-base.json (first train flow)", "task": spec.raw,
+        "launch": f"python -m torch.distributed.run --standalone --nproc_per_node {DDP_WORLD} "
+                  "-m valor_tpu_torch.cli.train ... --dist_backend gloo (through this script's --ddp-worker)",
+        "ranks_on_one_card": DDP_WORLD, "global_batch": batch_size, "steps": steps, "val_items": n_val,
+        "samples_per_s_all": batch_size / step_s,
+        "samples_per_s_by_rank": [r["samples_per_s_rank"] for r in ranks],
+        "median_step_s_by_rank": [r["median_step_s"] for r in ranks],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in ranks],
+        "allreduce_ms_median_by_rank": [float(np.median(r["allreduce_ms"])) for r in ranks],
+        "allreduce_ms_by_rank": [r["allreduce_ms"] for r in ranks],
+        "allreduce_bytes_a_step": ranks[0]["allreduce_bytes"][0],
+        "params": ranks[0]["param_bytes_fp32"] // 4,
+        "ln_per_step": ranks[0]["ln_per_step"], "phase18_ln_per_step": (pt or {}).get("ln_per_step"),
+        "layernorm_launches_fwd_bwd_by_rank": [r["layernorm_launches_fwd_bwd"] for r in ranks],
+        "fine_score_launches_by_rank": [r["fine_score_launches"] for r in ranks],
+        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in ranks], "report": reports[0],
+        "losses": ranks[0]["losses"], "seconds": time.monotonic() - t0,
+        "layernorm_launches_fwd_bwd": [sum(r["layernorm_launches_fwd_bwd"][i] for r in ranks) for i in (0, 1)],
+        "fine_score_launches": sum(r["fine_score_launches"] for r in ranks),
+        "layernorm_calls": sorted({tuple(c) for r in ranks for c in r["layernorm_calls"]}),
+        "layernorm_bwd_calls": sorted({tuple(c) for r in ranks for c in r["layernorm_bwd_calls"]}),
+        "fine_score_calls": sorted({tuple(c) for r in ranks for c in r["fine_score_calls"]}),
+    }
+    if pt:
+        summary["phase18_samples_per_s"] = pt["samples_per_s"]
+    log("ddp base " + json.dumps({k: v for k, v in summary.items() if not k.endswith("_calls")}))
+    return summary
+
+
+def phase_ddp_nccl(steps: int = 3, batch_size: int = 32, device: str = "cuda", backend: str = "nccl",
+                   overrides=None, fixture=None) -> dict:
+    """Phase f (iii): the same path at ``--nproc_per_node 1 --dist_backend
+    nccl`` (the gradient all-reduce through NCCL) against a plain one-process
+    ``cli.train`` run of the same batches, both under
+    ``torch.use_deterministic_algorithms``: every loss of every step within
+    ``NCCL_TOL``.  Its dataset draws nothing at random on the host (one caption
+    an id, 4 frames and one audio clip an item), so the two runs train on the
+    same batches; neither writes its checkpoint (phase f (ii) saves)."""
+    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="valor_nccl_") as tmp:
+        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=steps * batch_size, n_val=8,
+                                        **dict(dict(n_frames=4, wav_seconds=4.0, captions_per_train_id=1),
+                                               **(fixture or {})))
+        runs = {}
+        for name, nproc, group in (("nccl", 1, backend), ("plain", None, None)):
+            with cli_run(paths, tmp, "pretrain-valor-base.json",
+                         lambda raw: first_pt_flow(raw, paths, os.path.join(tmp, f"out_{name}"), steps, batch_size,
+                                                   None, False, overrides)) as cfg_path:
+                runs[name], = run_ranks(nproc, cfg_path, os.path.join(tmp, name), backend=group,
+                                        deterministic=True, timeout=600, device=device, save=False)
+    nccl, plain = runs["nccl"], runs["plain"]
+    if (nccl["backend"], nccl["world"], len(nccl["allreduce_ms"])) != (backend, 1, steps) or plain["allreduce_ms"]:
+        raise AssertionError(f"phase f (iii): {nccl['backend']} at {nccl['world']} ranks, "
+                             f"{len(nccl['allreduce_ms'])} NCCL all-reduces; the plain run "
+                             f"{len(plain['allreduce_ms'])}")
+    if nccl["losses"].keys() != plain["losses"].keys() or nccl["steps"] != steps:
+        raise AssertionError(f"phase f (iii) losses {nccl['losses']} against {plain['losses']}")
+    err = max(abs(a - b) for k in plain["losses"] for a, b in zip(nccl["losses"][k], plain["losses"][k]))
+    if err > NCCL_TOL or not all(np.isfinite(v) for vs in nccl["losses"].values() for v in vs):
+        raise AssertionError(f"phase f (iii) NCCL losses differ from one process's by {err}: "
+                             f"{nccl['losses']} against {plain['losses']}")
+    summary = {
+        "launch": "python -m torch.distributed.run --standalone --nproc_per_node 1 -m valor_tpu_torch.cli.train "
+                  "... --dist_backend nccl (through this script's --ddp-worker)",
+        "steps": steps, "batch": batch_size, "max_abs_loss_err": err, "tolerance": NCCL_TOL,
+        "losses": nccl["losses"], "allreduce_ms": nccl["allreduce_ms"],
+        "allreduce_ms_median": float(np.median(nccl["allreduce_ms"])),
+        "allreduce_bytes_a_step": nccl["allreduce_bytes"][0],
+        "samples_per_s": nccl["samples_per_s_global"], "plain_samples_per_s": plain["samples_per_s_global"],
+        "max_memory_allocated_gib": nccl["max_memory_allocated_gib"],
+        "plain_max_memory_allocated_gib": plain["max_memory_allocated_gib"], "seconds": time.monotonic() - t0,
+        "layernorm_launches_fwd_bwd": nccl["layernorm_launches_fwd_bwd"],
+        "fine_score_launches": nccl["fine_score_launches"],
+        "layernorm_calls": nccl["layernorm_calls"], "layernorm_bwd_calls": nccl["layernorm_bwd_calls"],
+        "fine_score_calls": nccl["fine_score_calls"],
+    }
+    if summary["layernorm_launches_fwd_bwd"] != [nccl["ln_per_step"] * steps * (device == "cuda")] * 2:
+        raise AssertionError(f"phase f (iii) launches {summary['layernorm_launches_fwd_bwd']}, "
+                             f"{nccl['ln_per_step']} a step")
+    log("ddp nccl " + json.dumps({k: v for k, v in summary.items() if not k.endswith("_calls")}))
+    return summary
+
+
+def phase_ddp(paths: dict, pt=None) -> dict:
+    """Phase f: (i), (ii) and (iii); {path name: summary}."""
+    import torch
+
+    t0 = time.monotonic()
+    free, total = torch.cuda.mem_get_info()
+    with open("/proc/meminfo") as f:
+        host_free = next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith("MemAvailable"))
+    log(f"phase f starts: card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, this process holding "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB; host {host_free / 2**30:.2f} GiB available; "
+        f"{shutil.disk_usage(tempfile.gettempdir()).free / 2**30:.2f} GiB free in {tempfile.gettempdir()}")
+    out = {"ddp_tiny": phase_ddp_tiny(), "ddp_train": phase_ddp_base(paths, pt=pt), "ddp_nccl_train": phase_ddp_nccl()}
+    log(f"phase f took {time.monotonic() - t0:.1f} s")
+    return out
+
+
 # -- phase 9 ------------------------------------------------------------------
 def phase_path_shapes(paths, ln_rows, bwd_rows, fs_rows):
     """Every shape that the main paths (``paths``: the summaries of phases 4,
@@ -3534,12 +3972,27 @@ def families_alone() -> None:
     phase_path_shapes([v for k, v in paths.items() if k != "families_card_vs_cpu"], [], [], [])
 
 
+def ddp_alone() -> None:
+    """Phases 1 and f, on a dataset of phase 14's evaluation ids (and as many
+    training ids as phase f's five steps take) written for them, then phase 9
+    over every shape that phase f's paths handed the kernels."""
+    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+
+    phase_card_and_build()
+    with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
+        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=160, n_val=256)
+        ddp = phase_ddp(paths)
+    phase_path_shapes([ddp["ddp_train"], ddp["ddp_nccl_train"]], [], [], [])
+
+
 def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--phase18"], ["--families"]):
-        print("usage: python3 chip_smoke.py [--phase18 | --families]", file=sys.stderr)
+    if args[:1] == ["--ddp-worker"] and len(args) > 2:
+        return ddp_worker(args[1], args[2:])
+    if args not in ([], ["--phase18"], ["--families"], ["--ddp"]):
+        print("usage: python3 chip_smoke.py [--phase18 | --families | --ddp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3549,6 +4002,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--families"]:
         families_alone()
+        return 0
+    if args == ["--ddp"]:
+        ddp_alone()
         return 0
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.models.bridge import init_params, load_model
@@ -3607,18 +4063,23 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         families = phases_families(cli["paths"], cap["paths"], pt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = phase_ddp(cli["paths"], pt)
         phase_decoder(cli["paths"])
     finally:
         work.cleanup()
     family_paths = {k: v for k, v in families.items() if k != "families_card_vs_cpu"}
+    ddp_paths = {k: v for k, v in ddp.items() if k != "ddp_tiny"}
     shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, infer, serve_video, weights, pt,
-                                *family_paths.values()], ln_rows, bwd_rows, fs_rows)
+                                *family_paths.values(), *ddp_paths.values()], ln_rows, bwd_rows, fs_rows)
 
     fwd_row, bwd_row = ln_rows[0], bwd_rows[0]  # the ViT shape in bf16: the largest on both paths
     fs_row = fs_rows[0]  # MSR-VTT tva in fp32: the eval path's first group
     trained = {"pretraining": pretrain, "retrieval": retrieval, "cli_train": cli, "cap_train": cap,
                "qa_train": qa, "scst_train": scst, "infer": infer, "weights_train": weights,
-               "pt_prompt_train": pt, **{k: v for k, v in family_paths.items() if k != "gqa_serving"}}
+               "pt_prompt_train": pt, **{k: v for k, v in family_paths.items() if k != "gqa_serving"},
+               **ddp_paths}
     served = {"serving": serving, "serve_video": serve_video, "gqa_serving": family_paths["gqa_serving"]}
     by_path = dict(**{k: v["layernorm_launches"] for k, v in served.items()},
                    **{k: v["layernorm_launches_fwd_bwd"][0] for k, v in trained.items()})

@@ -19,6 +19,7 @@ machine without it).
 
 import json
 import random
+import threading
 import wave
 
 import jax.numpy as jnp
@@ -363,7 +364,13 @@ def test_threaded_loader_matches_serial_and_closes():
     serial = list(tld.DataLoader(_Items(50), sampler, collate, n_workers=0))
     threaded = tld.DataLoader(_Items(50), sampler, collate, n_workers=3)
     assert list(threaded) == serial
+    before = set(threading.enumerate())
     forever = tld.DataLoader(_Items(50), sampler, collate, n_workers=3, repeat=True)
     it = iter(forever)
     assert [next(it) for _ in range(len(serial))] == serial
-    forever.close()
+    closing = threading.Thread(target=forever.close)
+    closing.start()
+    closing.join(timeout=30)
+    assert not closing.is_alive()
+    # close() returns with the feeder and its worker pool ended
+    assert not [t for t in threading.enumerate() if t not in before]

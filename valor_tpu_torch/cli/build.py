@@ -3,7 +3,8 @@ training state (counterpart of ``valor_tpu/cli/build.py``; the reference's
 train_utils.py glue: create_train_dataloaders :415-516,
 create_val_dataloaders :519-576).
 
-One process, one card: every loader is shard 0 of 1 and no mesh is read.  The
+Each process loads its rank's shard (``parallel/mesh.py``; one process is
+shard 0 of 1), and no mesh is read.  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
 ``$VALOR_PRETRAINED_DIR`` (converted by ``models/convert.py``).  QA flows read
@@ -23,6 +24,7 @@ from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSamp
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
 from valor_tpu_torch.data.prompts import maybe_prompt_table, prompted_collate
 from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
+from valor_tpu_torch.parallel.mesh import local_batch_size, rank, world_size
 
 
 def bert_vocab_path() -> str:
@@ -99,14 +101,16 @@ def collate_for(task: str, training: bool):
 
 def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:
     """The train flows' loaders behind one ``MetaLoader`` (the JAX package's
-    seeds and mixing order).  ``pin_memory`` pins each batch in the loader's
-    background thread, for a CUDA prefetcher."""
+    seeds and mixing order).  Across processes each rank loads its shard of
+    every global batch (``batch_size`` over the ranks).  ``pin_memory`` pins
+    each batch in the loader's background thread, for a CUDA prefetcher."""
     loaders: Dict[str, Tuple[Any, int]] = {}
     prompts = maybe_prompt_table(cfg.model, tokenizers)
+    world = world_size()
     for i, flow in enumerate(cfg.data_train):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=True)
-        sampler = ShardedBatchSampler(len(dataset), batch_size=max(flow.batch_size, 1),
-                                      shuffle=True, seed=seed)
+        sampler = ShardedBatchSampler(len(dataset), batch_size=local_batch_size(max(flow.batch_size, 1), world),
+                                      shard=rank(), n_shards=world, shuffle=True, seed=seed)
         collate = prompted_collate(collate_for(flow.task, True), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1),
                             pin_memory=pin_memory)
@@ -118,12 +122,18 @@ def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool
 
 
 def build_val_loaders(cfg: Config, tokenizers) -> List[Tuple[str, DataLoader, Any]]:
-    """[(name, loader, task spec)] of the evaluation flows, in order."""
+    """[(name, loader, task spec)] of the evaluation flows, in order.  Across
+    processes the ranks' shards cover every item once (the last ragged, a
+    rank's maybe empty), each rank's batch ``batch_size`` over the ranks
+    rounded up: batch k of all ranks is one process's batch k (the JAX
+    package's hosts each take the whole ``batch_size``)."""
     out = []
     prompts = maybe_prompt_table(cfg.model, tokenizers)
+    world = world_size()
     for i, flow in enumerate(cfg.data_val):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=False)
-        sampler = ShardedBatchSampler(len(dataset), batch_size=flow.batch_size, shuffle=False)
+        sampler = ShardedBatchSampler(len(dataset), batch_size=-(-flow.batch_size // world), shard=rank(),
+                                      n_shards=world, shuffle=False)
         collate = prompted_collate(collate_for(flow.task, False), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1))
         name = flow.name or (flow.datasets[0].name if flow.datasets else str(i))

@@ -27,14 +27,30 @@ first train flow's annotations; it takes its weights from a caption run with
 ``--pretrain_dir <caption run>``.  ``use_task_prompt`` adds the task prompts
 to every batch (``data/prompts.py``).
 
-One process on one card: the JAX package's device mesh, ``jax.distributed``,
-``prng_impl`` and ``VALOR_DEBUG_NANS`` lines have no counterpart here.
+Data parallelism across processes, one a card (the JAX package's ``data``
+mesh axis and ``jax.distributed``):
+
+    python -m torch.distributed.run --nproc_per_node 8 -m valor_tpu_torch.cli.train \
+        --config configs/pretrain-valor-base.json [--dist_backend nccl|gloo]
+
+Under the launcher's environment ``main`` joins the process group
+(``parallel/mesh.py:init_data_parallel``; ``--dist_backend`` defaults to nccl on
+a card and gloo with ``--device cpu``; gloo also shares one card between ranks,
+which NCCL refuses), each rank takes ``cuda:$LOCAL_RANK``, its shard of every
+global batch (``batch_size`` is global) and of every evaluation set, and the
+step's losses, gradients and updates are those of one process on the global
+batch; rank 0 writes ``hps.json``, the log, ``tb/`` and the checkpoints.  The
+other mesh knobs and SCST are refused across processes
+(``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
+it runs one process, as before.  ``prng_impl`` and ``VALOR_DEBUG_NANS`` have no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import random
 import sys
@@ -43,6 +59,9 @@ from typing import Any, Dict, Optional
 from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
+from valor_tpu_torch.parallel.mesh import (
+    check_data_parallel, init_data_parallel, launched, rank, shutdown, world_size,
+)
 
 
 def parse_cli(argv=None) -> Config:
@@ -115,7 +134,7 @@ def make_validate_fn(cfg: Config, tokenizers):
                     max_len=m.max_generation_len, beam_size=m.beam_size_qa, result_dir=result_dir,
                     step=step, dset_name=name)
             else:
-                reports[name] = V.validate_pt(model, eval_step, iter(loader), task, m.contra_type)
+                reports[name] = V.validate_pt(model, eval_step, loader, task, m.contra_type)
         return reports
 
     return run
@@ -149,16 +168,29 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default=None)
+    pre.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"))
     dev_args, argv = pre.parse_known_args(argv)
-    device = resolve_device(dev_args.device)
+    if not launched():
+        return _run(argv, resolve_device(dev_args.device))
+    dp = init_data_parallel(dev_args.dist_backend, dev_args.device)
+    try:
+        if dp.rank:
+            LOGGER.setLevel(logging.WARNING)  # rank 0 logs the run
+        return _run(argv, dp.device)
+    finally:
+        shutdown()
+
+
+def _run(argv, device):
     cfg = parse_cli(argv)
+    check_data_parallel(cfg, world_size())
     if cfg.train.pretrain_dir:
         from valor_tpu_torch.core.config import inherit_pretrain_config
 
         inherited = inherit_pretrain_config(cfg)
         if inherited:
             LOGGER.info(f"inherited from pretrain hps.json: {inherited}")
-    random.seed(cfg.train.seed)
+    random.seed(cfg.train.seed + rank())
     out_dir = cfg.train.output_dir or "output"
     if is_main_process():
         os.makedirs(out_dir, exist_ok=True)

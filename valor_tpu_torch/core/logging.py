@@ -2,7 +2,8 @@
 ``valor_tpu.core.logging``).
 
   * ``LOGGER``, with an optional file handler (``add_log_to_file``);
-  * ``is_main_process``: the port runs one process, so always true;
+  * ``is_main_process``: rank 0 of the data-parallel group, which alone writes
+    the run's files;
   * ``RunningMeter``, an EMA meter (smooth 0.99) that skips NaN and inf;
   * ``TB_LOGGER``, a TensorBoard writer with an internal global step that is a
     silent no-op when neither tensorboardX nor ``torch.utils.tensorboard``
@@ -36,8 +37,11 @@ def add_log_to_file(log_path: str) -> None:
 
 
 def is_main_process() -> bool:
-    """One process: the JAX package's process-0 test is always true here."""
-    return True
+    """Rank 0 of the process group, or the one process where there is none
+    (the JAX package's ``jax.process_index() == 0``)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class RunningMeter:

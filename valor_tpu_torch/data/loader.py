@@ -105,6 +105,7 @@ class DataLoader:
         self.n_workers = n_workers
         self.prefetch_batches = max(prefetch_batches, 1)
         self._stop = threading.Event()
+        self._feeders: List[threading.Thread] = []
         # repeat=True: iterate epochs forever INSIDE one worker pool
         # (sampler epoch bumped for a fresh shuffle each pass).  Restarting
         # iteration from outside instead tears down the pool and drains the
@@ -186,6 +187,7 @@ class DataLoader:
                 interruptible_put(sentinel)
         t = threading.Thread(target=work, daemon=True)
         t.start()
+        self._feeders.append(t)
         while True:
             b = q.get()
             if b is sentinel:
@@ -199,8 +201,14 @@ class DataLoader:
         ~prefetch_batches decoded batches) alive for the process
         lifetime.  Sweeps that build several loaders in one process
         (bench BENCH_DATA_SWEEP) must close each point before timing the
-        next, or the leaked workers contaminate the measurement."""
+        next, or the leaked workers contaminate the measurement.
+
+        Returns once the feeder threads and their worker pools have ended, so
+        that a process which exits right after training (a rank under
+        ``torch.distributed.run``) exits with no thread of the loader running."""
         self._stop.set()
+        while self._feeders:
+            self._feeders.pop().join()
 
     def __len__(self) -> int:
         return len(self.sampler)

@@ -4,18 +4,21 @@ Retrieval (``validate_ret``): collect the contrastive features of every
 evaluation batch through ``eval_step``, keep them on the device in fp32, score
 the whole gallery of each modality group (``retrieval_scores``: the fine groups
 through ``tasks.losses.fine_score_gallery``, which on the card is the fused
-fine-score kernel), and rank on the host (``eval/retrieval.py``).  This slice
-runs in one process: ``_gather_eval_features`` concatenates, and the
-cross-process gather waits for the multi-GPU slice.
+fine-score kernel), and rank on the host (``eval/retrieval.py``).  Across
+processes every rank extracts its shard and ``_gather_eval_features`` merges the
+shards (ragged, an empty one included), so every rank scores the whole gallery.
 
 Captions (``validate_cap``) and answers (``validate_qa``): generate every
 batch through ``eval/generate.py:Generator``, decode to text on the host and
 score the whole merged set in one call (CIDEr-D's document frequencies are
-those of the set), writing the JAX package's dump files.  The JAX package
-merges the per-host shards before scoring; one process holds them all here.
+those of the set), writing the JAX package's dump files.  The ranks' shards are
+merged before scoring, and rank 0 writes the dumps.
 
 Pretraining (``validate_pt``): masked-token accuracies of the caption and MLM
-objectives through ``eval_step``, and a retrieval recall per contrastive group.
+objectives through ``eval_step``, and a retrieval recall per contrastive group;
+the ranks' counters are merged.  Its masks are drawn at the shape of one
+process's batch (``parallel.mesh.sampler_shard``), so every report of W ranks
+equals one process's on the same data.
 """
 
 from __future__ import annotations
@@ -28,11 +31,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from valor_tpu_torch.core.logging import is_main_process
 from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.eval.caption_metrics import caption_eval
 from valor_tpu_torch.eval.generate import Generator
 from valor_tpu_torch.eval.retrieval import qa_accuracy, retrieval_report
 from valor_tpu_torch.models.valor import EOS_TOKEN
+from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.mesh import batch_shard, sampler_shard
 from valor_tpu_torch.tasks import losses as L
 
 # query/gallery modality split per group (reference test.py:290-377: rows x
@@ -120,17 +126,33 @@ def retrieval_scores(model, feats: Dict[str, Any], group: str, contra_type: str)
 
 
 def _gather_eval_features(
-    feats_all: Dict[str, List[torch.Tensor]], ids: List, ids_txt: List
+    feats_all: Dict[str, List[torch.Tensor]], ids: List, ids_txt: List, device
 ) -> Tuple[Dict[str, Optional[torch.Tensor]], List, List]:
-    """The per-batch features of each key concatenated (None where no batch
-    had them), and the id lists.
+    """The per-batch features of each key concatenated and merged across
+    ranks (None where no rank had them), and the id lists merged, all in rank
+    order (the JAX package's ``_gather_eval_features``).
 
-    One process holds the whole gallery here.  The JAX package also merges
-    the shards of every process (ragged arrays, id lists, and one agreed key
-    set so that a process with an empty shard enters every collective); that
-    cross-process gather comes with the multi-GPU slice."""
-    feats = {k: (torch.cat(v) if v else None) for k, v in feats_all.items()}
-    return feats, list(ids), list(ids_txt)
+    Which keys exist is agreed first, in one object gather that every rank
+    runs: a rank whose shard is empty has no features, and if it skipped the
+    ragged gathers that the others enter, the collectives would deadlock.  It
+    enters them with zero-row tensors of the agreed shape and dtype, on
+    ``device``, instead.  One process: concatenation only."""
+    local = {k: (torch.cat(v) if v else None) for k, v in feats_all.items()}
+    meta: Dict[str, Any] = {}
+    for m in C.all_gather_objects({k: (tuple(v.shape[1:]), str(v.dtype).split(".")[-1])
+                                   for k, v in local.items() if v is not None}):
+        meta.update(m)
+    feats: Dict[str, Optional[torch.Tensor]] = {}
+    for k in feats_all:  # a fixed key order on every rank
+        if k not in meta:
+            feats[k] = None
+            continue
+        a = local[k]
+        if a is None:
+            shape, dtype = meta[k]
+            a = torch.zeros((0,) + shape, dtype=getattr(torch, dtype), device=device)
+        feats[k] = C.all_gather_ragged(a)
+    return feats, C.all_gather_lists(ids), C.all_gather_lists(ids_txt)
 
 
 def validate_ret(
@@ -158,7 +180,7 @@ def validate_ret(
             ids.extend(batch_ids)
         if batch_ids_txt is not None:
             ids_txt.extend(batch_ids_txt)
-    feats, ids, ids_txt = _gather_eval_features(feats_all, ids, ids_txt)
+    feats, ids, ids_txt = _gather_eval_features(feats_all, ids, ids_txt, model.device)
     temp = float(model.temperature().detach())
     report: Dict[str, float] = {}
     for g in task.contra_groups:
@@ -217,8 +239,15 @@ def validate_cap(
             seqs = out[f"generated_sequences_{g}"].cpu().numpy()
             for id_, seq in zip(ids, seqs):
                 group_hyps[g][str(id_)] = decode_sequence(tokenizer, seq)
+    # merge the ranks' disjoint shards before scoring: every rank reports the
+    # dataset's metrics (its best-checkpoint tracking reads them)
+    for g in groups:
+        merged: Dict[str, str] = {}
+        for chunk in C.all_gather_objects(group_hyps[g]):
+            merged.update(chunk)
+        group_hyps[g] = merged
     hyps = group_hyps[groups[0]]
-    if result_dir:
+    if result_dir and is_main_process():
         os.makedirs(result_dir, exist_ok=True)
         submission = os.path.join(result_dir, "submission.json")
         if submit_format == "coco":
@@ -291,8 +320,14 @@ def validate_qa(
                             f"generated {len(seqs)} rows but only {len(row_to_id)} id rows; carry "
                             "'answers' in the batch (QA test collate) or pass tile_index")
                     gts.append(answers[str(row_to_id[j])])
+    # merge the ranks' shards before scoring; the submit gather runs on every
+    # rank, whatever its own list holds, so that no rank skips a collective
+    gts = C.all_gather_lists(gts)
+    for g in groups:
+        group_preds[g] = C.all_gather_lists(group_preds[g])
+    submit = C.all_gather_lists(submit)
     preds = group_preds[groups[0]]
-    if result_dir:
+    if result_dir and is_main_process():
         os.makedirs(result_dir, exist_ok=True)
         _dump(os.path.join(result_dir, f"step{step}_gt.json"), gts)
         for g in groups:
@@ -315,20 +350,23 @@ def validate_pt(model, eval_step, loader, task: TaskSpec, contra_type: str = "fi
     percent rounded to 2 decimals; and ``contra_recall_{g}``, the forward R@1
     of every contrastive group over the whole set (``retrieval_scores``: the
     fine groups through the fused fine-score kernel on the card).  The hit
-    counts stay on the device until the end; one process holds every shard,
-    so the JAX package's merge across hosts is the identity here."""
+    counts stay on the device until the end, then the ranks' are summed.
+    ``loader``'s ``sampler`` (a ``ShardedBatchSampler``) says which rows of
+    one process's batch each evaluation batch holds."""
     objectives = {"caption": task.caption_groups, "mlm": task.mlm_groups}
     hits = {kind: {g: 0 for g in groups} for kind, groups in objectives.items()}
     totals = {kind: 0 for kind in objectives}
     feats_all: Dict[str, List[torch.Tensor]] = {k: [] for k in _FEATURE_KEYS}
     ids: List = []
     ids_txt: List = []
-    for batch in loader:
+    sampler = getattr(loader, "sampler", None)
+    for k, batch in enumerate(loader):
         batch = dict(batch)
         batch_ids = batch.pop("ids", None)
         batch_ids_txt = batch.pop("ids_txt", None)
         batch.pop("sample_num", None)
-        out = eval_step(model, batch, task)
+        with batch_shard(sampler_shard(sampler, k)):
+            out = eval_step(model, batch, task)
         for kind, groups in objectives.items():
             lab = out.get(f"txt_labels_{kind}")
             if not groups or lab is None:
@@ -347,17 +385,20 @@ def validate_pt(model, eval_step, loader, task: TaskSpec, contra_type: str = "fi
                 ids.extend(batch_ids)
             if batch_ids_txt is not None:
                 ids_txt.extend(batch_ids_txt)
+    # the ranks' counters merged before dividing, in one gather that every rank runs
+    merged = C.all_gather_objects(({kind: {g: int(v) for g, v in h.items()} for kind, h in hits.items()},
+                                   {kind: int(v) for kind, v in totals.items()}))
     report: Dict[str, float] = {}
     for kind, groups in objectives.items():
-        total = int(totals[kind])
+        total = sum(m[1][kind] for m in merged)
         if not total:
             continue
-        hit = {g: int(v) for g, v in hits[kind].items()}
+        hit = {g: sum(m[0][kind][g] for m in merged) for g in groups}
         for g in groups:
             report[f"{kind}_acc_{g}"] = round(100.0 * hit[g] / total, 2)
         report[f"{kind}_token_acc"] = round(100.0 * sum(hit.values()) / (total * len(hit)), 2)
     if task.contra_groups:
-        feats, ids, ids_txt = _gather_eval_features(feats_all, ids, ids_txt)
+        feats, ids, ids_txt = _gather_eval_features(feats_all, ids, ids_txt, model.device)
         if feats.get("feat_t") is not None and feats["feat_t"].shape[0] > 0:
             for g in task.contra_groups:
                 score = retrieval_scores(model, feats, g, contra_type).cpu().numpy()

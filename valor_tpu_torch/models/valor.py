@@ -52,6 +52,8 @@ from valor_tpu_torch.models.clip import (
 from valor_tpu_torch.models.videoswin import SwinTransformer3D, swin_preset
 from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param, current_rng, remat_for
 from valor_tpu_torch.ops.masking import full_mask, lm_shift_labels, mask_tokens
+from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.mesh import answer_shard, batch_shard, collective_step, current_shard, rank
 from valor_tpu_torch.tasks import losses as L
 
 # BERT special tokens (bert-base-uncased vocab)
@@ -61,6 +63,15 @@ MASK_TOKEN = 103  # [MASK]
 MASK_RANGE_START = 106  # start of the random-replacement range
 
 MAX_FRAMES = 32  # frame/clip embedding rows
+
+
+def answer_rows(n: int):
+    """The shard of a QA step's ``n`` tiled answer rows: in a training step
+    across ranks (whose answer counts differ), every rank's rows concatenated
+    in rank order; elsewhere the enclosing shard."""
+    if not collective_step():
+        return current_shard()
+    return answer_shard(n, C.all_gather_objects(n))
 
 
 def bcast_prompt(prompt: Optional[torch.Tensor], batch: int) -> Optional[torch.Tensor]:
@@ -343,11 +354,15 @@ class VALORModel(nn.Module):
                 parts[k] = (f, torch.ones(f.shape[:2], device=f.device), mod(f))
         return parts
 
-    def group_score_matrix(self, group: str, feats: Dict[str, Any], txt_tokens) -> torch.Tensor:
-        """Score matrix of one modality group ('tv', 'ta', 'tva', 'va', 'vta', 'atv')."""
+    def group_score_matrix(self, group: str, feats: Dict[str, Any], txt_tokens,
+                           gallery: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """Score matrix of one modality group ('tv', 'ta', 'tva', 'va', 'vta',
+        'atv'): its rows from ``feats``, its columns from ``gallery`` (features
+        with their ``txt_tokens``; ``feats`` where None)."""
         c = self.cfg
         if c.contra_type == "coarse":
-            ft, fv, fa = feats["feat_t"], feats["feat_v"], feats["feat_a"]
+            cols = feats if gallery is None else gallery
+            ft, fv, fa = feats["feat_t"], cols["feat_v"], cols["feat_a"]
             if group == "tv":
                 return L.coarse_score(ft, fv)
             if group == "ta":
@@ -359,12 +374,13 @@ class VALORModel(nn.Module):
             raise ValueError(f"coarse contra does not support group {group!r}")
 
         parts = self._fine_parts(feats, txt_tokens)
+        columns = parts if gallery is None else self._fine_parts(gallery, gallery["txt_tokens"])
 
         def cat(keys):
-            return tuple(torch.cat([parts[k][i] for k in keys], dim=1) for i in range(3))
+            return tuple(torch.cat([columns[k][i] for k in keys], dim=1) for i in range(3))
 
         if group == "tva" and c.late_fusion:
-            t, v, a = parts["t"], parts["v"], parts["a"]
+            t, v, a = parts["t"], columns["v"], columns["a"]
             ones = lambda p: torch.ones_like(p[2])  # noqa: E731
             return (L.fine_score(t[0], v[0], t[1], v[1], ones(t), ones(v))
                     + L.fine_score(t[0], a[0], t[1], a[1], ones(t), ones(a)))
@@ -374,16 +390,29 @@ class VALORModel(nn.Module):
             raise ValueError(group)
         ka, kb = pairs[group]
         a = parts[ka]
-        b = parts[kb] if len(kb) == 1 else cat(kb)
+        b = columns[kb] if len(kb) == 1 else cat(kb)
         if group == "tva" and c.fineweight_type == "none":
             a = (a[0], a[1], torch.ones_like(a[2]))
             b = (b[0], b[1], torch.ones_like(b[2]))
         return L.fine_score(a[0], b[0], a[1], b[1], a[2], b[2])
 
     def contra_loss_over_groups(self, groups, feats, txt_tokens) -> torch.Tensor:
+        """The contrastive loss averaged over ``groups``.  In a training step
+        across ranks the score matrix is the global batch's, as the JAX
+        package's: every rank gathers the batch's features
+        (``all_gather_with_grad``) and scores its own rows and columns
+        against them (``sharded_contrastive_loss``)."""
         temp = self.temperature()
-        ls = [L.contrastive_loss(self.group_score_matrix(g, feats, txt_tokens), temp)
-              for g in groups]
+        if not collective_step():
+            ls = [L.contrastive_loss(self.group_score_matrix(g, feats, txt_tokens), temp)
+                  for g in groups]
+            return sum(ls) / len(ls)
+        local = dict(feats, txt_tokens=txt_tokens)
+        every = {k: None if v is None else C.all_gather_with_grad(v) for k, v in local.items()}
+        offset = rank() * next(v.shape[0] for v in local.values() if v is not None)
+        ls = [L.sharded_contrastive_loss(self.group_score_matrix(g, local, txt_tokens, every),
+                                         self.group_score_matrix(g, every, every["txt_tokens"], local),
+                                         temp, offset) for g in groups]
         return sum(ls) / len(ls)
 
     # -- caption and MLM inputs ------------------------------------------------
@@ -550,23 +579,24 @@ class VALORModel(nn.Module):
         if not compute_loss:
             return {"video_input": video_input, "audio_input": audio_input, "prompt": prompt}
 
-        if c.caption_type == "unimlm":
-            if c.full_masker:
-                txt_input, labels = full_mask(txt_tokens, MASK_TOKEN)
+        with batch_shard(answer_rows(txt_tokens.shape[0])):
+            if c.caption_type == "unimlm":
+                if c.full_masker:
+                    txt_input, labels = full_mask(txt_tokens, MASK_TOKEN)
+                else:
+                    gen = current_rng("token masking").generator(txt_tokens.device, "mask")
+                    txt_input, labels = mask_tokens(gen, txt_tokens, 0.99, MASK_TOKEN,
+                                                    MASK_RANGE_START, c.fusion_vocab)
             else:
-                gen = current_rng("token masking").generator(txt_tokens.device, "mask")
-                txt_input, labels = mask_tokens(gen, txt_tokens, 0.99, MASK_TOKEN,
-                                                MASK_RANGE_START, c.fusion_vocab)
-        else:
-            txt_input, labels = txt_tokens, lm_shift_labels(txt_tokens)
-        # the question count is the rows of the per-question media (clips
-        # after the device fbank), never the tiled answer rows
-        media = batch.get("video_pixels")
-        if media is None:
-            media = batch.get("audio_spectrograms")
-        n_questions = (media if media is not None else txt_tokens).shape[0]
-        ls = [L.qa_weighted_cross_entropy(
-            self.fusion_logits(txt_input, prompt, video_input if "v" in g else None,
-                               audio_input if "a" in g else None, True, c.full_masker),
-            labels, batch.get("answer_weights"), n_questions) for g in groups]
-        return {"qa_loss": sum(ls) / len(ls)}
+                txt_input, labels = txt_tokens, lm_shift_labels(txt_tokens)
+            # the question count is the rows of the per-question media (clips
+            # after the device fbank), never the tiled answer rows
+            media = batch.get("video_pixels")
+            if media is None:
+                media = batch.get("audio_spectrograms")
+            n_questions = (media if media is not None else txt_tokens).shape[0]
+            ls = [L.qa_weighted_cross_entropy(
+                self.fusion_logits(txt_input, prompt, video_input if "v" in g else None,
+                                   audio_input if "a" in g else None, True, c.full_masker),
+                labels, batch.get("answer_weights"), n_questions) for g in groups]
+            return {"qa_loss": sum(ls) / len(ls)}

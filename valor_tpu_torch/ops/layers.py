@@ -11,7 +11,8 @@ the card, their plain versions on the CPU.
 Training mode (``module.train()``) turns on dropout where the JAX package has
 ``maybe_dropout``.  Its masks come from the seeded streams of the enclosing
 ``rng_scope`` (the counterpart of flax's ``rngs={"dropout": ..., "mask": ...}``),
-never from torch's global generator.  ``run_layer`` runs one encoder layer,
+never from torch's global generator; inside a ``parallel.mesh.batch_shard`` they
+are drawn at the global batch's shape and this rank's rows taken.  ``run_layer`` runs one encoder layer,
 under ``torch.utils.checkpoint`` where the config's ``checkpointing`` and
 ``remat_scope`` ask for it (``remat_for``); each layer draws from a stream of its
 own, so the recompute of the backward draws the same masks.
@@ -30,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from valor_tpu_torch.ops.kernels.layernorm import layernorm
+from valor_tpu_torch.parallel.mesh import batch_shard, current_shard, draw_rows
 
 NEG_INF = -1e4  # the attention mask value: (1 - mask) * -10000
 
@@ -107,7 +109,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     if not training or rate <= 0.0:
         return x
     g = current_rng("dropout").generator(x.device, "dropout")
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=g, device=x.device), x.shape) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -157,17 +159,18 @@ def sow(value: torch.Tensor) -> None:
 def run_layer(layer: nn.Module, remat: bool, *args):
     """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is set
     and autograd records.  A training layer draws its dropout from streams of
-    its own, forked here, which the recompute draws again.  A checkpointed
-    layer returns what it sows beside its output, so the values of the forward
-    reach the enclosing ``sow_scope`` once and the recompute's go nowhere."""
+    its own, forked here, which the recompute draws again, in the enclosing
+    ``batch_shard`` (the recompute may run in autograd's device thread).  A
+    checkpointed layer returns what it sows beside its output, so the values of
+    the forward reach the enclosing ``sow_scope`` once and the recompute's go
+    nowhere."""
     rng = getattr(_RNG, "streams", None)
-    fn = layer
-    if layer.training and rng is not None:
-        seed = rng.fork().seed
+    seed = rng.fork().seed if layer.training and rng is not None else None
+    shard = current_shard()
 
-        def fn(*a):
-            with rng_scope(RNGStreams(seed)):
-                return layer(*a)
+    def fn(*a):
+        with rng_scope(rng if seed is None else RNGStreams(seed)), batch_shard(shard):
+            return layer(*a)
 
     if remat and torch.is_grad_enabled():
         def sowing(*a):

@@ -10,6 +10,9 @@ global generator.  It reproduces the JAX package's law, not its bits:
   * a masked position becomes [MASK] w.p. ``replace_prob``, a random token in
     [range_start, range_end) w.p. ``random_prob``, and stays itself otherwise;
   * labels are the source token at masked positions and -1 elsewhere.
+
+Inside a ``parallel.mesh.batch_shard`` every draw is made at the global batch's
+shape and this rank's rows taken, so ranks mask what one process masks.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from valor_tpu_torch.parallel.mesh import draw_rows
 
 
 def mask_tokens(
@@ -34,20 +39,23 @@ def mask_tokens(
     dev = tokens.device
     eligible = tokens != 0
     eligible[:, 0] = False  # never mask position 0
-    draw = torch.rand((b, n), generator=generator, device=dev)
-    indicator = eligible & (draw < mask_prob)
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    indicator = eligible & (draw_rows(rand, (b, n)) < mask_prob)
 
     need_force = ~indicator.any(dim=1) & eligible.any(dim=1)
-    u = torch.rand((b, n), generator=generator, device=dev).clamp_min(1e-20)
+    u = draw_rows(rand, (b, n)).clamp_min(1e-20)
     gumbel = -torch.log(-torch.log(u))
     scores = torch.where(eligible, gumbel, torch.full_like(gumbel, -float("inf")))
     forced = torch.zeros_like(indicator)
     forced[torch.arange(b, device=dev), scores.argmax(dim=1)] = True
     indicator = torch.where(need_force[:, None], indicator | forced, indicator)
 
-    action = torch.rand((b, n), generator=generator, device=dev)
-    rand_tok = torch.randint(range_start, range_end, (b, n), generator=generator, device=dev,
-                             dtype=tokens.dtype)
+    action = draw_rows(rand, (b, n))
+    rand_tok = draw_rows(lambda shape: torch.randint(range_start, range_end, shape, generator=generator,
+                                                     device=dev, dtype=tokens.dtype), (b, n))
     masked = torch.where(action < replace_prob, torch.full_like(tokens, mask_token), tokens)
     masked = torch.where((action >= replace_prob) & (action < replace_prob + random_prob),
                          rand_tok, masked)

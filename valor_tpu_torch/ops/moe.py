@@ -23,7 +23,10 @@ sharding constraints over the ``model`` mesh axis) is a no-op on one device and
 is not part of the port.  The Switch load-balancing aux, ``E * sum_e f_e * P_e``
 with ``f_e`` the share of tokens whose first choice is ``e`` and ``P_e`` the
 mean router probability of ``e`` (1 when balanced), is returned beside the
-output; the fusion layer sows it (``ops.layers.sow``).
+output; the fusion layer sows it (``ops.layers.sow``).  In a training step
+across ranks ``f`` and ``P`` are means over the global batch's tokens
+(``parallel/collectives.py:global_means``), as the JAX package's are over the
+global array; routing and capacity are per group, so the drops do not change.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from valor_tpu_torch.ops.layers import ACT2FN, _param
+from valor_tpu_torch.parallel.collectives import global_means
 
 
 def top_k_mask(gates: torch.Tensor, k: int) -> torch.Tensor:
@@ -97,6 +101,7 @@ class MoEMlpBlock(nn.Module):
         if x.dim() != 3:
             raise ValueError(f"MoE input must be [G, S, M], got {tuple(x.shape)}")
         dt = self.dtype
+        tokens = x.shape[0] * x.shape[1]
         r = self.route(x)
         slot_one = F.one_hot(r.slot.long(), r.capacity).to(r.keep.dtype)  # [K, G, S, C]
         dispatch = torch.einsum("kgse,kgsc->gsec", r.keep.to(x.dtype), slot_one.to(x.dtype))
@@ -109,6 +114,5 @@ class MoEMlpBlock(nn.Module):
         out = torch.einsum("egch,ehm->egcm", self.act(h), self.w2.to(dt)) + self.b2.to(dt)[:, None, None, :]
         y = torch.einsum("gsec,egcm->gsm", combine, out)
 
-        f = r.sel[0].mean(dim=(0, 1))
-        p = r.gates.mean(dim=(0, 1))
+        f, p = global_means(r.sel[0].mean(dim=(0, 1)), r.gates.mean(dim=(0, 1)), tokens)
         return y, self.num_experts * (f * p).sum()

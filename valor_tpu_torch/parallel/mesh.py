@@ -1,0 +1,232 @@
+"""The data axis across processes (counterpart of ``valor_tpu/parallel/mesh.py``).
+
+The JAX package trains data-parallel over a device mesh: its loaders give each
+process a shard of every global batch, XLA averages the gradients over the
+``data`` axis, and every loss is computed over the global array.  The port runs
+one process a card under a launcher (``python -m torch.distributed.run``), and
+makes that arithmetic explicit:
+
+  * ``init_data_parallel`` reads the launcher's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), takes the
+    rank's device and joins the process group;
+  * ``BatchShard`` says which rows of a step's global batch this rank holds.
+    The loaders' ``ShardedBatchSampler`` gives rank r the items ``r::W`` of the
+    order, so the global batch of a step is the batch one process takes from
+    the same order, and rank r holds its rows r, r + W, r + 2W, ...  Random
+    draws (dropout, token masks) are made at the global shape and this rank's
+    rows taken (``draw_rows``): W ranks draw what one process draws;
+  * the losses' normalisers and the contrastive gallery are global
+    (``parallel/collectives.py``), and the gradients are averaged over ranks
+    before the update (``train/step.py``).
+
+Only the data axis is ported.  The other axes' knobs (``model_shards``, which
+also carries MoE expert parallelism, ``fusion_pipeline_stages``,
+``sequence_parallel``, ``fsdp``, ``zero_optimizer``) are read and ignored by one
+process and refused across processes (``check_data_parallel``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import threading
+from typing import Callable, Iterator, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+LATER_PART = "ROADMAP item 13, after its data-parallel part"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """This process's place in the group."""
+
+    rank: int
+    world: int
+    local_rank: int
+    backend: str
+    device: torch.device
+
+
+def launched() -> bool:
+    """Whether a launcher's environment is set: ``WORLD_SIZE`` above 1, or 1
+    with the launcher's ``MASTER_ADDR`` (``torch.distributed.run`` with one
+    process).  A bare ``WORLD_SIZE=1`` is one process."""
+    world = os.environ.get("WORLD_SIZE")
+    return world is not None and (int(world) > 1 or "MASTER_ADDR" in os.environ)
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def _rank_device(device, local_rank: int) -> torch.device:
+    """``device`` as named; None or a bare "cuda" is card ``LOCAL_RANK``, or
+    ``LOCAL_RANK`` modulo the cards where ranks outnumber them (gloo only)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def init_data_parallel(backend: Optional[str] = None, device=None) -> DataParallel:
+    """Join the launcher's process group.  ``backend`` defaults to ``nccl`` on
+    a card and ``gloo`` on the CPU; ``nccl`` where it cannot run (the CPU, no
+    NCCL, two ranks on one card) raises: nothing switches backend by itself."""
+    r = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", r))
+    dev = _rank_device(device, local)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"--dist_backend nccl needs a CUDA device, not {dev}")
+        if not dist.is_nccl_available():
+            raise RuntimeError("--dist_backend nccl: this torch has no NCCL")
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"--dist_backend nccl: local rank {local} has no card of its own "
+                f"({torch.cuda.device_count()} cards); NCCL refuses two ranks on one card, gloo shares it")
+    elif backend != "gloo":
+        raise ValueError(f"--dist_backend {backend!r}: nccl or gloo")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, rank=r, world_size=world)
+    return DataParallel(r, world, local, backend, dev)
+
+
+def shutdown() -> None:
+    """Leave the process group, where there is one."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+def barrier() -> None:
+    if world_size() > 1:
+        dist.barrier()
+
+
+def local_batch_size(global_batch: int, world: int) -> int:
+    """A rank's rows of a global training batch."""
+    if global_batch % world:
+        raise ValueError(f"global batch {global_batch} not divisible by the {world} ranks "
+                         f"of the {DATA_AXIS!r} axis")
+    return global_batch // world
+
+
+def check_data_parallel(cfg, world: int) -> None:
+    """Refuse, across processes, what only the data axis of the mesh cannot
+    do: the other axes' knobs and SCST (its rollouts and ``AdaptiveAlpha``
+    across ranks).  One process reads and ignores the knobs."""
+    if world <= 1:
+        return
+    m, t = cfg.model, cfg.train
+    knobs = {"model_shards": t.model_shards > 1, "fusion_pipeline_stages": m.fusion_pipeline_stages > 0,
+             "sequence_parallel": m.sequence_parallel, "fsdp": t.fsdp, "zero_optimizer": t.zero_optimizer,
+             "scst_finetuning": m.scst_finetuning}
+    asked = [k for k, on in knobs.items() if on]
+    if asked:
+        raise NotImplementedError(f"{', '.join(asked)} across {world} processes: {LATER_PART}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's ``index`` of the ``rows`` rows of a global batch;
+    ``collective``: the forward's losses reduce over ranks (a training step;
+    an evaluation forward runs no collective, since ranks may hold different
+    numbers of evaluation batches)."""
+
+    rows: int
+    index: slice
+    collective: bool = False
+
+    @property
+    def local(self) -> int:
+        return len(range(self.rows)[self.index])
+
+
+_SHARD = threading.local()  # .shard: the enclosing batch_shard's, per thread
+
+
+@contextlib.contextmanager
+def batch_shard(shard: Optional[BatchShard]) -> Iterator[Optional[BatchShard]]:
+    """Make ``shard`` the rows that draws and losses see inside the block."""
+    prev = getattr(_SHARD, "shard", None)
+    _SHARD.shard = shard
+    try:
+        yield shard
+    finally:
+        _SHARD.shard = prev
+
+
+def current_shard() -> Optional[BatchShard]:
+    return getattr(_SHARD, "shard", None)
+
+
+def collective_step() -> bool:
+    """Whether the enclosing forward is a training step across ranks."""
+    s = current_shard()
+    return s is not None and s.collective
+
+
+_ROW_KEYS = ("video_pixels", "audio_spectrograms", "audio_waveforms", "bert_tokens", "clip_tokens")
+
+
+def step_shard(batch) -> Optional[BatchShard]:
+    """The shard of a training step's batch across the group (None in one
+    process): every rank holds the same number of rows, its rows of the
+    global batch strided as the sampler's shards."""
+    world = world_size()
+    if world == 1:
+        return None
+    n = next(batch[k].shape[0] for k in _ROW_KEYS if batch.get(k) is not None)
+    return BatchShard(n * world, slice(rank(), n * world, world), collective=True)
+
+
+def sampler_shard(sampler, k: int) -> Optional[BatchShard]:
+    """The shard of evaluation batch ``k`` of a ``ShardedBatchSampler``
+    (None for one shard or another loader): batch k of every shard together is
+    the items ``[k b W, (k + 1) b W)`` of the order, the last one ragged."""
+    w = getattr(sampler, "n_shards", 1)
+    if w <= 1:
+        return None
+    span = sampler.batch_size * w
+    rows = min(span, sampler.n_items - k * span)
+    return BatchShard(rows, slice(sampler.shard, rows, w))
+
+
+def answer_shard(n: int, counts: Sequence[int]) -> BatchShard:
+    """The shard of a QA step's tiled answer rows: the ranks' rows
+    (``counts``, ``n`` of them this rank's) concatenated in rank order."""
+    off = sum(counts[: rank()])
+    return BatchShard(sum(counts), slice(off, off + n), collective=True)
+
+
+def draw_rows(draw: Callable[[tuple], torch.Tensor], shape) -> torch.Tensor:
+    """``draw(shape)``, or inside a ``batch_shard`` this rank's rows of
+    ``draw`` at the global batch's shape: ``shape[0]`` is k rows a local row
+    (rows first, as ``[B * frames, ...]`` is), and local row j's k rows are its
+    global row's."""
+    shape = tuple(shape)
+    s = current_shard()
+    if s is None:
+        return draw(shape)
+    n, rest = shape[0], shape[1:]
+    if not s.local or n % s.local:
+        raise ValueError(f"a draw of {n} rows in a shard of {s.local} rows")
+    k = n // s.local
+    full = draw((s.rows * k,) + rest)
+    return full.reshape((s.rows, k) + rest)[s.index].reshape(shape)

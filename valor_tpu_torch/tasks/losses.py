@@ -7,7 +7,11 @@ with ``fine_score_gallery``: the hand-written fine-score kernel on the card,
 ``fine_score_chunked`` on the CPU; training scores its batch with
 ``fine_score``, which autograd differentiates (the kernel is forward-only).
 The caption and QA losses are plain ops: no Pallas kernel computes them in
-the JAX package either.
+the JAX package either.  In a training step across ranks their normalisers are
+global (``parallel/collectives.py:sharded_mean``) and the contrastive loss takes
+this rank's rows and columns of the global score matrix
+(``sharded_contrastive_loss``), as the JAX package computes each over the global
+batch.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 
 from valor_tpu_torch.ops.kernels import fine_score as K2
+from valor_tpu_torch.parallel import collectives as C
 
 
 def masked_cross_entropy(
@@ -37,7 +42,7 @@ def masked_cross_entropy(
         smooth = label_smoothing / (vocab - 1)
         mean_logp = logits.float().sum(-1) - vocab * lse
         nll = (1.0 - label_smoothing) * nll - smooth * (mean_logp + nll)
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return C.sharded_mean((nll * valid).sum(), valid.sum())
 
 
 def qa_weighted_cross_entropy(
@@ -58,8 +63,8 @@ def qa_weighted_cross_entropy(
     per_row = (nll * valid).sum(-1) / valid.sum(-1).clamp_min(1.0)
     if answer_weights is not None:
         denom = float(n_questions) if n_questions else per_row.shape[0]
-        return (per_row * answer_weights.float()).sum() / denom
-    return per_row.mean()
+        return C.sharded_mean((per_row * answer_weights.float()).sum(), denom)
+    return C.sharded_mean(per_row.sum(), per_row.shape[0])
 
 
 def contrastive_loss(score_matrix: torch.Tensor, temp: torch.Tensor) -> torch.Tensor:
@@ -68,6 +73,20 @@ def contrastive_loss(score_matrix: torch.Tensor, temp: torch.Tensor) -> torch.Te
     loss1 = -torch.diagonal(torch.log_softmax(s, dim=1))
     loss2 = -torch.diagonal(torch.log_softmax(s, dim=0))
     return 0.5 * (loss1.mean() + loss2.mean())
+
+
+def sharded_contrastive_loss(rows: torch.Tensor, cols: torch.Tensor, temp: torch.Tensor,
+                             offset: int) -> torch.Tensor:
+    """:func:`contrastive_loss` of a data-parallel step, as this rank's
+    share: ``rows`` [n, N] scores this rank's n queries against the N items of
+    the gathered batch, ``cols`` [N, n] every query against this rank's items,
+    whose pairs sit at ``offset`` in the gathered batch.  The mean of the
+    ranks' shares is the loss over the global score matrix."""
+    n, n_all = rows.shape
+    i = torch.arange(n, device=rows.device)
+    loss1 = -torch.log_softmax(rows.float() / temp, dim=1)[i, i + offset]
+    loss2 = -torch.log_softmax(cols.float() / temp, dim=0)[i + offset, i]
+    return C.process_count() * 0.5 * (loss1.sum() + loss2.sum()) / n_all
 
 
 def coarse_score(feat_a: torch.Tensor, feat_b: torch.Tensor) -> torch.Tensor:

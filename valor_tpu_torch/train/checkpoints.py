@@ -13,7 +13,8 @@ checkpoint whole; ``best_<name>`` copies the best one; with
 ``remove_before_ckpt`` the previous step's directory goes once the new one is
 written.  ``use_async`` (``TrainConfig.async_checkpoint``, the JAX package's
 orbax AsyncCheckpointer) is accepted and the write made synchronously;
-``finish`` has nothing to wait for.
+``finish`` has nothing to wait for.  Across processes rank 0 writes, every rank
+waits for it, and every rank restores.
 
 Divergence, a fix: saving twice at one step (the trainer's periodic save at
 the last step, then its final save) keeps the checkpoint.  The JAX package
@@ -37,7 +38,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from valor_tpu_torch.core.logging import LOGGER
+from valor_tpu_torch.core.logging import LOGGER, is_main_process
+from valor_tpu_torch.parallel.mesh import barrier
 
 STATE_FILE = "state.pt"
 
@@ -57,7 +59,14 @@ class ModelSaver:
         os.makedirs(os.path.join(output_dir, "ckpt"), exist_ok=True)
 
     def save(self, state, step: int, best_name: Optional[str] = None) -> None:
-        """Write ``state`` (a ``train.step.TrainState``) as checkpoint ``step``."""
+        """Write ``state`` (a ``train.step.TrainState``) as checkpoint ``step``:
+        rank 0 writes (every rank holds the same state), and every rank waits
+        for the write before it goes on."""
+        if is_main_process():
+            self._write(state, step, best_name)
+        barrier()
+
+    def _write(self, state, step: int, best_name: Optional[str]) -> None:
         path = _ckpt_dir(self.output_dir, step)
         payload = {
             "params": state.model.state_dict(),

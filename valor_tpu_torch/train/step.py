@@ -11,12 +11,19 @@ model, the optimizer and ``state.step`` in place.  Its three parts run in
 reads (``tools/profile_training.py``) and which do nothing otherwise.
 ``eval_step`` is the loss-free forward of evaluation (``make_eval_step``);
 ``scst_update`` the REINFORCE update of SCST finetuning (``make_scst_step``).
+
+Across processes (``parallel/``) a step runs in its batch's
+``parallel.mesh.batch_shard``: random draws at the global batch's shape, global
+loss normalisers and contrastive gallery; the gradients are averaged over ranks
+in fp32 before the cast and the update, and the reported losses are the global
+batch's.  Every rank then makes the same update, the one a single process makes
+on the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +32,8 @@ from torch.profiler import record_function
 from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope, sow_scope
+from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.mesh import batch_shard, step_shard
 from valor_tpu_torch.tasks.scst import scst_loss
 from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
 
@@ -80,29 +89,46 @@ def with_moe_aux(losses: Dict[str, torch.Tensor], sown: list, weight: float) -> 
     return dict(losses, moe_aux=weight * (sum(a.float() for a in sown) / len(sown)))
 
 
-def train_step(
-    state: TrainState, batch: Dict[str, Any], task: TaskSpec, seed: int,
+def losses_and_grads(
+    model: nn.Module, batch: Dict[str, Any], task: TaskSpec, seed: int,
     grad_dtype: Optional[str] = None, moe_aux_weight: float = 0.0,
-) -> Dict[str, torch.Tensor]:
-    """Forward, backward and optimizer update of one micro-batch.  Returns the
-    losses, ``total_loss`` and the gradients' global norm, as device scalars:
-    nothing here waits for the device."""
-    model = state.model
+) -> Tuple[Dict[str, torch.Tensor], list]:
+    """The losses (with ``total_loss``, detached) and every parameter's
+    gradient of one micro-batch, drawn from ``seed``'s streams; across
+    processes the global batch's, as every rank holds them."""
     params = [p for p in model.parameters()]
-    fwd, bwd, upd = RANGES
-    with rng_scope(RNGStreams(_mix(seed, state.step))):
+    fwd, bwd, _ = RANGES
+    with rng_scope(RNGStreams(seed)), batch_shard(step_shard(batch)):
         with record_function(fwd):
             with sow_scope() as sown:
                 losses = model(batch, task, True, True)
             losses = with_moe_aux(losses, sown, moe_aux_weight)
             total = sum(v.float() for v in losses.values())
         with record_function(bwd):
-            grads = cast_grads(param_grads(total, params), grad_dtype)
-    with record_function(upd):
-        state.optimizer.update(grads)
-    state.step += 1
+            grads = param_grads(total, params)
+            # every micro-batch's gradient is averaged over ranks (the JAX
+            # step's psum of each global-batch gradient), so accumulation and
+            # the grad_norm metric see the global gradient; one reduction an
+            # update would do for the update alone
+            C.all_reduce_mean_(grads)
+            grads = cast_grads(grads, grad_dtype)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
+    return C.mean_over_ranks(metrics), grads
+
+
+def train_step(
+    state: TrainState, batch: Dict[str, Any], task: TaskSpec, seed: int,
+    grad_dtype: Optional[str] = None, moe_aux_weight: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """Forward, backward and optimizer update of one micro-batch.  Returns the
+    losses, ``total_loss`` and the gradients' global norm, as device scalars:
+    nothing here waits for the device (but a gloo collective)."""
+    metrics, grads = losses_and_grads(state.model, batch, task, _mix(seed, state.step), grad_dtype,
+                                      moe_aux_weight)
+    with record_function(RANGES[2]):
+        state.optimizer.update(grads)
+    state.step += 1
     metrics["grad_norm"] = global_norm(grads)
     return metrics
 

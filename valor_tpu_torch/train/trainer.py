@@ -16,7 +16,11 @@ in micro-batches.  At each log point the meters go to ``TB_LOGGER`` too, with
 the data-stall share (host time blocked on the input pipeline over the
 window); ``data_wait_s`` keeps that host time over the whole run.  With MoE
 fusion layers (``fusion_moe_experts`` > 0) every step's losses carry
-``moe_aux``, weighted by ``fusion_moe_aux_weight``.
+``moe_aux``, weighted by ``fusion_moe_aux_weight``.  Across processes every
+rank runs this loop on its shard of each global batch: as many steps on every
+rank (the loaders' shards yield as many batches), the global batch's losses in
+the meters, the same update on every rank (``train/step.py``), the same
+validation reports; rank 0 logs and writes the checkpoints.
 
 SCST finetuning (``scst_finetuning`` on a ``cap`` task; reference
 model/pretrain.py:741-791) runs ``scst_step`` in place of ``train_step``: the
