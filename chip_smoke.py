@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, a-e, f, 19, 9; any
+Phases, in the order 1-8, 10-14, 7b, 15, 16, 7c, 17, 18, 20, 21, 22, f, a-e, 19, 9; any
 failure ends the run with a traceback and a non-zero exit code, and no result
 line:
 
@@ -80,12 +80,19 @@ line:
      random weights): a seeded MSR-VTT-shaped dataset written to a temporary
      directory (640 training ids, 256 evaluation ids, 40 JPEG frames of 320 x
      240 and a 10 s 22050 Hz WAV an id, one in ten without audio), run 1 of ten
-     steps with its evaluations and save, run 2 resumed to step 20; the
-     restored state equal to the saved one bit for bit, losses finite, reports
-     finite, the kernel launches those of the path, and the device fbank of a
-     batch against ``fbank_np``; it prints samples/s from disk against phase
-     12's synthetic rate, the data-stall share, peak memory, save and restore
-     seconds and validation items/s;
+     steps with its evaluations and saves at steps 5 and 10, run 2 resumed to
+     step 20, both with ``--async_checkpoint true``; the restored state equal
+     to the saved one bit for bit, the writes at the steps saved, losses
+     finite, reports finite, the kernel launches those of the path, run 2's
+     state saved once more with the next update queued at once and the
+     checkpoint's payload equal bit for bit to the state before the update
+     (``check_async_snapshot``), and the device fbank of a batch against
+     ``fbank_np``; it prints samples/s
+     from disk against phase 12's synthetic rate, the data-stall share, peak
+     memory, the seconds each save blocked the trainer (the first, which
+     allocates the pinned host buffers, apart), each background write's
+     seconds, the step times while a write ran and after, restore seconds and
+     validation items/s;
   7b. the tiny config on the card against the CPU for the caption and QA
      slice, fp32 with TF32 off: one ``cap%tva`` and one ``qa%tva`` training
      step (a multi-answer batch with ``tile_index`` and ``answer_weights``) to
@@ -94,7 +101,9 @@ line:
      for token;
   15. caption finetuning from disk through ``cli.train``'s ``main`` at the full
      width of ``configs/caption-msrvtt.json`` (``cap%tva``, batch 64, 4
-     frames, 1 clip, bf16; seeded random weights): a seeded MSR-VTT-shaped
+     frames, 1 clip, bf16; from ``--checkpoint`` a run of the sharp init law's
+     seeded weights, whose captions depend on their media, as phases 17, 20
+     and 21 need; ``cli.train`` alone draws the JAX package's law): a seeded MSR-VTT-shaped
      dataset written to a temporary directory (320 training ids with 20
      captions, 128 evaluation ids with 20 references, the media of phase 14's
      shape, written once for phases 15 and 16), the config's evaluation
@@ -123,7 +132,7 @@ line:
      ``Generator.generate``;
   17. SCST caption finetuning from disk through ``cli.train``'s ``main`` at the
      full width of ``configs/caption-msrvtt.json`` with ``--scst_finetuning
-     true`` and ``--pretrain_dir`` phase 15's run, on phase 15's dataset: ten
+     true`` and ``--pretrain_dir`` phase 15's run, on phase 15's dataset: six
      SCST steps, then the final validation; the restored weights equal phase
      15's saved ones, losses and rewards finite, every fusion parameter with a
      gradient and the towers without, the LayerNorm launches those of the
@@ -198,23 +207,40 @@ line:
      at 392 px (577 tokens a frame) in memory, phase 8's way: ``cap%tv`` at
      batch 64 with one frame, one warm-up and ten timed steps;
   f. data parallelism across processes (``valor_tpu_torch/parallel``), one
-     card: (i) the tiny config, fp32, TF32 off: 2 gloo ranks of 4 rows against
+     card, in one launch of ``python -m torch.distributed.run --standalone
+     --nproc_per_node 2`` with ``--dist_backend gloo``, both ranks on the
+     card: (i) the tiny config, fp32, TF32 off: the 2 ranks of 4 rows against
      1 process of 8 for one ``pt`` step with dropout and masks drawn (every
      loss, the grad norm and every updated parameter within 1e-5) and
-     ``validate_ret`` over 9 items (reports equal); (ii) ``python -m
-     torch.distributed.run --standalone --nproc_per_node 2`` of ``cli.train``
-     with ``--dist_backend gloo``, both ranks on the card:
-     ``configs/pretrain-valor-base.json``'s first flow on phase 14's dataset,
-     global batch 32, 5 steps, ``validate_pt`` over the 256 evaluation ids;
+     ``validate_ret`` over 9 items (reports equal); then, in the same
+     launch, three ``cli.train`` flows in turn: (ii)
+     ``configs/pretrain-valor-base.json``'s first flow, global batch 32, 3 steps, on a dataset written here that
+     draws nothing at random on the host (96 training ids, one caption an id,
+     4 frames and a 4 s WAV), ``validate_pt`` over its 64 evaluation ids, no
+     checkpoint written ((v) writes one);
      per rank and in all samples/s (two processes sharing one card: no
      scaling), peak memory, the gradient all-reduce's ms a step and bytes, K1
-     and K2 launches as counted, equal losses and reports; (iii) the same path
-     at ``--nproc_per_node 1 --dist_backend nccl``, 3 steps, its losses within
-     1e-6 of a plain one-process run of the same batches (a dataset that draws
-     nothing on the host), and the NCCL all-reduce's ms a step.  Each rank is
-     ``cli.train``'s ``main`` inside this script (``--ddp-worker``), which
-     counts its launches and times its all-reduce; a rank's failure or the
-     launcher's nonzero exit fails the run;
+     and K2 launches as counted, equal losses and reports; (v) the same with
+     ``--zero_optimizer true --async_checkpoint true`` (ZeRO-1): its losses
+     within 1e-5 of (ii)'s on the same batches and draws (both under
+     ``torch.use_deterministic_algorithms``), each rank holding less optimizer
+     state than (ii)'s, the reduce-scatter and gathers timed, the two ranks'
+     final states equal; (iv) ``configs/caption-msrvtt.json`` with
+     ``--scst_finetuning true --pretrain_dir`` phase 15's run, 3 SCST steps at
+     a global batch of 32 and 30 tokens: the caption run's weights at the
+     first step, the same rewards and alpha on both ranks, finite losses, K1
+     launches as ``expected_scst_ln_launches`` gives them a rank; a step's
+     seconds by part (encode, rollouts, gather, reward, update); (iii) the
+     pretraining path at ``--nproc_per_node 1 --dist_backend nccl`` and in a
+     plain process, each resuming (v)'s checkpoint for 3 more steps with
+     ``--zero_optimizer true`` (which one rank, as one process, reads as the
+     replicated optimizer): both restore the state the two ZeRO ranks saved,
+     bit for bit (``state_digest``), the NCCL rank's losses within 1e-6 of the
+     plain process's, and the NCCL all-reduce's ms a step.  Each rank is
+     this script's ``--ddp-worker``, which runs the flows through
+     ``cli.train``'s ``main`` in one process group, counts each flow's
+     launches and times its collectives; a rank's failure or the launcher's
+     nonzero exit fails the run;
   9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22, b-e
      and f handed each kernel is held against the plain version: listed where
      phase 2, 6 or 10 compared it, compared here where they did not.
@@ -222,8 +248,10 @@ line:
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
 serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
 qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
-large_train, swin_cap_train, mscoco_train, ddp_train (both ranks of phase
-f (ii)) and ddp_nccl_train (phase f (iii)'s NCCL run)), and as its last line
+large_train, swin_cap_train, mscoco_train, ddp_train, ddp_zero_train and
+ddp_scst_train (both ranks of phase f (ii), (v) and (iv)) and
+ddp_nccl_train (phase f (iii)'s NCCL process)), the card's name and power
+limit before it, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
 
@@ -241,9 +269,9 @@ result line.
 
     python3 chip_smoke.py --ddp
 
-runs phases 1 and f alone, on phase 14's 256 evaluation ids (and 160 training
-ids) written for it, then phase 9 over the shapes phase f handed the kernels.
-It prints no result line.
+runs phases 1 and f alone, on a caption dataset (64 training and 8
+evaluation ids) and a sharp-law caption run written for it, then phase 9 over
+the shapes phase f handed the kernels.  It prints no result line.
 """
 
 from __future__ import annotations
@@ -1526,20 +1554,33 @@ def record_validations(sync):
 
 @contextlib.contextmanager
 def record_checkpoints(sync, on_restore):
-    """Yields a dict that fills with the seconds of every save and of every
-    restore (read from disk and copied into the model and the optimizer);
-    ``on_restore(state)`` runs on each restored state."""
+    """Yields a dict that fills with the seconds every save blocked its caller
+    (all of the write when synchronous, the snapshot when asynchronous), the
+    seconds every ``finish`` waited for a write in flight, the seconds of
+    every restore (read from disk and copied into the model and the
+    optimizer), and the savers themselves (their ``writes``: step, host time
+    the write began and was durable); ``on_restore(state)`` runs on each
+    restored state."""
     from valor_tpu_torch.train import checkpoints as C
 
-    times = {"save_s": [], "restore_s": []}
-    save0, restore0, load0 = C.ModelSaver.save, C.ModelSaver.restore, C.load_state
+    times = {"save_s": [], "finish_s": [], "restore_s": [], "savers": []}
+    save0, finish0, restore0, load0 = C.ModelSaver.save, C.ModelSaver.finish, C.ModelSaver.restore, C.load_state
     pending = {}
 
     def save1(self, state, step, best_name=None):
+        if self not in times["savers"]:
+            times["savers"].append(self)
         sync()
         t0 = time.perf_counter()
         save0(self, state, step, best_name)
         times["save_s"].append(time.perf_counter() - t0)
+
+    def finish1(self):
+        waiting = self._pending is not None
+        t0 = time.perf_counter()
+        finish0(self)
+        if waiting:
+            times["finish_s"].append(time.perf_counter() - t0)
 
     def restore1(self, step=None):
         sync()
@@ -1552,11 +1593,75 @@ def record_checkpoints(sync, on_restore):
         times["restore_s"].append(time.perf_counter() - pending.pop("t0"))
         on_restore(state)
 
-    C.ModelSaver.save, C.ModelSaver.restore, C.load_state = save1, restore1, load1
+    C.ModelSaver.save, C.ModelSaver.finish, C.ModelSaver.restore, C.load_state = save1, finish1, restore1, load1
     try:
         yield times
     finally:
-        C.ModelSaver.save, C.ModelSaver.restore, C.load_state = save0, restore0, load0
+        C.ModelSaver.save, C.ModelSaver.finish, C.ModelSaver.restore, C.load_state = save0, finish0, restore0, load0
+
+
+def check_async_snapshot(state, out_dir: str) -> dict:
+    """An asynchronous save's snapshot against the update queued right after
+    it, on the card.  ``ModelSaver(use_async=True)`` saves ``state`` once (its
+    host buffers allocated), then again with its write held back, and
+    ``state``'s optimizer at once updates every live parameter and both
+    moments (no synchronisation between; the learning rate held at 1e-2,
+    since a run's schedule ends at 0), then the write goes on.  The
+    payload handed to ``torch.save`` (the bytes the checkpoint holds) must
+    equal, bit for bit, the state cloned on the card before the saves, and the
+    update must have changed every live parameter.  The second save returns
+    in milliseconds while its copies take tenths of a second, so a snapshot
+    the update can overtake (no wait on the copy's event) hands over updated
+    values."""
+    import torch
+
+    from valor_tpu_torch.train import checkpoints as TC
+
+    opt = state.optimizer
+    grads = [torch.randn_like(p) for p in opt.params]  # made before the saves, so the update queues at once
+    want = {"params": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            "mu": [m.clone() for m in opt.mu], "nu": [v.clone() for v in opt.nu]}
+    gate, handed, save0 = threading.Event(), [], TC.torch.save
+
+    def held_save(obj, f, *a, **kw):  # a write: held while the gate is shut; its payload kept in place of the file
+        if not gate.wait(600):
+            raise TimeoutError("the held checkpoint write was never released")
+        handed.append(obj)
+
+    TC.torch.save = held_save
+    schedules, opt.schedules = opt.schedules, {k: (lambda step: 1e-2) for k in opt.schedules}  # a run's end: 0
+    try:
+        saver = TC.ModelSaver(out_dir, use_async=True)
+        gate.set()
+        saver.save(state, opt.gradient_step)
+        saver.finish()
+        gate.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(state, opt.gradient_step + 1)
+        blocked = time.perf_counter() - t0
+        opt.update(grads)
+        torch.cuda.synchronize()
+        live = [n for n, lbl in zip(opt.names, opt.labels) if lbl != "frozen"]
+        params = dict(state.model.named_parameters())
+        unmoved = [n for n in live if torch.equal(params[n], want["params"][n])]
+        gate.set()
+        saver.finish()
+    finally:
+        gate.set()
+        TC.torch.save, opt.schedules = save0, schedules
+    if len(handed) != 2 or unmoved:
+        raise AssertionError(f"async snapshot check: {len(handed)} writes; parameters the update left: {unmoved[:5]}")
+    got = handed[-1]
+    bad = [k for k, v in want["params"].items() if not torch.equal(got["params"][k].to(v.device), v)]
+    for key in ("mu", "nu"):
+        bad += [f"{key} {i}" for i, (h, w) in enumerate(zip(got["opt_state"][key], want[key]))
+                if not torch.equal(h.to(w.device), w)]
+    if bad:
+        raise AssertionError(f"async snapshot check: the checkpoint holds the update's values for {bad[:10]} "
+                             f"({len(bad)} tensors)")
+    return {"tensors": len(want["params"]) + 2 * len(want["mu"]), "save_blocked_s": blocked,
+            "bytes": sum(t.numel() * t.element_size() for t in TC._tensors(got))}
 
 
 def snapshot_state(state) -> dict:
@@ -1710,7 +1815,8 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
                     record_checkpoints(sync, lambda st: restored.update(check_same_state(st, saved))) as ck, \
                     record_ln_calls() as (sigs_fwd, sigs_bwd), record_fine_calls() as fine_calls:
                 K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
-                first = main(["--config", cfg_path, *dev_args])
+                first = main(["--config", cfg_path, "--async_checkpoint", "true", "--valid_steps", str(steps // 2),
+                              *dev_args])
                 saved.update(snapshot_state(first.state))
                 run1 = {"step": first.state.step, "updates": first.state.optimizer.gradient_step,
                         "history": list(first.history)}
@@ -1719,7 +1825,7 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
                 if cuda:
                     torch.cuda.empty_cache()
                 second = main(["--config", cfg_path, "--resume", "true", "--num_train_steps", str(2 * steps),
-                               *dev_args])
+                               "--async_checkpoint", "true", *dev_args])
                 launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
             disk = shutil.disk_usage(tmp)
             ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
@@ -1746,8 +1852,9 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
         if len(history) != steps or not all(np.isfinite(v) for h in history for v in h[2].values()):
             raise AssertionError(f"{len(history)} steps logged, or a non-finite loss: {history}")
     eval_batches = -(-n_val // cfg.data_val[0].batch_size)
-    if len(evals) != 4 or any(n != n_val for n, _, _ in evals):
-        raise AssertionError(f"validations (items) {[n for n, _, _ in evals]}, expected 4 of {n_val}")
+    # run 1: before training, at steps // 2, at steps (the periodic and the final one); run 2: before and final
+    if len(evals) != 6 or any(n != n_val for n, _, _ in evals):
+        raise AssertionError(f"validations (items) {[n for n, _, _ in evals]}, expected 6 of {n_val}")
     for _, _, report in evals:
         if not all(np.isfinite(v) for v in report.values()) or "ravg" not in report:
             raise AssertionError(f"validation report {report}")
@@ -1757,6 +1864,9 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
                  len(evals) * len(fine_groups)) if cuda else (0, 0, 0))
     if launches != expected:
         raise AssertionError(f"launches (ln fwd, ln bwd, fine_score) {launches} != {expected}")
+    if cuda:  # run 2's state, saved again with the next update queued at once
+        with tempfile.TemporaryDirectory(prefix="valor_snapshot_") as snap_dir:
+            snapshot_check = check_async_snapshot(t2.state, snap_dir)
 
     def timing(rec):
         step_s = np.diff([rec["start"]] + rec["stamps"])
@@ -1765,6 +1875,15 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
 
     (s1, w1), (s2, w2) = timing(r1), timing(r2)
     timed = np.concatenate([s1[2:], s2[2:]])  # the first two steps of each run are warm-up
+    # the asynchronous saves: run 1 saves at steps // 2 (the first, which allocates the pinned buffers),
+    # twice at steps (periodic and final; the second waits for the first's write), run 2 at 2 * steps
+    writes = [w for sv in ck["savers"] for w in sv.writes]
+    if [w[0] for w in writes] != [steps // 2, steps, steps, 2 * steps] or len(ck["save_s"]) != 4:
+        raise AssertionError(f"asynchronous writes {writes}, saves {ck['save_s']}")
+    # steps that began after the step-5 save returned and before its write was durable (the step after the
+    # save spans the validation and the save themselves); run 2's steps, which overlap no write, beside them
+    _, begun, durable = writes[0]
+    during = [i for i in range(1, len(r1["stamps"])) if begun <= r1["stamps"][i - 1] < durable]
     stall = float((w1[2:].sum() + w2[2:].sum()) / timed.sum())
     batch_size = cfg.data_train[0].batch_size
     median = float(np.median(timed))
@@ -1778,8 +1897,14 @@ def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixtu
         "data_wait_s_run1": [float(v) for v in w1], "data_wait_s_run2": [float(v) for v in w2],
         "data_stall_share": stall, "device_idle_share": "not measured (no profiler trace in this phase)",
         "max_memory_allocated_gib": [r1["peak"] / 2**30, r2["peak"] / 2**30],
-        "save_s": ck["save_s"], "restore_s": ck["restore_s"], "checkpoint_bytes_on_disk": ckpt_bytes,
+        "async_checkpoint": True, "save_blocked_s": ck["save_s"], "save_blocked_first_s": ck["save_s"][0],
+        "save_blocked_later_s": ck["save_s"][1:], "finish_wait_s": ck["finish_s"],
+        "write_s": [float(d - b) for _, b, d in writes], "steps_while_writing": [i + 1 for i in during],
+        "step_s_while_writing": [float(s1[i]) for i in during],
+        "step_s_without_write_median": float(np.median(s2[2:])),
+        "restore_s": ck["restore_s"], "checkpoint_bytes_on_disk": ckpt_bytes,
         "disk_free_bytes": disk.free, "restored_equals_saved": restored,
+        "snapshot_not_overtaken": snapshot_check if cuda else "not run (CPU)",
         "validation_s": [s_ for _, s_, _ in evals], "validation_items_per_s": [n / s_ for n, s_, _ in evals],
         "resumed_first_step": resumed_first, "resumed_update_count": t2.state.optimizer.gradient_step,
         "contra_loss_run1": [h[2]["contra_loss"] for h in run1["history"]],
@@ -1917,7 +2042,7 @@ def record_batch_rows():
 
 
 def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "cuda", overrides=None,
-                       synthetic=None, out_dir=None, batch_size=None, label=None):
+                       synthetic=None, out_dir=None, batch_size=None, label=None, sharp_start=False):
     """``valor_tpu_torch.cli.train`` from disk at the full width of
     ``configs/caption-msrvtt.json`` (``kind`` "cap") or ``configs/qa-msrvtt.json``
     ("qa"), with only the dataset paths (``paths``, a ``data/synthetic.py``
@@ -1929,7 +2054,12 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
     ``synthetic`` is a from-disk summary whose samples/s this run's is set against;
     ``out_dir``, where given, is the run's ``output_dir`` and stays (phase 17
     takes its weights from phase 15's); ``batch_size``, where given, replaces
-    the train flows' (phase d: the largest that fits)."""
+    the train flows' (phase d: the largest that fits).  With ``sharp_start``
+    the run starts (``--checkpoint``) from the sharp init law's weights
+    (``data/synthetic.py:write_sharp_init_run``), whose captions depend on their
+    media, where ``cli.train`` alone draws the JAX package's law: phases 17, 20
+    and 21 take phase 15's run, and their checks that served rows are the
+    in-process decode's rows need captions that differ by media."""
     import os
 
     import torch
@@ -1955,10 +2085,15 @@ def phase_cli_finetune(kind: str, paths: dict, steps: int = 10, device: str = "c
             cli_run(paths, tmp, name, edit) as cfg_path:
         cfg = load_config(cfg_path)
         spec = parse_task(cfg.data_train[0].task)
+        start = []
+        if sharp_start:
+            from valor_tpu_torch.data.synthetic import write_sharp_init_run
+
+            start = ["--checkpoint", write_sharp_init_run(os.path.join(tmp, "sharp_init"), cfg.model)]
         with record_trainers(sync, cuda) as runs, record_generative_validations(sync) as evals, \
                 record_batch_rows() as rows, record_ln_calls() as (sigs_fwd, sigs_bwd):
             K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
-            trainer = main(["--config", cfg_path, *([] if cuda else ["--device", device])])
+            trainer = main(["--config", cfg_path, *start, *([] if cuda else ["--device", device])])
             launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
         out_dir = cfg.train.output_dir
         results = os.path.join(out_dir, f"results_test_{cfg.data_val[0].datasets[0].name}")
@@ -2065,8 +2200,8 @@ def phase_cap_qa_from_disk(n_train: int = 320, n_val: int = 128, steps: int = 10
         out = {}
         for kind, paths in (("cap", cap), ("qa", qa)):
             keep = os.path.join(tmp, f"{kind}_out") if root and kind == "cap" else None
-            out[kind] = dict(phase_cli_finetune(kind, paths, steps, device, overrides, synthetic, keep),
-                             paths=paths, **written)
+            out[kind] = dict(phase_cli_finetune(kind, paths, steps, device, overrides, synthetic, keep,
+                                                sharp_start=kind == "cap"), paths=paths, **written)
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
@@ -2297,7 +2432,8 @@ def phase_scst_prompt_card_vs_cpu(device: str = "cuda"):
 def record_scst(sync):
     """Yields a dict that fills with the SCST run's parts: (part, host start,
     seconds between two synchronisations) of every media encode, greedy and
-    sampled rollout, host reward and REINFORCE update; the seconds each
+    sampled rollout, host reward and REINFORCE update; every reward array the
+    ``Scorer`` gave (the global batch's across ranks); the seconds each
     ``Scorer`` took to build; the weights that ``--pretrain_dir`` restored
     (``cli/train.py:restore_weights``), checked against the model at the first
     SCST step; and, per parameter, whether any update gave it a non-zero
@@ -2310,7 +2446,8 @@ def record_scst(sync):
     from valor_tpu_torch.train import step as TS
     from valor_tpu_torch.train import trainer as T
 
-    rec = {"parts": [], "scorer_build_s": [], "restored": {}, "first_step_equal": None, "nonzero": None}
+    rec = {"parts": [], "scorer_build_s": [], "restored": {}, "first_step_equal": None, "nonzero": None,
+           "rewards": []}
     saved = (G.Generator.encode, T._decode, S.Scorer.__call__, S.Scorer.__init__, T.scst_update,
              T.Trainer.scst_step, CT.restore_weights, TS.param_grads)
 
@@ -2328,6 +2465,11 @@ def record_scst(sync):
         t0 = time.perf_counter()
         saved[3](self, *a, **kw)
         rec["scorer_build_s"].append(time.perf_counter() - t0)
+
+    def reward(self, ids, hyps):
+        out = saved[2](self, ids, hyps)
+        rec["rewards"].append([float(v) for v in out])
+        return out
 
     def restore(path, step=None):
         payload = saved[6](path, step)
@@ -2350,7 +2492,7 @@ def record_scst(sync):
 
     G.Generator.encode = timed("encode", saved[0])
     T._decode = timed(lambda model, ct, ml, bs, mode, *a: f"{mode}_rollout", saved[1])
-    S.Scorer.__call__ = timed("host_reward", saved[2])
+    S.Scorer.__call__ = timed("host_reward", reward)
     S.Scorer.__init__ = init
     T.scst_update = timed("update", saved[4])
     T.Trainer.scst_step, CT.restore_weights, TS.param_grads = scst_step, restore, grads
@@ -2455,7 +2597,7 @@ def phase_cli_scst(paths: dict, pretrain_dir: str, steps: int = 10, device: str 
     for name in ("encode", "greedy_rollout", "sample_rollout", "host_reward", "update"):
         per_step = [sum(s for p, t0, s in scst["parts"] if p == name and lo <= t0 < hi) for lo, hi in bounds]
         parts[name] = float(np.median(per_step[2:]))
-    timed = step_s[2:]  # steps 3-10: the first two are warm-up
+    timed = step_s[2:]  # the first two steps are warm-up
     median = float(np.median(timed))
     batch_size = cfg.data_train[0].batch_size
     rewards = [h[2][f"scst_reward_{groups[0]}"] for h in history]
@@ -3543,34 +3685,49 @@ def ddp_tiny_step(cfg, batch: dict, gallery: dict, eval_batch: int, shard: int =
     return out
 
 
-def _ddp_tiny_rank(cfg, shards, gallery, eval_batch, device) -> dict:
-    from valor_tpu_torch.parallel import mesh as P
-
-    dp = P.init_data_parallel("gloo", device)
-    return dict(ddp_tiny_step(cfg, shards[dp.rank], gallery, eval_batch, dp.rank, dp.world, device),
-                device=str(dp.device), backend=dp.backend)
-
-
-def phase_ddp_tiny(device: str = "cuda") -> dict:
-    """Phase f (i): the tiny config, fp32, on the card: 2 gloo ranks of 4 rows
-    (``parallel/launch.py:run_local``, each rank rows r::2 of the global
-    batch) against 1 process of 8, one ``pt`` step with dropout and masks
-    drawn; every loss, the grad norm and every updated parameter within
-    ``DDP_TOL`` (absolute and relative, as the tests' ``assert_allclose``);
-    ``validate_ret`` over 9 items (5 and 4 a rank, the last batch ragged)
-    equal to one process's report."""
-    import torch
-
+def ddp_tiny_inputs():
+    """Phase f (i)'s config, global batch of 8 and gallery of 9 items."""
     from valor_tpu_torch.data.synthetic import pretrain_batch, retrieval_batch
-    from valor_tpu_torch.parallel.launch import run_local
 
     cfg = dataclasses.replace(tiny_config(), dropout=0.1, caption_type="unimlm")
-    batch = pretrain_batch(cfg, 8, frames=2, clips=1, n_txt=8, seed=21)
-    gallery = retrieval_batch(cfg, 9, frames=2, clips=1, n_txt=8, seed=22)
+    return (cfg, pretrain_batch(cfg, 8, frames=2, clips=1, n_txt=8, seed=21),
+            retrieval_batch(cfg, 9, frames=2, clips=1, n_txt=8, seed=22))
+
+
+def _worker_tiny(device: str) -> dict:
+    """Phase f (i) on this rank of ``ddp_worker``'s group: its rows r::W of
+    the batch, ``validate_ret`` over its shards of the gallery in batches of 2
+    (TF32 set back as it was for the flows that follow)."""
+    import torch
+
+    from valor_tpu_torch.parallel import mesh as P
+
+    cfg, batch, gallery = ddp_tiny_inputs()
+    r, w = P.rank(), P.world_size()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        out = ddp_tiny_step(cfg, _take(batch, slice(r, None, w)), gallery, 2, r, w, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    return dict(out, params=[p.tolist() for p in out["params"]], device=str(dev),
+                backend=torch.distributed.get_backend())
+
+
+def check_ddp_tiny(ranks: list, device: str = "cuda") -> dict:
+    """Phase f (i): the tiny config, fp32, on the card: 2 gloo ranks of 4 rows
+    (each rank rows r::2 of the global batch; ``ranks``, the first flow of
+    phase f's two-rank launch) against 1 process of 8, one ``pt`` step with
+    dropout and masks drawn; every loss, the grad norm and every updated
+    parameter within ``DDP_TOL`` (absolute and relative, as the tests'
+    ``assert_allclose``); ``validate_ret`` over 9 items (5 and 4 a rank, the
+    last batch ragged) equal to one process's report."""
+    import torch
+
+    cfg, batch, gallery = ddp_tiny_inputs()
     t0 = time.monotonic()
     one = ddp_tiny_step(cfg, batch, gallery, 4, device=device)
-    ranks = run_local(_ddp_tiny_rank, DDP_WORLD, cfg, [_take(batch, slice(r, None, DDP_WORLD))
-                                                       for r in range(DDP_WORLD)], gallery, 2, device, timeout=300)
+    ranks = [dict(r, params=[torch.tensor(p, dtype=torch.float32) for p in r["params"]]) for r in ranks]
     rank_device = "cuda:0" if device == "cuda" else device
     errs = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}  # max |a - b|
     worst = 0.0  # max |a - b| - DDP_TOL * |b|: within DDP_TOL as np.allclose(rtol=atol=DDP_TOL) reads it
@@ -3596,7 +3753,8 @@ def phase_ddp_tiny(device: str = "cuda") -> dict:
         raise AssertionError(f"phase f (i): 2 ranks x 4 against 1 x 8 differ by {errs} (tolerance {DDP_TOL} "
                              "absolute and relative)")
     out = {"world": DDP_WORLD, "backend": "gloo", "losses": one["losses"], "grad_norm": one["grad_norm"],
-           "max_abs_err": errs, "tolerance": DDP_TOL, "report": one["report"], "seconds": time.monotonic() - t0}
+           "max_abs_err": errs, "tolerance": DDP_TOL, "report": one["report"],
+           "one_process_seconds": time.monotonic() - t0}
     log("ddp tiny " + json.dumps(out))
     return out
 
@@ -3615,16 +3773,57 @@ class _Counted:
             yield b
 
 
-def ddp_worker(out_dir: str, argv) -> int:
-    """One process of phase f under ``torch.distributed.run`` (or alone):
-    ``cli.train``'s ``main(argv)`` with this smoke's recorders, the kernel
-    counts set to 0 just before it and read just after, the gradient
-    all-reduce timed between two synchronisations; writes
-    ``<out_dir>/rank<RANK>.json``.  Flags first: ``--deterministic`` runs under
-    ``torch.use_deterministic_algorithms``, ``--no-save`` writes no checkpoint
-    (the run still waits at the save's barrier).  The process's standard error
-    (its native libraries' too) goes to ``<out_dir>/rank<RANK>.err``, with the
-    Python stacks of every thread should the process die on a signal."""
+ZERO_TOL = 1e-5  # phase f (v): ZeRO-1 against the replicated optimizer, absolute and relative (the clip's norm
+# sums the blocks' squares in another order)
+DDP_STEPS = 3  # steps of each full-width run of phase f
+REPLICATED_MOMENT_BYTES = 2 * 4 * 374_089_791  # fp32 mu and nu of VALOR-base's parameters on every rank
+
+
+def state_digest(state) -> dict:
+    """Two wrapping int64 sums of the bits of every tensor a checkpoint
+    holds: "params", the parameters and the counters, the same on every rank;
+    "optimizer", the moments and the accumulator as a checkpoint takes them
+    (under ZeRO-1 gathered whole on rank 0, a collective which every rank
+    calls, and a rank's blocks elsewhere).  Equal digests are equal states,
+    bar a collision."""
+    import torch
+
+    opt = state.optimizer.state_dict()
+    bits_of = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def sums(tensors):
+        out = []
+        for t in tensors:
+            bits = t.detach().contiguous().view(bits_of[t.element_size()]).reshape(-1).long()
+            out += [bits.sum(), (bits * (torch.arange(bits.numel(), device=bits.device) % 65521 + 1)).sum()]
+        return torch.stack(out).tolist()
+
+    counters = [state.step, opt["count"], opt["mini_step"], opt["gradient_step"]]
+    return {"params": sums(state.model.state_dict().values()) + counters,
+            "optimizer": sums(opt["mu"] + opt["nu"] + (opt["acc"] or []))}
+
+
+def _flag(argv, name, default=None):
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
+def ddp_worker(out_dir: str, flows_path: str) -> int:
+    """One process of phase f under ``torch.distributed.run`` (or alone): the
+    flows listed in ``flows_path`` (JSON), one after the other in one process
+    group (joined here once), each ``cli.train``'s ``main`` with this smoke's
+    recorders, the kernel counts set to 0 just before it and read just after,
+    and every collective of the data axis (the gradient all-reduce,
+    ZeRO-1's reduce-scatter and gathers, SCST's gather of the rollouts) timed
+    between two synchronisations; writes ``<out_dir>/rank<RANK>.json``, a
+    summary a flow.  A flow: ``name``; ``argv``, ``cli.train``'s (the first
+    flow's ``--device`` and ``--dist_backend`` set the group's); and, where
+    true, ``deterministic`` (under ``torch.use_deterministic_algorithms``),
+    ``no_save`` (no checkpoint written; the run still meets at the save's
+    barrier), ``scst`` (its parts recorded) and ``digest`` (``state_digest``
+    of the final state; every restore's is recorded always).  The process's
+    standard error (its native libraries' too) goes to
+    ``<out_dir>/rank<RANK>.err``, with the Python stacks of every thread
+    should the process die on a signal."""
     import faulthandler
     import signal
 
@@ -3634,93 +3833,155 @@ def ddp_worker(out_dir: str, argv) -> int:
     faulthandler.register(signal.SIGTERM, err, all_threads=True, chain=True)  # where the launcher stopped it
 
     import torch
-    import torch.distributed as dist
+
+    from valor_tpu_torch.parallel import collectives as C
+    from valor_tpu_torch.parallel import mesh as P
+
+    with open(flows_path) as f:
+        flows = json.load(f)
+    device = _flag(flows[0]["argv"], "--device")
+    cuda = device is None or device.startswith("cuda")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if P.launched():
+        P.init_data_parallel(_flag(flows[0]["argv"], "--dist_backend"), device)
+    timed: dict = {}  # collective -> [(ms, bytes, host start)]
+    names = ("all_reduce_mean_", "reduce_scatter_mean", "all_gather_blocks_", "gather_blocks_", "all_gather_rows")
+    originals = {n: getattr(C, n) for n in names}
+
+    def timer(name, fn):
+        def wrapped(*a, **kw):
+            if not P.is_initialized():  # one process: nothing to reduce
+                return fn(*a, **kw)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            n = out if isinstance(out, int) else (
+                4 * sum(t.numel() for t in a[0]) if name == "reduce_scatter_mean" else 0)
+            timed.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, n, t0))
+            return out
+        return wrapped
+
+    results = {}
+    try:
+        for n, fn in originals.items():
+            setattr(C, n, timer(n, fn))
+        for flow in flows:
+            timed.clear()
+            t0 = time.perf_counter()
+            if flow.get("tiny"):
+                results[flow["name"]] = _worker_tiny(device or "cuda")
+            else:
+                results[flow["name"]] = _worker_flow(flow, cuda, sync, timed)
+            results[flow["name"]]["flow_s"] = time.perf_counter() - t0
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        for n, fn in originals.items():
+            setattr(C, n, fn)
+    rank = P.rank()
+    P.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
+    """One flow of ``ddp_worker``; its summary."""
+    import torch
 
     from valor_tpu_torch.cli.train import main as train_main
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.core.tasks import parse_task
     from valor_tpu_torch.ops.kernels import fine_score as K2
     from valor_tpu_torch.ops.kernels import layernorm as K
-    from valor_tpu_torch.parallel import collectives as C
+    from valor_tpu_torch.parallel import mesh as P
+    from valor_tpu_torch.train import checkpoints as TC
 
-    from valor_tpu_torch.train.checkpoints import ModelSaver
-
-    flags = set()
-    while argv[:1] and argv[0] in ("--deterministic", "--no-save"):
-        flags.add(argv.pop(0))
-    deterministic = "--deterministic" in flags
-    if deterministic:
-        torch.use_deterministic_algorithms(True, warn_only=True)
-    if "--no-save" in flags:
-        ModelSaver._write = lambda self, state, step, best_name: None
-    cuda = "--device" not in argv or argv[argv.index("--device") + 1].startswith("cuda")
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    reduce0, reduces, group = C.all_reduce_mean_, [], {}
-
-    def reduce1(tensors):
-        if not dist.is_initialized():  # one process: nothing to reduce
-            return reduce0(tensors)
-        sync()
-        t0 = time.perf_counter()
-        n = reduce0(tensors)
-        sync()
-        reduces.append(((time.perf_counter() - t0) * 1e3, n))
-        group.setdefault("backend", dist.get_backend())
-        return n
-
-    cfg = load_config(argv[argv.index("--config") + 1])
+    argv = list(flow["argv"])
+    cfg = load_config(_flag(argv, "--config"))
     spec = parse_task(cfg.data_train[0].task)
-    C.all_reduce_mean_ = reduce1
+    write0, load0, restored = TC.ModelSaver._write, TC.load_state, []
+
+    def load1(state, payload):
+        load0(state, payload)
+        restored.append(state_digest(state))
+
+    TC.load_state = load1
+    if flow.get("no_save"):
+        TC.ModelSaver._write = lambda self, payload, step, best_name, bookkeep=True: None
+    torch.use_deterministic_algorithms(bool(flow.get("deterministic")), warn_only=True)
     try:
         with record_trainers(sync, cuda) as runs, record_ln_calls() as (sigs_fwd, sigs_bwd), \
-                record_fine_calls() as fine_calls, record_pt_validations(sync) as calls:
+                record_fine_calls() as fine_calls, record_pt_validations(sync) as calls, \
+                (record_scst(sync) if flow.get("scst") else contextlib.nullcontext()) as scst:
             K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
             trainer = train_main(argv)
             launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
     finally:
-        C.all_reduce_mean_ = reduce0
+        TC.ModelSaver._write, TC.load_state = write0, load0
+        torch.use_deterministic_algorithms(False)
     rec, history = runs[0], list(trainer.history)
-    model = trainer.state.model
-    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    model, opt = trainer.state.model, trainer.state.optimizer
+    world = P.world_size()
     step_s = np.diff([rec["start"]] + rec["stamps"])
     local_batch = cfg.data_train[0].batch_size // world
     median = float(np.median(step_s[1:])) if len(step_s) > 1 else float(step_s[0])
     out = {
-        "rank": rank, "world": world, "backend": group.get("backend", "none (one process)"),
-        "device": str(model.device), "deterministic": deterministic, "steps": len(history),
-        "local_batch": local_batch, "global_batch": cfg.data_train[0].batch_size,
+        "rank": P.rank(), "world": world, "device": str(model.device),
+        "backend": torch.distributed.get_backend() if P.is_initialized() else "none (one process)",
+        "deterministic": bool(flow.get("deterministic")), "steps": len(history),
+        "first_micro_step": history[0][0], "local_batch": local_batch, "global_batch": cfg.data_train[0].batch_size,
         "step_s": [float(v) for v in step_s], "median_step_s": median,
         "samples_per_s_rank": local_batch / median, "samples_per_s_global": local_batch * world / median,
         "max_memory_allocated_gib": rec["peak"] / 2**30,
         "losses": {k: [h[2][k] for h in history] for k in history[0][2]},
-        "allreduce_ms": [t for t, _ in reduces], "allreduce_bytes": sorted({n for _, n in reduces}),
+        "collectives": {k: {"ms": [t for t, _, _ in v], "bytes": sorted({n for _, n, _ in v})}
+                        for k, v in timed.items()},
+        "allreduce_ms": [t for t, _, _ in timed.get("all_reduce_mean_", [])],
+        "allreduce_bytes": sorted({n for _, n, _ in timed.get("all_reduce_mean_", [])}),
         "param_bytes_fp32": 4 * sum(p.numel() for p in model.parameters()),
+        "zero_world": opt.zero_world, "optimizer_state_bytes": opt.state_bytes(),
         "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
         "ln_per_step": expected_train_ln_launches(model, spec),
         "validations": [{"items": n, "seconds": t, "report": rep} for n, t, rep in calls],
         "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
-        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}),
+        "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}), "restored_digests": restored,
+        "digest": state_digest(trainer.state) if flow.get("digest") else None,
     }
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
-    return 0
+    if flow.get("scst"):
+        bounds = list(zip([rec["start"]] + rec["stamps"][:-1], rec["stamps"]))
+        gathers = [(t0, ms / 1e3) for ms, _, t0 in timed.get("all_gather_rows", [])]
+        parts = {}
+        for name in ("encode", "greedy_rollout", "sample_rollout", "host_reward", "update"):
+            parts[name] = [sum(s_ for p, t0, s_ in scst["parts"] if p == name and lo <= t0 < hi) for lo, hi in bounds]
+        parts["gather"] = [sum(s_ for t0, s_ in gathers if lo <= t0 < hi) for lo, hi in bounds]
+        a = trainer.alpha
+        out.update(scst_parts_s=parts, rewards=scst["rewards"], alpha=[a.value(), a.idx, a.sample_total,
+                                                                        a.greedy_total],
+                   restored_params_equal=scst["first_step_equal"], max_len=cfg.model.max_generation_len,
+                   ln_per_step_fwd_bwd=list(expected_scst_ln_launches(model, spec)))
+    del trainer, model, opt
+    return out
 
 
-def run_ranks(nproc, cfg_path: str, out_dir: str, backend=None, deterministic=False, timeout=600,
-              device: str = "cuda", save: bool = True) -> list:
-    """``ddp_worker`` in ``nproc`` ranks under ``python -m torch.distributed.run
-    --standalone`` (``nproc`` None: one process, no launcher); a nonzero exit
-    of the launcher, or of the process, fails the phase, and at ``timeout``
-    the whole process group is killed.  Returns each rank's summary."""
+def run_ranks(nproc, flows: list, out_dir: str, timeout=600) -> list:
+    """``ddp_worker`` over ``flows`` in ``nproc`` ranks under ``python -m
+    torch.distributed.run --standalone`` (``nproc`` None: one process, no
+    launcher); a nonzero exit of the launcher, or of the process, fails the
+    phase, and at ``timeout`` the whole process group is killed.  Returns each
+    rank's summaries, by flow name."""
     import signal
 
     os.makedirs(out_dir, exist_ok=True)
-    worker = [str(ROOT / "chip_smoke.py"), "--ddp-worker", out_dir] + (["--deterministic"] if deterministic else [])
-    worker += [] if save else ["--no-save"]
-    worker += ["--config", cfg_path] + (["--dist_backend", backend] if backend else [])
-    worker += [] if device == "cuda" else ["--device", device]
+    flows_path = os.path.join(out_dir, "flows.json")
+    with open(flows_path, "w") as f:
+        json.dump(flows, f)
+    worker = [str(ROOT / "chip_smoke.py"), "--ddp-worker", out_dir, flows_path]
     launcher = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"] if nproc else []
     log_path = os.path.join(out_dir, "launcher.log")
+    t0 = time.monotonic()
     with open(log_path, "w") as logf:
         proc = subprocess.Popen([sys.executable, *launcher, *worker], stdout=logf, stderr=subprocess.STDOUT,
                                 process_group=0, cwd=str(ROOT))
@@ -3746,159 +4007,269 @@ def run_ranks(nproc, cfg_path: str, out_dir: str, backend=None, deterministic=Fa
     for r in range(nproc or 1):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             out.append(json.load(f))
+    log(f"{nproc or 'one plain'} process(es) of {[f['name'] for f in flows]} in {time.monotonic() - t0:.1f} s; "
+        f"rank 0's flows {[round(out[0][f['name']]['flow_s'], 1) for f in flows]} s")
     return out
 
 
-def phase_ddp_base(paths: dict, steps: int = 5, batch_size: int = 32, val_batch: int = 64, pt=None,
-                   device: str = "cuda", overrides=None) -> dict:
-    """Phase f (ii): ``configs/pretrain-valor-base.json``'s first flow from
-    phase 14's dataset (``paths``) through ``cli.train`` under ``python -m
-    torch.distributed.run --standalone --nproc_per_node 2 ... --dist_backend
-    gloo``, both ranks on the one card: global batch ``batch_size`` (half a
-    rank), ``steps`` steps, then ``validate_pt`` over the evaluation ids.
-    Checks: every loss finite and the same on both ranks (the global batch's),
-    the gradient all-reduce's bytes those of the model's fp32 parameters, the
-    K1 launches of the path on each rank (as phase 18 counts them a step), one
-    K2 launch a fine group on each rank, and equal ``validate_pt`` reports."""
-    from valor_tpu_torch.core.config import load_config
-    from valor_tpu_torch.core.tasks import parse_task
+def _finite(losses: dict) -> bool:
+    return all(np.isfinite(v) for vs in losses.values() for v in vs)
 
-    t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="valor_ddp_") as tmp, \
-            cli_run(paths, tmp, "pretrain-valor-base.json",
-                    lambda raw: first_pt_flow(raw, paths, os.path.join(tmp, "out"), steps, batch_size, val_batch,
-                                              False, overrides)) as cfg_path:
-        cfg = load_config(cfg_path)
-        ranks = run_ranks(DDP_WORLD, cfg_path, os.path.join(tmp, "ranks"), backend="gloo", timeout=900,
-                          device=device)
-        ckpts = sorted(os.listdir(os.path.join(tmp, "out", "ckpt")))
-    spec = parse_task(cfg.data_train[0].task)
-    with open(paths["val_ids"]) as f:
-        n_val = len(json.load(f))
-    fine_groups = spec.contra_groups if cfg.model.contra_type == "fine" else ()
-    reports = [r["validations"][0]["report"] if len(r["validations"]) == 1 else None for r in ranks]
-    for r in ranks:
-        per_step = r["ln_per_step"]
-        val_batches = -(-r["validations"][0]["items"] // (val_batch // DDP_WORLD))
-        want = (per_step * (steps + val_batches), per_step * steps, len(fine_groups)) if device == "cuda" else (0, 0, 0)
-        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
-        if (r["world"], r["backend"], r["device"]) != (DDP_WORLD, "gloo", "cuda:0" if device == "cuda" else device) \
-                or r["steps"] != steps:
-            raise AssertionError(f"phase f (ii) rank {r['rank']}: {r['world']} ranks, {r['backend']} on "
-                                 f"{r['device']}, {r['steps']} steps")
-        if not all(np.isfinite(v) for vs in r["losses"].values() for v in vs) or r["losses"] != ranks[0]["losses"]:
-            raise AssertionError(f"phase f (ii) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
-        if r["allreduce_bytes"] != [r["param_bytes_fp32"]] or len(r["allreduce_ms"]) != steps:
-            raise AssertionError(f"phase f (ii) gradient all-reduce {r['allreduce_bytes']} bytes in "
-                                 f"{len(r['allreduce_ms'])} calls, parameters {r['param_bytes_fp32']}")
-        if got != want:
-            raise AssertionError(f"phase f (ii) rank {r['rank']} launches (ln fwd, ln bwd, fine_score) {got} != {want}")
-        if reports[0] is None or r["validations"][0]["report"] != reports[0] \
-                or not all(np.isfinite(v) for v in reports[0].values()):
-            raise AssertionError(f"phase f (ii) validate_pt reports differ or are missing: {reports}")
-    if sum(r["validations"][0]["items"] for r in ranks) != n_val or ckpts != [f"step_{steps}"]:
-        raise AssertionError(f"phase f (ii): {[r['validations'][0]['items'] for r in ranks]} evaluation items "
-                             f"of {n_val}, checkpoints {ckpts}")
-    step_s = float(np.median([r["median_step_s"] for r in ranks]))
-    summary = {
-        "config": "configs/pretrain-valor-base.json (first train flow)", "task": spec.raw,
-        "launch": f"python -m torch.distributed.run --standalone --nproc_per_node {DDP_WORLD} "
-                  "-m valor_tpu_torch.cli.train ... --dist_backend gloo (through this script's --ddp-worker)",
-        "ranks_on_one_card": DDP_WORLD, "global_batch": batch_size, "steps": steps, "val_items": n_val,
-        "samples_per_s_all": batch_size / step_s,
-        "samples_per_s_by_rank": [r["samples_per_s_rank"] for r in ranks],
-        "median_step_s_by_rank": [r["median_step_s"] for r in ranks],
-        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in ranks],
-        "allreduce_ms_median_by_rank": [float(np.median(r["allreduce_ms"])) for r in ranks],
-        "allreduce_ms_by_rank": [r["allreduce_ms"] for r in ranks],
-        "allreduce_bytes_a_step": ranks[0]["allreduce_bytes"][0],
-        "params": ranks[0]["param_bytes_fp32"] // 4,
-        "ln_per_step": ranks[0]["ln_per_step"], "phase18_ln_per_step": (pt or {}).get("ln_per_step"),
-        "layernorm_launches_fwd_bwd_by_rank": [r["layernorm_launches_fwd_bwd"] for r in ranks],
-        "fine_score_launches_by_rank": [r["fine_score_launches"] for r in ranks],
-        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in ranks], "report": reports[0],
-        "losses": ranks[0]["losses"], "seconds": time.monotonic() - t0,
+
+def _launch_summary(ranks: list) -> dict:
+    """The kernel launches and shapes of a path's ranks, summed."""
+    return {
         "layernorm_launches_fwd_bwd": [sum(r["layernorm_launches_fwd_bwd"][i] for r in ranks) for i in (0, 1)],
         "fine_score_launches": sum(r["fine_score_launches"] for r in ranks),
         "layernorm_calls": sorted({tuple(c) for r in ranks for c in r["layernorm_calls"]}),
         "layernorm_bwd_calls": sorted({tuple(c) for r in ranks for c in r["layernorm_bwd_calls"]}),
         "fine_score_calls": sorted({tuple(c) for r in ranks for c in r["fine_score_calls"]}),
     }
-    if pt:
-        summary["phase18_samples_per_s"] = pt["samples_per_s"]
-    log("ddp base " + json.dumps({k: v for k, v in summary.items() if not k.endswith("_calls")}))
-    return summary
 
 
-def phase_ddp_nccl(steps: int = 3, batch_size: int = 32, device: str = "cuda", backend: str = "nccl",
-                   overrides=None, fixture=None) -> dict:
-    """Phase f (iii): the same path at ``--nproc_per_node 1 --dist_backend
-    nccl`` (the gradient all-reduce through NCCL) against a plain one-process
-    ``cli.train`` run of the same batches, both under
-    ``torch.use_deterministic_algorithms``: every loss of every step within
-    ``NCCL_TOL``.  Its dataset draws nothing at random on the host (one caption
-    an id, 4 frames and one audio clip an item), so the two runs train on the
-    same batches; neither writes its checkpoint (phase f (ii) saves)."""
+def check_ddp_base(ranks: list, steps: int, val_batch: int, n_val: int, device: str, ckpts) -> None:
+    """Phase f (ii)'s gates on its ranks' summaries."""
+    for r in ranks:
+        per_step = r["ln_per_step"]
+        val_batches = -(-r["validations"][0]["items"] // (val_batch // DDP_WORLD))
+        want = (per_step * (steps + val_batches), per_step * steps, 3) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["backend"], r["device"]) != (DDP_WORLD, "gloo", "cuda:0" if device == "cuda" else device) \
+                or r["steps"] != steps:
+            raise AssertionError(f"phase f (ii) rank {r['rank']}: {r['world']} ranks, {r['backend']} on "
+                                 f"{r['device']}, {r['steps']} steps")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"phase f (ii) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
+        if r["allreduce_bytes"] != [r["param_bytes_fp32"]] or len(r["allreduce_ms"]) != steps:
+            raise AssertionError(f"phase f (ii) gradient all-reduce {r['allreduce_bytes']} bytes in "
+                                 f"{len(r['allreduce_ms'])} calls, parameters {r['param_bytes_fp32']}")
+        if got != want:
+            raise AssertionError(f"phase f (ii) rank {r['rank']} launches (ln fwd, ln bwd, fine_score) {got} != {want}")
+        rep = r["validations"][0]["report"] if len(r["validations"]) == 1 else None
+        if rep is None or rep != ranks[0]["validations"][0]["report"] or not all(np.isfinite(v) for v in rep.values()):
+            raise AssertionError(f"phase f (ii) validate_pt reports differ or are missing: {r['validations']}")
+    if sum(r["validations"][0]["items"] for r in ranks) != n_val or ckpts:
+        raise AssertionError(f"phase f (ii): {[r['validations'][0]['items'] for r in ranks]} evaluation items "
+                             f"of {n_val}, checkpoints {ckpts}")
+
+
+def check_ddp_zero(ranks: list, base: list, steps: int, device: str, ckpts) -> dict:
+    """Phase f (v)'s gates: ZeRO-1 at two ranks against f (ii)'s replicated
+    ranks on the same batches and draws; returns the largest differences."""
+    worst, err = 0.0, 0.0
+    for r, b in zip(ranks, base):
+        per_step = r["ln_per_step"]
+        want = (per_step * steps, per_step * steps, 0) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["zero_world"], r["steps"]) != (DDP_WORLD, DDP_WORLD, steps) or got != want:
+            raise AssertionError(f"phase f (v) rank {r['rank']}: {r['world']} ranks, ZeRO over {r['zero_world']}, "
+                                 f"{r['steps']} steps, launches {got} != {want}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"] or r["losses"].keys() != b["losses"].keys():
+            raise AssertionError(f"phase f (v) losses of rank {r['rank']}: {r['losses']}")
+        for k, vs in b["losses"].items():
+            for x, y in zip(r["losses"][k], vs):
+                err, worst = max(err, abs(x - y)), max(worst, abs(x - y) - ZERO_TOL * abs(y))
+        if not (0 < r["optimizer_state_bytes"] < b["optimizer_state_bytes"]):
+            raise AssertionError(f"phase f (v) rank {r['rank']} holds {r['optimizer_state_bytes']} optimizer bytes, "
+                                 f"the replicated rank {b['optimizer_state_bytes']}")
+        if not {"reduce_scatter_mean", "all_gather_blocks_"} <= set(r["collectives"]):
+            raise AssertionError(f"phase f (v) rank {r['rank']} collectives {sorted(r['collectives'])}")
+        if r["digest"]["params"] != ranks[0]["digest"]["params"]:
+            raise AssertionError("phase f (v): the two ranks' final parameters or counters differ")
+    if worst > ZERO_TOL or ckpts != [f"step_{steps}"]:
+        raise AssertionError(f"phase f (v): ZeRO-1 losses differ from the replicated ones by {err} (tolerance "
+                             f"{ZERO_TOL} absolute and relative); checkpoints {ckpts}")
+    return {"max_abs_loss_err": err, "tolerance": ZERO_TOL}
+
+
+def check_ddp_scst(ranks: list, steps: int, device: str) -> None:
+    """Phase f (iv)'s gates: the same alpha and rewards on both ranks, finite
+    losses, the caption run's weights at the first step, the launches of the
+    path on each rank."""
+    for r in ranks:
+        per_fwd, per_bwd = r["ln_per_step_fwd_bwd"]
+        want = (per_fwd * steps, per_bwd * steps, 0) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["steps"]) != (DDP_WORLD, steps) or got != want or not r["restored_params_equal"]:
+            raise AssertionError(f"phase f (iv) rank {r['rank']}: {r['world']} ranks, {r['steps']} steps, launches "
+                                 f"{got} != {want}, restored weights equal {r['restored_params_equal']}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"phase f (iv) losses of rank {r['rank']}: {r['losses']}")
+        if r["alpha"] != ranks[0]["alpha"] or r["rewards"] != ranks[0]["rewards"]:
+            raise AssertionError(f"phase f (iv) alpha {r['alpha']} or rewards differ from rank 0's {ranks[0]['alpha']}")
+        if any(len(x) != r["global_batch"] for x in r["rewards"]) or len(r["rewards"]) != 2 * steps:
+            raise AssertionError(f"phase f (iv) rank {r['rank']}: {[len(x) for x in r['rewards']]} rewards a call")
+
+
+def cli_config(paths: dict, tmp: str, name: str, label: str, edit) -> str:
+    """``configs/<name>`` with ``edit(raw)`` applied, written under ``tmp`` as
+    ``config_<label>.json``; its path (``cli_run`` without the environment,
+    for configs that one launch runs together)."""
+    raw = json.loads((ROOT / "configs" / name).read_text())
+    edit(raw)
+    path = os.path.join(tmp, f"config_{label}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+@contextlib.contextmanager
+def env_for(paths: dict):
+    """The tokenizer paths of ``paths`` (every synthetic dataset writes the
+    same files) and no public encoder weights, in the environment inside the
+    block."""
+    keys = ("VALOR_BERT_VOCAB", "VALOR_CLIP_BPE", "VALOR_PRETRAINED_DIR")
+    env0 = {k: os.environ.get(k) for k in keys}
+    os.environ.update(VALOR_BERT_VOCAB=paths["vocab"], VALOR_CLIP_BPE=paths["merges"],
+                      VALOR_PRETRAINED_DIR=os.path.join(os.path.dirname(paths["vocab"]), "no_public_weights"))
+    try:
+        yield
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", overrides=None,
+              fixture=None, scst_overrides=None, steps: int = DDP_STEPS, batch_size: int = 32,
+              val_batch: int = 64, n_val: int = 64) -> dict:
+    """Phase f: (i), then (ii), (v) and (iv) in one launch of two gloo ranks,
+    then (iii), (v)'s checkpoint resumed at one NCCL rank and in a plain
+    process; a summary a path.  (ii) and (v) train on a dataset written here
+    that draws nothing at random on the host (one caption an id, 4 frames and
+    one audio clip an item), the same batches in both, and (iii) trains on it
+    too; (iv)
+    takes phase 15's dataset (``cap_paths``) and caption run (``cap_run``).
+    ``device``, ``overrides``, ``fixture`` and ``scst_overrides`` shrink the
+    runs for a CPU rehearsal (``device`` "cpu", gloo in place of NCCL)."""
+    import torch
+
     from valor_tpu_torch.data.synthetic import write_retrieval_dataset
 
     t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="valor_nccl_") as tmp:
-        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=steps * batch_size, n_val=8,
-                                        **dict(dict(n_frames=4, wav_seconds=4.0, captions_per_train_id=1),
-                                               **(fixture or {})))
-        runs = {}
-        for name, nproc, group in (("nccl", 1, backend), ("plain", None, None)):
-            with cli_run(paths, tmp, "pretrain-valor-base.json",
-                         lambda raw: first_pt_flow(raw, paths, os.path.join(tmp, f"out_{name}"), steps, batch_size,
-                                                   None, False, overrides)) as cfg_path:
-                runs[name], = run_ranks(nproc, cfg_path, os.path.join(tmp, name), backend=group,
-                                        deterministic=True, timeout=600, device=device, save=False)
-    nccl, plain = runs["nccl"], runs["plain"]
-    if (nccl["backend"], nccl["world"], len(nccl["allreduce_ms"])) != (backend, 1, steps) or plain["allreduce_ms"]:
-        raise AssertionError(f"phase f (iii): {nccl['backend']} at {nccl['world']} ranks, "
-                             f"{len(nccl['allreduce_ms'])} NCCL all-reduces; the plain run "
-                             f"{len(plain['allreduce_ms'])}")
-    if nccl["losses"].keys() != plain["losses"].keys() or nccl["steps"] != steps:
-        raise AssertionError(f"phase f (iii) losses {nccl['losses']} against {plain['losses']}")
-    err = max(abs(a - b) for k in plain["losses"] for a, b in zip(nccl["losses"][k], plain["losses"][k]))
-    if err > NCCL_TOL or not all(np.isfinite(v) for vs in nccl["losses"].values() for v in vs):
-        raise AssertionError(f"phase f (iii) NCCL losses differ from one process's by {err}: "
-                             f"{nccl['losses']} against {plain['losses']}")
-    summary = {
+    cuda = device == "cuda"
+    if cuda:
+        free, total = torch.cuda.mem_get_info()
+        with open("/proc/meminfo") as f:
+            host_free = next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith("MemAvailable"))
+        log(f"phase f starts: card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, this process holding "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB; host {host_free / 2**30:.2f} GiB available; "
+            f"{shutil.disk_usage(tempfile.gettempdir()).free / 2**30:.2f} GiB free in {tempfile.gettempdir()}")
+    out = {}
+    dev = [] if cuda else ["--device", device]
+    with tempfile.TemporaryDirectory(prefix="valor_ddp_") as tmp:
+        data = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=steps * batch_size, n_val=n_val,
+                                       **dict(dict(n_frames=4, wav_seconds=4.0, captions_per_train_id=1),
+                                              **(fixture or {})))
+        written_s = time.monotonic() - t0
+
+        def pt_config(name, val):
+            return cli_config(data, tmp, "pretrain-valor-base.json", name, lambda raw: first_pt_flow(
+                raw, data, os.path.join(tmp, name), steps, batch_size, val, False, overrides))
+
+        def scst_edit(raw):
+            point_at(raw, cap_paths)
+            raw["data_cfg"]["val"] = []
+            raw["data_cfg"]["train"][0]["batch_size"] = batch_size
+            raw.update(output_dir=os.path.join(tmp, "scst"), num_train_steps=steps, valid_steps=0,
+                       first_eval=False, **(scst_overrides or overrides or {}))
+
+        base_cfg, zero_cfg = pt_config("base", val_batch), pt_config("zero", None)
+        scst_cfg = cli_config(cap_paths, tmp, "caption-msrvtt.json", "scst", scst_edit)
+        gloo = ["--dist_backend", "gloo", *dev]
+        with env_for(data):
+            two = run_ranks(DDP_WORLD, [
+                {"name": "tiny", "argv": gloo, "tiny": True},
+                {"name": "base", "argv": ["--config", base_cfg, *gloo], "deterministic": True, "no_save": True},
+                {"name": "zero", "argv": ["--config", zero_cfg, "--zero_optimizer", "true", "--async_checkpoint",
+                                          "true", *gloo], "deterministic": True, "digest": True},
+                {"name": "scst", "argv": ["--config", scst_cfg, "--scst_finetuning", "true", "--pretrain_dir",
+                                          cap_run, *gloo], "scst": True, "no_save": True},
+            ], os.path.join(tmp, "two"), timeout=900)
+            ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt"))) for k in ("base", "zero")}
+            # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps
+            resume = ["--resume", "true", "--num_train_steps", str(2 * steps), "--zero_optimizer", "true"]
+            one = {}
+            for name, nproc, group in (("nccl", 1, ["--dist_backend", "nccl" if cuda else "gloo"]),
+                                       ("plain", None, [])):
+                one[name], = run_ranks(nproc, [
+                    {"name": "resume", "argv": ["--config", zero_cfg, *resume, *group, *dev], "deterministic": True,
+                     "no_save": True},
+                ], os.path.join(tmp, name), timeout=600)
+    out["ddp_tiny"] = check_ddp_tiny([r["tiny"] for r in two], device)
+    base, zero, scst = ([r[k] for r in two] for k in ("base", "zero", "scst"))
+    check_ddp_base(base, steps, val_batch, n_val, device, ckpts["base"])
+    zero_err = check_ddp_zero(zero, base, steps, device, ckpts["zero"])
+    check_ddp_scst(scst, steps, device)
+    n0, p0 = one["nccl"]["resume"], one["plain"]["resume"]
+    if (n0["world"], len(n0["allreduce_ms"]), p0["allreduce_ms"]) != (1, n0["steps"], []) \
+            or n0["losses"].keys() != p0["losses"].keys() or not _finite(n0["losses"]):
+        raise AssertionError(f"phase f (iii): {n0['backend']} at {n0['world']} ranks, {len(n0['allreduce_ms'])} "
+                             f"all-reduces, losses {n0['losses']} against {p0['losses']}")
+    nccl_err = max(abs(x - y) for k in p0["losses"] for x, y in zip(n0["losses"][k], p0["losses"][k]))
+    if nccl_err > NCCL_TOL:
+        raise AssertionError(f"phase f (iii): NCCL losses differ from one process's by {nccl_err}")
+    if n0["layernorm_launches_fwd_bwd"] != [n0["ln_per_step"] * n0["steps"] * cuda] * 2:
+        raise AssertionError(f"phase f (iii) launches {n0['layernorm_launches_fwd_bwd']}")
+    for r in (n0, p0):
+        if r["restored_digests"] != [zero[0]["digest"]] or r["steps"] != steps or r["first_micro_step"] != steps + 1:
+            raise AssertionError(f"phase f (v): a resume at one process restored another state than the two "
+                                 f"ZeRO ranks saved, or ran {r['steps']} steps from {r['first_micro_step']}")
+    if (n0["zero_world"], p0["zero_world"], sorted(n0["collectives"])) != (0, 0, ["all_reduce_mean_"]):
+        raise AssertionError(f"phase f (iii): ZeRO over {n0['zero_world']} and {p0['zero_world']} ranks, "
+                             f"collectives {sorted(n0['collectives'])} (one rank is the replicated optimizer)")
+    b0, z0, s0 = base[0], zero[0], scst[0]
+    out["ddp_train"] = dict(_launch_summary(base), **{
+        "config": "configs/pretrain-valor-base.json (first train flow)", "task": "pt (first flow)",
+        "launch": f"python -m torch.distributed.run --standalone --nproc_per_node {DDP_WORLD} "
+                  "-m valor_tpu_torch.cli.train ... --dist_backend gloo (through this script's --ddp-worker)",
+        "ranks_on_one_card": DDP_WORLD, "global_batch": batch_size, "steps": steps, "val_items": n_val,
+        "deterministic": True, "samples_per_s_all": batch_size / float(np.median([r["median_step_s"] for r in base])),
+        "samples_per_s_by_rank": [r["samples_per_s_rank"] for r in base],
+        "median_step_s_by_rank": [r["median_step_s"] for r in base],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in base],
+        "allreduce_ms_by_rank": [r["allreduce_ms"] for r in base], "allreduce_bytes_a_step": b0["allreduce_bytes"][0],
+        "params": b0["param_bytes_fp32"] // 4, "optimizer_state_bytes_by_rank": [r["optimizer_state_bytes"] for r in base],
+        "ln_per_step": b0["ln_per_step"], "phase18_ln_per_step": (pt or {}).get("ln_per_step"),
+        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in base],
+        "report": b0["validations"][0]["report"], "losses": b0["losses"], "dataset_written_s": written_s})
+    out["ddp_zero_train"] = dict(_launch_summary(zero), **zero_err, **{
+        "config": "phase f (ii)'s, --zero_optimizer true --async_checkpoint true", "steps": steps,
+        "losses": z0["losses"], "replicated_losses": b0["losses"],
+        "optimizer_state_bytes_by_rank": [r["optimizer_state_bytes"] for r in zero],
+        "replicated_optimizer_state_bytes": b0["optimizer_state_bytes"],
+        "replicated_moment_bytes_valor_base": REPLICATED_MOMENT_BYTES,
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in zero],
+        "replicated_max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in base],
+        "median_step_s_by_rank": [r["median_step_s"] for r in zero],
+        "collectives_by_rank": [r["collectives"] for r in zero],
+        "resume_losses_nccl": n0["losses"], "resume_losses_plain": p0["losses"],
+        "resume_max_abs_loss_err": nccl_err, "resume_restored_equals_saved": True})
+    out["ddp_scst_train"] = dict(_launch_summary(scst), **{
+        "config": "configs/caption-msrvtt.json --scst_finetuning true (phase 15's run)", "steps": steps,
+        "global_batch": batch_size, "max_len": s0.get("max_len"), "losses": s0["losses"], "alpha": s0["alpha"],
+        "mean_reward_by_call": [float(np.mean(x)) for x in s0["rewards"]],
+        "step_s_by_rank": [r["step_s"] for r in scst], "scst_parts_s_by_rank": [r["scst_parts_s"] for r in scst],
+        "gather_ms_by_rank": [r["collectives"].get("all_gather_rows", {}).get("ms") for r in scst],
+        "allreduce_ms_by_rank": [r["allreduce_ms"] for r in scst],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in scst]})
+    out["ddp_nccl_train"] = dict(_launch_summary([n0]), **{
         "launch": "python -m torch.distributed.run --standalone --nproc_per_node 1 -m valor_tpu_torch.cli.train "
                   "... --dist_backend nccl (through this script's --ddp-worker)",
-        "steps": steps, "batch": batch_size, "max_abs_loss_err": err, "tolerance": NCCL_TOL,
-        "losses": nccl["losses"], "allreduce_ms": nccl["allreduce_ms"],
-        "allreduce_ms_median": float(np.median(nccl["allreduce_ms"])),
-        "allreduce_bytes_a_step": nccl["allreduce_bytes"][0],
-        "samples_per_s": nccl["samples_per_s_global"], "plain_samples_per_s": plain["samples_per_s_global"],
-        "max_memory_allocated_gib": nccl["max_memory_allocated_gib"],
-        "plain_max_memory_allocated_gib": plain["max_memory_allocated_gib"], "seconds": time.monotonic() - t0,
-        "layernorm_launches_fwd_bwd": nccl["layernorm_launches_fwd_bwd"],
-        "fine_score_launches": nccl["fine_score_launches"],
-        "layernorm_calls": nccl["layernorm_calls"], "layernorm_bwd_calls": nccl["layernorm_bwd_calls"],
-        "fine_score_calls": nccl["fine_score_calls"],
-    }
-    if summary["layernorm_launches_fwd_bwd"] != [nccl["ln_per_step"] * steps * (device == "cuda")] * 2:
-        raise AssertionError(f"phase f (iii) launches {summary['layernorm_launches_fwd_bwd']}, "
-                             f"{nccl['ln_per_step']} a step")
-    log("ddp nccl " + json.dumps({k: v for k, v in summary.items() if not k.endswith("_calls")}))
-    return summary
-
-
-def phase_ddp(paths: dict, pt=None) -> dict:
-    """Phase f: (i), (ii) and (iii); {path name: summary}."""
-    import torch
-
-    t0 = time.monotonic()
-    free, total = torch.cuda.mem_get_info()
-    with open("/proc/meminfo") as f:
-        host_free = next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith("MemAvailable"))
-    log(f"phase f starts: card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, this process holding "
-        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB; host {host_free / 2**30:.2f} GiB available; "
-        f"{shutil.disk_usage(tempfile.gettempdir()).free / 2**30:.2f} GiB free in {tempfile.gettempdir()}")
-    out = {"ddp_tiny": phase_ddp_tiny(), "ddp_train": phase_ddp_base(paths, pt=pt), "ddp_nccl_train": phase_ddp_nccl()}
-    log(f"phase f took {time.monotonic() - t0:.1f} s")
+        "start": "(v)'s checkpoint, --resume true --zero_optimizer true",
+        "steps": steps, "batch": batch_size, "max_abs_loss_err": nccl_err, "tolerance": NCCL_TOL,
+        "losses": n0["losses"], "allreduce_ms": n0["allreduce_ms"],
+        "allreduce_ms_median": float(np.median(n0["allreduce_ms"])), "allreduce_bytes_a_step": n0["allreduce_bytes"][0],
+        "samples_per_s": n0["samples_per_s_global"], "plain_samples_per_s": p0["samples_per_s_global"],
+        "max_memory_allocated_gib": n0["max_memory_allocated_gib"],
+        "plain_max_memory_allocated_gib": p0["max_memory_allocated_gib"], "collectives": n0["collectives"]})
+    out["seconds"] = time.monotonic() - t0
+    for k, v in out.items():
+        if isinstance(v, dict) and k != "ddp_tiny":
+            log(f"{k} " + json.dumps({kk: vv for kk, vv in v.items() if not kk.endswith("_calls")}))
+    log(f"phase f took {out['seconds']:.1f} s")
     return out
 
 
@@ -3973,24 +4344,28 @@ def families_alone() -> None:
 
 
 def ddp_alone() -> None:
-    """Phases 1 and f, on a dataset of phase 14's evaluation ids (and as many
-    training ids as phase f's five steps take) written for them, then phase 9
-    over every shape that phase f's paths handed the kernels."""
-    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+    """Phases 1 and f alone, on a caption dataset of phase 15's shape (64
+    training and 8 evaluation ids) and a caption run of the sharp init law's
+    weights (``data/synthetic.py:write_sharp_init_run``) written for phase f (iv),
+    then phase 9 over every shape that phase f's paths handed the kernels."""
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.data.synthetic import write_caption_dataset, write_sharp_init_run
 
     phase_card_and_build()
     with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
-        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=160, n_val=256)
-        ddp = phase_ddp(paths)
-    phase_path_shapes([ddp["ddp_train"], ddp["ddp_nccl_train"]], [], [], [])
+        cap = write_caption_dataset(os.path.join(tmp, "cap"), 64, 8)
+        run = write_sharp_init_run(os.path.join(tmp, "cap_run"),
+                             load_config(str(ROOT / "configs" / "caption-msrvtt.json")).model)
+        ddp = phase_ddp(cap, run)
+    phase_path_shapes([v for k, v in ddp.items() if k not in ("ddp_tiny", "seconds")], [], [], [])
 
 
 def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
-    if args[:1] == ["--ddp-worker"] and len(args) > 2:
-        return ddp_worker(args[1], args[2:])
+    if args[:1] == ["--ddp-worker"] and len(args) == 3:
+        return ddp_worker(args[1], args[2])
     if args not in ([], ["--phase18"], ["--families"], ["--ddp"]):
         print("usage: python3 chip_smoke.py [--phase18 | --families | --ddp]", file=sys.stderr)
         return 2
@@ -4009,7 +4384,7 @@ def main(argv=None) -> int:
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.models.bridge import init_params, load_model
 
-    phase_card_and_build()
+    smi = phase_card_and_build()
     ln_rows = phase_layernorm()
     phase_card_vs_cpu()
 
@@ -4050,7 +4425,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         phase_scst_prompt_card_vs_cpu()
-        scst = phase_cli_scst(cap["paths"], cap["output_dir"], synthetic=cap)
+        scst = phase_cli_scst(cap["paths"], cap["output_dir"], steps=6, synthetic=cap)
         gc.collect()
         torch.cuda.empty_cache()
         pt = phase_cli_pt_prompts(cli["paths"], synthetic=pretrain)
@@ -4059,18 +4434,18 @@ def main(argv=None) -> int:
         infer = phase_extract_infer(cap["paths"], cap["output_dir"], root=os.path.join(work.name, "video"))
         serve_video = phase_serve_video(cap["paths"], cap["output_dir"], infer["clip_paths"])
         weights = phase_weights_in(cap["paths"])
-        shutil.rmtree(cap["output_dir"])
         gc.collect()
         torch.cuda.empty_cache()
+        ddp = phase_ddp(cap["paths"], cap["output_dir"], pt)
+        shutil.rmtree(cap["output_dir"])
         families = phases_families(cli["paths"], cap["paths"], pt)
         gc.collect()
         torch.cuda.empty_cache()
-        ddp = phase_ddp(cli["paths"], pt)
         phase_decoder(cli["paths"])
     finally:
         work.cleanup()
     family_paths = {k: v for k, v in families.items() if k != "families_card_vs_cpu"}
-    ddp_paths = {k: v for k, v in ddp.items() if k != "ddp_tiny"}
+    ddp_paths = {k: v for k, v in ddp.items() if k not in ("ddp_tiny", "seconds")}
     shapes = phase_path_shapes([serving, pretrain, retrieval, cli, cap, qa, scst, infer, serve_video, weights, pt,
                                 *family_paths.values(), *ddp_paths.values()], ln_rows, bwd_rows, fs_rows)
 
@@ -4085,6 +4460,7 @@ def main(argv=None) -> int:
                    **{k: v["layernorm_launches_fwd_bwd"][0] for k, v in trained.items()})
     bwd_by_path = dict(**{k: 0 for k in served}, **{k: v["layernorm_launches_fwd_bwd"][1] for k, v in trained.items()})
     fs_by_path = dict(**{k: 0 for k in served}, **{k: v.get("fine_score_launches", 0) for k, v in trained.items()})
+    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": [{
         "name": "layernorm_fwd", "route": "cuda",
         "source": "valor_tpu_torch/csrc/layernorm.cu",

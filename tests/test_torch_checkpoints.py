@@ -148,6 +148,7 @@ class TestModelSaver:
         saver = tck.ModelSaver(str(tmp_path), use_async=True)
         saver.save(state, 1)
         saver.finish()
+        assert saver.use_async and [s for s, _, _ in saver.writes] == [1]  # written in the background
         assert saver.restore()["step"] == 1
 
     def test_optimizer_state_must_match(self):

@@ -168,11 +168,11 @@ def _refused(data, argv):
 
 @pytest.mark.parametrize("extra,error", [
     (["--model_shards", "2"], "NotImplementedError: model_shards across 2 processes: ROADMAP item 13"),
-    (["--scst_finetuning", "true"], "NotImplementedError: scst_finetuning across 2 processes: ROADMAP item 13"),
+    (["--fsdp", "true"], "NotImplementedError: fsdp across 2 processes: ROADMAP item 13b"),
     (["--dist_backend", "nccl"], "ValueError: --dist_backend nccl needs a CUDA device"),
 ])
 def test_two_ranks_refuse(data, tmp_path, extra, error):
-    """Another mesh axis and SCST across ranks raise, as does NCCL on the CPU:
+    """Another mesh axis and FSDP across ranks raise, as does NCCL on the CPU:
     nothing is silently ignored, and no backend switched."""
     cfg_path = _config(data, tmp_path / "config.json", str(tmp_path / "out"), [])
     for got in run_local(_refused, WORLD, data, ["--config", cfg_path] + extra, timeout=LIMIT):

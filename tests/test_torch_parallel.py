@@ -189,6 +189,22 @@ def test_init_refuses_what_cannot_run(monkeypatch, backend, device, error):
     assert not P.is_initialized()
 
 
+def test_init_inside_a_joined_group_leaves_it_up(monkeypatch, tmp_path):
+    """A process that joined the group already (several runs in one launch)
+    gets its place in it; another backend than the group's raises."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        assert P.init_data_parallel(None, "cpu") == P.DataParallel(0, 1, 0, "gloo", torch.device("cpu"))
+        with pytest.raises(ValueError, match="the process group runs gloo"):
+            P.init_data_parallel("nccl", "cpu")
+        assert P.is_initialized()
+    finally:
+        dist.destroy_process_group()
+
+
 def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -209,12 +225,18 @@ def test_local_batch_size():
 @pytest.mark.parametrize("knob", ["model_shards", "fusion_pipeline_stages", "sequence_parallel", "fsdp",
                                   "zero_optimizer", "scst_finetuning"])
 def test_other_axes_are_refused_across_processes(knob):
+    """The axes past the data axis raise across processes, each naming its
+    part of ROADMAP item 13; ZeRO-1 and SCST, which the data axis now runs,
+    are accepted."""
     from valor_tpu_torch.core.config import load_config
 
     value = {"model_shards": 2, "fusion_pipeline_stages": 2}.get(knob, True)
     cfg = load_config(None, {knob: value})
     P.check_data_parallel(cfg, 1)  # read and ignored by one process
-    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP item 13"):
+    if knob in ("zero_optimizer", "scst_finetuning"):
+        P.check_data_parallel(cfg, 2)
+        return
+    with pytest.raises(NotImplementedError, match=f"{knob} across 2 processes: ROADMAP item 13[b-e]"):
         P.check_data_parallel(cfg, 2)
 
 

@@ -220,16 +220,17 @@ def initialize_encoder_weights(mcfg: ModelConfig, state_dict):
 
 
 def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, device=None):
-    """Weights for ``VALORModel(model_cfg)`` on ``device``: random from seed 0,
-    then, with ``checkpoint`` (one of the port's run directories), the
-    parameters of its latest ``ckpt/step_N`` shape-adapted over them
-    (``cli/train.py:restore_weights``, which raises ``FileNotFoundError`` where
-    the path or the checkpoint is missing)."""
+    """Weights for ``VALORModel(model_cfg)`` on ``device``: random from seed 0
+    by the JAX package's initializers (``models/bridge.py:init_params``), then,
+    with ``checkpoint`` (one of the port's run directories), the parameters of
+    its latest ``ckpt/step_N`` shape-adapted over them
+    (``cli/train.py:restore_weights``, which raises ``FileNotFoundError``
+    where the path or the checkpoint is missing)."""
     from valor_tpu_torch.cli.train import restore_weights
     from valor_tpu_torch.models.bridge import init_params
     from valor_tpu_torch.train.checkpoints import adapt_pretrained_params
 
-    sd = init_params(model_cfg, 0, device)
+    sd = init_params(model_cfg, 0, device, law="jax")
     if checkpoint:
         sd = adapt_pretrained_params(restore_weights(checkpoint)["params"], sd)
     return sd
@@ -237,13 +238,14 @@ def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, devi
 
 def build_model_and_state(cfg: Config, device):
     """A training ``TrainState`` on ``device``: seeded weights
-    (``models/bridge.py:init_params`` from ``cfg.train.seed``), the encoder
-    weight lookup, and ``GroupedAdam`` over the model's parameters."""
+    (``models/bridge.py:init_params`` from ``cfg.train.seed``, by the JAX
+    package's initializers), the encoder weight lookup, and ``GroupedAdam``
+    over the model's parameters."""
     from valor_tpu_torch.models.bridge import init_params, train_model
     from valor_tpu_torch.train.optimizer import build_optimizer
     from valor_tpu_torch.train.step import TrainState
 
-    sd = initialize_encoder_weights(cfg.model, init_params(cfg.model, seed=cfg.train.seed, device=device))
+    sd = initialize_encoder_weights(cfg.model, init_params(cfg.model, seed=cfg.train.seed, device=device, law="jax"))
     model = train_model(cfg.model, sd, device)
     n_params = sum(p.numel() for p in model.parameters())
     LOGGER.info(f"model has {n_params / 1e6:.1f}M params")

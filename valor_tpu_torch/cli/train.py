@@ -39,10 +39,18 @@ a card and gloo with ``--device cpu``; gloo also shares one card between ranks,
 which NCCL refuses), each rank takes ``cuda:$LOCAL_RANK``, its shard of every
 global batch (``batch_size`` is global) and of every evaluation set, and the
 step's losses, gradients and updates are those of one process on the global
-batch; rank 0 writes ``hps.json``, the log, ``tb/`` and the checkpoints.  The
-other mesh knobs and SCST are refused across processes
+batch; rank 0 writes ``hps.json``, the log, ``tb/`` and the checkpoints.  SCST
+runs across processes (each rank decodes its rows, every rank rewards the
+global batch), and so does ``--zero_optimizer true`` (ZeRO-1: the optimizer
+state split over the ranks, ``train/optimizer.py``); the other mesh knobs
+(``fsdp``, ``model_shards``, ``fusion_pipeline_stages``,
+``sequence_parallel``) are refused across processes
 (``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
-it runs one process, as before.  ``prng_impl`` and ``VALOR_DEBUG_NANS`` have no
+it runs one process, as before; where the caller has joined the group already
+(several runs in one launch), ``main`` runs in it and leaves it up.
+``--async_checkpoint true`` writes checkpoints in the background
+(``train/checkpoints.py``).  Untrained weights are drawn by the JAX package's
+initializers (``models/bridge.py:init_params(law="jax")``).  ``prng_impl`` and ``VALOR_DEBUG_NANS`` have no
 counterpart here.
 """
 
@@ -60,7 +68,7 @@ from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
 from valor_tpu_torch.parallel.mesh import (
-    check_data_parallel, init_data_parallel, launched, rank, shutdown, world_size,
+    check_data_parallel, init_data_parallel, is_initialized, launched, rank, shutdown, world_size,
 )
 
 
@@ -172,13 +180,15 @@ def main(argv=None):
     dev_args, argv = pre.parse_known_args(argv)
     if not launched():
         return _run(argv, resolve_device(dev_args.device))
+    joined = is_initialized()  # the caller's group (several runs in one launch) is left up
     dp = init_data_parallel(dev_args.dist_backend, dev_args.device)
     try:
         if dp.rank:
             LOGGER.setLevel(logging.WARNING)  # rank 0 logs the run
         return _run(argv, dp.device)
     finally:
-        shutdown()
+        if not joined:
+            shutdown()
 
 
 def _run(argv, device):

@@ -19,9 +19,10 @@ are read and ignored by the port (PERF.md lists them):
 ``attention_logits_dtype`` (the port keeps attention logits in fp32),
 ``attention_layout``, ``gelu_stash_dtype``, ``remat_policy``, ``prng_impl``
 and ``train_inner_steps``; the fusion pipeline knobs (``fusion_pipeline_*``)
-select nothing on one card either, and ``async_checkpoint`` is accepted and
-the checkpoint written synchronously.  ``checkpointing`` and ``remat_scope``
-are honoured: ``torch.utils.checkpoint`` per encoder layer.
+select nothing on one card either.  ``checkpointing`` and ``remat_scope`` are
+honoured (``torch.utils.checkpoint`` per encoder layer), and so are
+``async_checkpoint`` (background writes, ``train/checkpoints.py``) and
+``zero_optimizer`` (ZeRO-1 across processes, ``train/optimizer.py``).
 """
 
 from __future__ import annotations
@@ -227,7 +228,7 @@ class TrainConfig:
     train_inner_steps: int = 1  # steps fused per jit call (TPU-only; ignored by the port)
     model_shards: int = 1  # tensor-parallel axis size (mesh = data x model)
     prefetch: bool = True  # keep one device batch in flight (H2D overlap)
-    zero_optimizer: bool = False  # shard adam moments over the data axis
+    zero_optimizer: bool = False  # ZeRO-1: shard the optimizer state over the data axis
     # ZeRO-3-style fully-sharded params (FSDP): every large param leaf
     # shards one free dim over `data`; GSPMD all_gathers at use sites and
     # reduce-scatters grads, moments inherit the layout — param + grad +
@@ -243,8 +244,9 @@ class TrainConfig:
     submit_format: str = ""
     save_best: bool = False
     remove_before_ckpt: bool = True
-    # the JAX package's orbax AsyncCheckpointer; the port accepts it and
-    # writes synchronously (train/checkpoints.py)
+    # save returns once the state is snapshotted to host memory and a
+    # background thread writes it (train/checkpoints.py; the JAX package's
+    # orbax AsyncCheckpointer)
     async_checkpoint: bool = False
     resume: bool = False
     zero_shot: bool = False

@@ -19,7 +19,8 @@ finetuning files (``{id: [captions]}`` for both splits) and
 ``write_qa_dataset`` MSR-VTT-QA's (``{id: [{question, answer, question_id}]}``,
 1-3 pairs an id, one-word answers); given the paths of an earlier dataset
 (``media``), they write only their text files and share its frames, WAVs and
-tokenizer files.
+tokenizer files.  ``write_sharp_init_run`` writes a run directory of untrained
+weights by the sharp init law.
 """
 
 from __future__ import annotations
@@ -557,3 +558,20 @@ def write_released_checkpoints(root: str, cfg: ModelConfig, seed: int = 0) -> Di
     torch.save({"model": sds.pop("ast")}, paths["ast"])
     torch.save(sds.pop("valor"), paths["valor"])
     return paths
+
+
+def write_sharp_init_run(run_dir: str, cfg: ModelConfig) -> str:
+    """A run directory holding untrained weights of ``VALORModel(cfg)``, drawn
+    from seed 0 by the sharp init law (``models/bridge.py:init_params``), as its checkpoint
+    ``ckpt/step_0``, the layout ``cli.train --checkpoint``, ``cli.infer`` and
+    ``cli.serve`` read.  ``cli.train`` itself starts from the JAX package's
+    law; a run whose captions must depend on their media at random weights
+    starts from these.  Returns ``run_dir``."""
+    import torch
+
+    from valor_tpu_torch.models.bridge import init_params
+
+    path = os.path.join(run_dir, "ckpt", "step_0")
+    os.makedirs(path, exist_ok=True)
+    torch.save({"params": init_params(cfg, 0, "cpu", law="sharp"), "step": 0}, os.path.join(path, "state.pt"))
+    return run_dir

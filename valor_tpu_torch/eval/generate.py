@@ -1,7 +1,12 @@
 """Autoregressive caption/QA generation (counterpart of ``valor_tpu/eval/generate.py``).
 
   * greedy or multinomial sampling with an 'unfinished' latch that pins
-    finished rows to EOS; returns per-step logprobs of the sampled tokens;
+    finished rows to EOS; returns per-step logprobs of the sampled tokens.
+    A sampled token is picked by inverse CDF, the first whose fp32
+    cumulative probability passes a uniform draw; the rollout's uniforms are
+    drawn at once at the global batch's shape and this rank's rows taken
+    (``parallel/mesh.py:draw_rows``), so W ranks sample what one process
+    samples (the bits of ``torch.multinomial`` depend on the batch's shape);
   * beam search with per-beam score carrying, where a finished beam keeps its
     score for every candidate word; candidates are ranked by a stable
     descending sort, so ties go to the lowest flat index as ``lax.top_k``
@@ -29,6 +34,7 @@ import torch
 
 from valor_tpu_torch.data.fbank import fbank_clips_from_spans
 from valor_tpu_torch.models.valor import BOS_TOKEN, EOS_TOKEN, MASK_TOKEN
+from valor_tpu_torch.parallel.mesh import draw_rows
 
 # DecoderFn(txt_tokens [B,N], token_mask [B,N]) -> logits over positions [B,N,V]
 DecoderFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -65,13 +71,17 @@ def greedy_or_sample(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (sequences [B, max_len] filled with EOS after finish,
     logprobs [B, max_len] of the sampled tokens, zeros in greedy mode).
-    Sampling draws from ``generator`` (on the decode's device)."""
+    Sampling draws from ``generator`` (on the decode's device) one uniform a
+    row and step, [B, max_len] at once (at the global batch's shape inside a
+    ``parallel.mesh.batch_shard``), before the first step."""
     n = _buffer_len(max_len, caption_type)
     buffer = torch.zeros((batch_size, n), dtype=torch.long, device=device)
     buffer[:, 0] = BOS_TOKEN
     sents = torch.full((batch_size, max_len), EOS_TOKEN, dtype=torch.long, device=device)
     logps = torch.zeros((batch_size, max_len), device=device)
     unfinished = torch.ones((batch_size,), dtype=torch.bool, device=device)
+    if mode != "greedy":
+        u = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=device), (batch_size, max_len))
     for t in range(max_len):
         tokens, mask, read_pos = _prepare_step(buffer, t, caption_type)
         step_logits = decoder(tokens, mask)[:, read_pos].float()
@@ -79,13 +89,23 @@ def greedy_or_sample(
             wt = torch.argmax(step_logits, dim=-1)
         else:
             logp = torch.log_softmax(step_logits, dim=-1)
-            wt = torch.multinomial(logp.exp(), 1, generator=generator)[:, 0]
+            wt = inverse_cdf(logp.exp(), u[:, t])
             logps[:, t] = torch.gather(logp, 1, wt[:, None])[:, 0]
         wt = torch.where(unfinished, wt, EOS_TOKEN)
         unfinished = unfinished & (wt != EOS_TOKEN)
         buffer[:, t + 1] = wt
         sents[:, t] = wt
     return sents.to(torch.int32), logps
+
+
+def inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """For each row of ``probs`` [B, V] (fp32, summing to about 1) the first
+    index whose cumulative probability exceeds ``u`` [B] in [0, 1) times the
+    row's total: a draw from the row's distribution that a zero-probability
+    index never takes."""
+    cdf = torch.cumsum(probs, dim=-1)
+    x = (u.to(cdf.dtype) * cdf[:, -1])[:, None]
+    return torch.searchsorted(cdf, x, right=True)[:, 0].clamp_(max=probs.shape[-1] - 1)
 
 
 def beam_search(

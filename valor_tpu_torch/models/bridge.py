@@ -66,23 +66,80 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
+LAWS = ("sharp", "jax")
+LECUN_TRUNC = 0.87962566103423978  # std of N(0, 1) cut at +-2: flax's variance_scaling divides by it
+
+
+def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """N(0, std^2) cut at +-2 std (redrawn outside), as ``jax.random.truncated_normal(-2, 2) * std``."""
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def _jax_law(mod, p_name: str, shape, gen: torch.Generator) -> torch.Tensor:
+    """What the JAX package's ``model.init`` draws for this parameter (all but
+    LayerNorms, temperatures and biases): Dense kernels, embeddings, the MoE
+    router and expert stacks N(0, 0.02) (``valor_tpu/ops/layers.py:90,110,417,
+    446,473``, ``ops/moe.py:130,169,174``); the patch-embed convs flax's
+    ``lecun_normal``, a normal cut at +-2 sigma whose sigma is corrected so that
+    the draw's std is 1/sqrt(fan_in) (``models/clip.py:101``, ``ast.py:50``,
+    ``videoswin.py:255``); VideoSwin's relative-position tables
+    ``truncated_normal(0.02)``, cut at +-0.04 and not corrected
+    (``videoswin.py:157``); the CLIP vision class and position embeddings
+    N(0, width^-0.5) (``clip.py:114,122``), the CLIP text position embedding
+    N(0, 0.01) (``clip.py:169``), and the CLIP projections N(0, in^-0.5)
+    (``clip.py:229,235``)."""
+    from valor_tpu_torch.models.clip import CLIPTextTransformer, CLIPVisionTransformer
+
+    if p_name == "weight" and len(shape) >= 4:  # a patch-embed conv [out, in, (kt,) kh, kw]
+        fan_in = math.prod(shape[1:])
+        return _trunc_normal(shape, fan_in ** -0.5 / LECUN_TRUNC, gen)
+    if p_name == "relative_position_bias_table":
+        return _trunc_normal(shape, 0.02, gen)
+    if isinstance(mod, CLIPVisionTransformer) and p_name in ("class_embedding", "positional_embedding"):
+        std = mod.cfg.width ** -0.5
+    elif isinstance(mod, CLIPTextTransformer) and p_name == "positional_embedding":
+        std = 0.01
+    elif p_name in ("visual_proj", "text_proj"):
+        std = shape[0] ** -0.5
+    else:
+        std = 0.02
+    return torch.empty(shape).normal_(0.0, std, generator=gen)
+
+
+def _sharp_law(p_name: str, shape, gen: torch.Generator) -> torch.Tensor:
+    if p_name in ("visual_proj", "text_proj", "router"):
+        return torch.empty(shape).normal_(0.0, shape[0] ** -0.5, generator=gen)
+    if p_name in ("w1", "w2"):  # [E, in, out]
+        return torch.empty(shape).normal_(0.0, shape[1] ** -0.5, generator=gen)
+    if p_name == "weight":  # Dense [out, in] or conv [out, in, kh, kw]
+        fan_in = math.prod(shape) // shape[0]
+        return torch.empty(shape).normal_(0.0, fan_in ** -0.5, generator=gen)
+    return torch.empty(shape).normal_(0.0, 0.02, generator=gen)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, law: str = "sharp") -> Dict[str, torch.Tensor]:
     """Seeded random weights for ``VALORModel(cfg)`` at any width.
 
     Drawn on the CPU from one ``torch.Generator`` in ``state_dict`` order, so a
     seed gives the same weights on every device; then moved to ``device`` (the
-    CUDA card when None).  LayerNorm scales are 1 and biases 0; matmul and
-    conv weights (2D and 3D) are N(0, 1/fan_in), which keeps activations at
-    unit scale so that the attention is sharp and each caption depends on its
-    media, and so are the CLIP projections ([in, out]), the MoE router
-    ([M, E]) and expert stacks (``w1`` N(0, 1/M), ``w2`` N(0, 1/H)); the
-    expert biases are 0; embeddings and VideoSwin's relative-position bias
-    tables are N(0, 0.02).  The
-    temperatures start where the JAX package starts them: ``logit_scale`` at
-    log(1/0.07) and ``contra_temp`` at 0.07 (a N(0, 0.02) draw would put the
-    temperature near 1 and flatten the contrastive loss)."""
+    CUDA card when None).  With either law LayerNorm scales are 1, biases 0
+    (the expert biases and the decoder bias too), and the temperatures start
+    where the JAX package starts them: ``logit_scale`` at log(1/0.07) and
+    ``contra_temp`` at 0.07.  The rest:
+
+      * ``law="jax"``: each parameter from the JAX package's initializer
+        (``_jax_law``), as ``cli.train`` starts a run;
+      * ``law="sharp"``: matmul and conv weights (2D and 3D) N(0, 1/fan_in),
+        which keeps activations at unit scale so that the attention is sharp
+        and each caption depends on its media (tests and the smoke run's
+        serving phases rely on it), and so are the CLIP projections
+        ([in, out]), the MoE router ([M, E]) and expert stacks (``w1``
+        N(0, 1/M), ``w2`` N(0, 1/H)); embeddings and VideoSwin's
+        relative-position bias tables N(0, 0.02)."""
     from valor_tpu_torch.models.valor import VALORModel
 
+    if law not in LAWS:
+        raise ValueError(f"init law {law!r}: one of {LAWS}")
     dev = resolve_device(device)
     shapes = VALORModel(cfg, device="meta")
     gen = torch.Generator().manual_seed(seed)
@@ -96,17 +153,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, torch
                 t = torch.full(p.shape, math.log(1 / 0.07))
             elif p_name == "contra_temp":
                 t = torch.full(p.shape, 0.07)
-            elif p_name in ("visual_proj", "text_proj", "router"):
-                t = torch.empty(p.shape).normal_(0.0, p.shape[0] ** -0.5, generator=gen)
-            elif p_name in ("w1", "w2"):  # [E, in, out]
-                t = torch.empty(p.shape).normal_(0.0, p.shape[1] ** -0.5, generator=gen)
             elif p_name in ("bias", "decoder_bias", "b1", "b2"):
                 t = torch.zeros(p.shape)
-            elif p_name == "weight":  # Dense [out, in] or conv [out, in, kh, kw]
-                fan_in = p.numel() // p.shape[0]
-                t = torch.empty(p.shape).normal_(0.0, fan_in ** -0.5, generator=gen)
+            elif law == "jax":
+                t = _jax_law(mod, p_name, tuple(p.shape), gen)
             else:
-                t = torch.empty(p.shape).normal_(0.0, 0.02, generator=gen)
+                t = _sharp_law(p_name, tuple(p.shape), gen)
             out[name] = t.to(dev)
     return out
 

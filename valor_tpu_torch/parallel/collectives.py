@@ -18,6 +18,22 @@ in the JAX package:
   * ``all_reduce_mean_``: the gradients averaged over ranks in fp32 buckets;
   * ``mean_over_ranks``: the step's reported losses, as global values.
 
+ZeRO-1 (``zero_optimizer``; ``train/optimizer.py``) splits a leaf on dim 0 into
+one block a rank, in rank order:
+
+  * ``reduce_scatter_mean``: this rank's block of each tensor, averaged over
+    ranks;
+  * ``all_gather_blocks_``: every rank's block of each tensor, in place;
+  * ``gather_blocks_``: every rank's block of each tensor into rank 0's whole
+    tensors (a checkpoint's optimizer state).
+
+They go through flat fp32 buckets whose row w holds rank w's blocks.  NCCL
+takes the tensor forms (``reduce_scatter_tensor``, ``all_gather_into_tensor``);
+gloo has no reduce-scatter, so it all-reduces the bucket and keeps this rank's
+row, and gathers through the list form of ``all_gather``.  Each element is the
+same sum of the same values on both paths.  ``gather_blocks_`` takes
+``dist.gather`` on both.
+
 The backend's own rules hold: NCCL reduces CUDA tensors only, gloo both.
 """
 
@@ -49,6 +65,19 @@ def all_gather_objects(obj: Any) -> List[Any]:
 def all_gather_lists(items: Sequence[Any]) -> List[Any]:
     """Every rank's list, concatenated in rank order."""
     return [x for chunk in all_gather_objects(list(items)) for x in chunk]
+
+
+def all_gather_rows(items: Sequence[Any], shard) -> List[Any]:
+    """This rank's items of a global batch (one a row of ``shard``, a
+    ``parallel.mesh.BatchShard``; None in one process) gathered from every
+    rank, in the global batch's row order."""
+    if shard is None:
+        return list(items)
+    out: List[Any] = [None] * shard.rows
+    rows = all_gather_lists(zip(range(shard.rows)[shard.index], items))
+    for i, x in rows:
+        out[i] = x
+    return out
 
 
 def gather_arrays(x: torch.Tensor) -> torch.Tensor:
@@ -142,13 +171,9 @@ def global_means(plain: torch.Tensor, with_grad: torch.Tensor, n: int):
     return all_reduce_sum(plain * w), all_reduce_mean_with_grad(with_grad * w) * world_size()
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
-    """Average ``tensors`` over ranks in place, through flat fp32 buckets of
-    up to ``BUCKET_ELEMS`` elements; returns the bytes reduced.  Runs whenever
-    a process group is set, also at one rank (the launcher's path)."""
-    if not is_initialized():
-        return 0
-    world, nbytes = world_size(), 0
+def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """``tensors`` in order, in lists of up to ``BUCKET_ELEMS`` elements (a
+    larger tensor alone)."""
     buckets: List[List[torch.Tensor]] = [[]]
     size = 0
     for t in tensors:
@@ -157,15 +182,89 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
             size = 0
         buckets[-1].append(t)
         size += t.numel()
-    for bucket in buckets:
-        if not bucket:
-            continue
+    return [b for b in buckets if b]
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
+    """Average ``tensors`` over ranks in place, through flat fp32 buckets of
+    up to ``BUCKET_ELEMS`` elements; returns the bytes reduced.  Runs whenever
+    a process group is set, also at one rank (the launcher's path)."""
+    if not is_initialized():
+        return 0
+    world, nbytes = world_size(), 0
+    for bucket in _buckets(tensors):
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
         dist.all_reduce(flat)
         flat /= world
         nbytes += flat.numel() * 4
         for t, part in zip(bucket, torch.split(flat, [t.numel() for t in bucket])):
             t.copy_(part.view_as(t))
+    return nbytes
+
+
+def _nccl() -> bool:
+    return dist.get_backend() == "nccl"
+
+
+def reduce_scatter_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """This rank's dim-0 block of each tensor (dim 0 divisible by the ranks),
+    averaged over ranks in fp32: rows ``[r * n / W, (r + 1) * n / W)`` of a
+    tensor of n rows at rank r.  Needs a process group."""
+    world, r = world_size(), rank()
+    out: List[torch.Tensor] = []
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.float().reshape(world, -1) for t in bucket], dim=1)  # row w: rank w's blocks
+        if _nccl():
+            mine = flat.new_empty(flat.shape[1])
+            dist.reduce_scatter_tensor(mine, flat.reshape(-1))
+        else:
+            dist.all_reduce(flat)
+            mine = flat[r]
+        mine /= world
+        parts = torch.split(mine, [t.numel() // world for t in bucket])
+        out += [p.view((t.shape[0] // world,) + tuple(t.shape[1:])) for t, p in zip(bucket, parts)]
+    return out
+
+
+def all_gather_blocks_(tensors: Sequence[torch.Tensor]) -> int:
+    """Fill every rank's dim-0 block of each tensor (contiguous, dim 0
+    divisible by the ranks) from that rank, in place: after it every rank holds
+    the whole tensors.  The blocks travel in fp32 (exact for fp32 and bf16
+    tensors).  Returns the bytes this rank receives."""
+    world, r = world_size(), rank()
+    nbytes = 0
+    for bucket in _buckets(tensors):
+        mine = torch.cat([t.reshape(world, -1)[r].float() for t in bucket])
+        if _nccl():
+            full = mine.new_empty(world * mine.numel())
+            dist.all_gather_into_tensor(full, mine)
+            full = full.view(world, -1)
+        else:
+            parts = [torch.empty_like(mine) for _ in range(world)]
+            dist.all_gather(parts, mine)
+            full = torch.stack(parts)
+        nbytes += full.numel() * 4
+        for t, cols in zip(bucket, torch.split(full, [t.numel() // world for t in bucket], dim=1)):
+            t.view(world, -1).copy_(cols)
+    return nbytes
+
+
+def gather_blocks_(blocks: Sequence[torch.Tensor], wholes: Sequence[torch.Tensor]) -> int:
+    """Gather every rank's dim-0 block of each tensor into rank 0's ``wholes``
+    (contiguous, W times a block's rows), in place; the other ranks only send,
+    and their ``wholes`` are not read.  The blocks travel in fp32 (exact for
+    fp32 and bf16 tensors).  Returns the bytes rank 0 receives (0 elsewhere)."""
+    world, first = world_size(), rank() == 0
+    nbytes, dst = 0, iter(wholes)
+    for bucket in _buckets(blocks):
+        mine = torch.cat([b.reshape(-1).float() for b in bucket])
+        parts = [torch.empty_like(mine) for _ in range(world)] if first else None
+        dist.gather(mine, parts, dst=0)
+        if first:
+            full = torch.stack(parts)
+            nbytes += full.numel() * 4
+            for b, cols in zip(bucket, torch.split(full, [b.numel() for b in bucket], dim=1)):
+                next(dst).view(world, -1).copy_(cols)
     return nbytes
 
 

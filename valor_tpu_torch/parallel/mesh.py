@@ -19,16 +19,20 @@ makes that arithmetic explicit:
     (``parallel/collectives.py``), and the gradients are averaged over ranks
     before the update (``train/step.py``).
 
-Only the data axis is ported.  The other axes' knobs (``model_shards``, which
-also carries MoE expert parallelism, ``fusion_pipeline_stages``,
-``sequence_parallel``, ``fsdp``, ``zero_optimizer``) are read and ignored by one
-process and refused across processes (``check_data_parallel``).
+The data axis's memory knob ``zero_optimizer`` (ZeRO-1: the optimizer state
+sharded over ranks) keeps the JAX package's placement rule (``zero_sharded``;
+``train/optimizer.py`` holds and updates the shards).  The other axes' knobs
+(``model_shards``, which also carries MoE expert parallelism,
+``fusion_pipeline_stages``, ``sequence_parallel``, and ``fsdp``) are read and
+ignored by one process and refused across processes (``check_data_parallel``),
+each naming the part of ROADMAP item 13 that will bring it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import threading
 from typing import Callable, Iterator, Optional, Sequence
@@ -37,7 +41,13 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-LATER_PART = "ROADMAP item 13, after its data-parallel part"
+LATER_PART = {  # knob -> the part of ROADMAP item 13 that brings it
+    "fsdp": "ROADMAP item 13b, FSDP (the step must fill param.grad)",
+    "model_shards": "ROADMAP item 13c (MoE expert parallelism) and item 13d (tensor parallelism)",
+    "sequence_parallel": "ROADMAP item 13d, sequence parallelism",
+    "fusion_pipeline_stages": "ROADMAP item 13e, pipeline parallelism",
+}
+ZERO_MIN_ELEMS = 1 << 14  # smaller leaves stay whole on every rank (replication is cheaper)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +95,18 @@ def _rank_device(device, local_rank: int) -> torch.device:
 def init_data_parallel(backend: Optional[str] = None, device=None) -> DataParallel:
     """Join the launcher's process group.  ``backend`` defaults to ``nccl`` on
     a card and ``gloo`` on the CPU; ``nccl`` where it cannot run (the CPU, no
-    NCCL, two ranks on one card) raises: nothing switches backend by itself."""
-    r = int(os.environ["RANK"])
-    world = int(os.environ["WORLD_SIZE"])
+    NCCL, two ranks on one card) raises: nothing switches backend by itself.
+    Where the process has joined the group already (several runs in one
+    launch), this rank's place in it is returned and the group is left as is."""
+    joined = is_initialized()
+    r = dist.get_rank() if joined else int(os.environ["RANK"])
+    world = dist.get_world_size() if joined else int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", r))
     dev = _rank_device(device, local)
+    if joined:
+        if backend is not None and backend != dist.get_backend():
+            raise ValueError(f"--dist_backend {backend}: the process group runs {dist.get_backend()}")
+        backend = dist.get_backend()
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend == "nccl":
         if dev.type != "cuda":
@@ -104,7 +121,8 @@ def init_data_parallel(backend: Optional[str] = None, device=None) -> DataParall
         raise ValueError(f"--dist_backend {backend!r}: nccl or gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, rank=r, world_size=world)
+    if not joined:
+        dist.init_process_group(backend, rank=r, world_size=world)
     return DataParallel(r, world, local, backend, dev)
 
 
@@ -128,18 +146,26 @@ def local_batch_size(global_batch: int, world: int) -> int:
 
 
 def check_data_parallel(cfg, world: int) -> None:
-    """Refuse, across processes, what only the data axis of the mesh cannot
-    do: the other axes' knobs and SCST (its rollouts and ``AdaptiveAlpha``
-    across ranks).  One process reads and ignores the knobs."""
+    """Refuse, across processes, the mesh axes past the data axis, each with
+    the part of ROADMAP item 13 that will bring it.  One process reads and
+    ignores their knobs.  SCST and ``zero_optimizer`` run across processes."""
     if world <= 1:
         return
     m, t = cfg.model, cfg.train
     knobs = {"model_shards": t.model_shards > 1, "fusion_pipeline_stages": m.fusion_pipeline_stages > 0,
-             "sequence_parallel": m.sequence_parallel, "fsdp": t.fsdp, "zero_optimizer": t.zero_optimizer,
-             "scst_finetuning": m.scst_finetuning}
+             "sequence_parallel": m.sequence_parallel, "fsdp": t.fsdp}
     asked = [k for k, on in knobs.items() if on]
     if asked:
-        raise NotImplementedError(f"{', '.join(asked)} across {world} processes: {LATER_PART}")
+        raise NotImplementedError("; ".join(f"{k} across {world} processes: {LATER_PART[k]}" for k in asked))
+
+
+def zero_sharded(shape, world: int) -> bool:
+    """The JAX package's ZeRO-1 placement (``valor_tpu/parallel/partition.py:
+    shard_opt_state``): a leaf of the optimizer state (a moment or the
+    accumulated gradient of a parameter of ``shape``) is split on dim 0 over
+    the data axis where it holds at least 2^14 elements and dim 0 divides by
+    the ``world`` ranks; any other leaf stays whole on every rank."""
+    return len(shape) >= 1 and shape[0] % world == 0 and math.prod(shape) >= ZERO_MIN_ELEMS
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,7 @@ from typing import Any, Dict
 import torch
 
 from valor_tpu_torch.models.valor import BOS_TOKEN, EOS_TOKEN, MASK_TOKEN
+from valor_tpu_torch.parallel.collectives import sharded_mean
 
 
 def scst_loss(
@@ -35,7 +36,9 @@ def scst_loss(
     """The reward-weighted negative log-likelihood of ``sequences`` under
     teacher forcing, averaged over the selected positions: position j counts
     where j == 0 or s_{j-1} is not EOS (pretrain.py:166-169).  ``batch`` holds
-    the fusion-space ``video_input``/``audio_input`` and the prompt."""
+    the fusion-space ``video_input``/``audio_input`` and the prompt.  In a
+    training step across ranks the average is over the global batch's
+    positions (``sharded_mean``: this rank's share of it)."""
     sequences = sequences.long()
     b, l = sequences.shape
     bos = torch.full((b, 1), BOS_TOKEN, dtype=sequences.dtype, device=sequences.device)
@@ -59,4 +62,4 @@ def scst_loss(
          sequences[:, :-1] != EOS_TOKEN], dim=1)
     sel = prev_not_eos.float()
     weighted = -tok_logp * rewards.float()[:, None] * sel
-    return weighted.sum() / torch.clamp(sel.sum(), min=1.0)
+    return sharded_mean(weighted.sum(), sel.sum())

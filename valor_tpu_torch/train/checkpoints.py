@@ -11,10 +11,26 @@ gradient accumulation restarts exactly where it stopped).  A save writes into
 ``step_N.tmp`` and renames it, so a crash mid-write leaves the previous
 checkpoint whole; ``best_<name>`` copies the best one; with
 ``remove_before_ckpt`` the previous step's directory goes once the new one is
-written.  ``use_async`` (``TrainConfig.async_checkpoint``, the JAX package's
-orbax AsyncCheckpointer) is accepted and the write made synchronously;
-``finish`` has nothing to wait for.  Across processes rank 0 writes, every rank
-waits for it, and every rank restores.
+written.  Across processes rank 0 writes and every rank restores; under
+ZeRO-1 every rank first takes part in gathering the optimizer state whole
+to rank 0 (``GroupedAdam.state_dict``), so a checkpoint has one layout at any
+number of ranks.
+
+``use_async`` (``TrainConfig.async_checkpoint``; the JAX package's orbax
+AsyncCheckpointer): ``save`` returns once the state is snapshotted to host
+memory, and a background thread writes it (``torch.save``, then the atomic
+rename) while training goes on.  The snapshot copies every tensor into host
+buffers allocated at the first save and reused (pinned on a card, where the
+copy runs on a side stream after the work already queued; the optimizer's
+next update waits for it, ``GroupedAdam.wait_before_update``, and the writer
+thread for its event).  The bookkeeping (best copy, removal of the previous
+step) waits until the write is durable: the next ``save``, ``finish``,
+``latest_step`` and ``restore`` first wait for a pending write and run its
+bookkeeping, so a crash mid-write never deletes the last good checkpoint.
+Across processes every rank keeps the pending step and waits at a barrier in
+``finish`` (rank 0 after its write), so every rank calls ``save`` and
+``finish`` together, as they do.  Synchronous saves (the default) write as
+before: rank 0 writes, every rank waits for it at a barrier.
 
 Divergence, a fix: saving twice at one step (the trainer's periodic save at
 the last step, then its final save) keeps the checkpoint.  The JAX package
@@ -33,7 +49,9 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Any, Dict, Mapping, Optional
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,31 +67,101 @@ def _ckpt_dir(output_dir: str, step: int) -> str:
 
 
 class ModelSaver:
-    """Checkpoint writer and reader of one output directory."""
+    """Checkpoint writer and reader of one output directory.  ``writes`` holds
+    (step, host time the write began, host time it was durable), from
+    ``time.perf_counter``, of every asynchronous write of rank 0."""
 
     def __init__(self, output_dir: str, remove_before_ckpt: bool = True, use_async: bool = False):
-        # use_async is accepted, as the JAX package's signature has it; every write is synchronous
         self.output_dir = output_dir
         self.remove_before = remove_before_ckpt
+        self.use_async = bool(use_async)
         self.last_step: Optional[int] = None
+        self._pending: Optional[Tuple[int, Optional[str]]] = None  # (step, best_name) of the write in flight
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._host: Dict[str, torch.Tensor] = {}  # snapshot buffers, by payload path
+        self._stream = None
+        self.writes: List[Tuple[int, float, float]] = []
         os.makedirs(os.path.join(output_dir, "ckpt"), exist_ok=True)
 
-    def save(self, state, step: int, best_name: Optional[str] = None) -> None:
-        """Write ``state`` (a ``train.step.TrainState``) as checkpoint ``step``:
-        rank 0 writes (every rank holds the same state), and every rank waits
-        for the write before it goes on."""
-        if is_main_process():
-            self._write(state, step, best_name)
-        barrier()
-
-    def _write(self, state, step: int, best_name: Optional[str]) -> None:
-        path = _ckpt_dir(self.output_dir, step)
-        payload = {
+    @staticmethod
+    def _payload(state, step: int) -> Dict[str, Any]:
+        return {
             "params": state.model.state_dict(),
             "opt_state": state.optimizer.state_dict(),
             "step": step,
             "micro_step": int(state.step),
         }
+
+    def save(self, state, step: int, best_name: Optional[str] = None) -> None:
+        """Write ``state`` (a ``train.step.TrainState``) as checkpoint ``step``:
+        rank 0 writes (every rank holds the same state).  Synchronous: every
+        rank waits for the write before it goes on.  Asynchronous: the
+        previous write is waited for first, and this one runs in the
+        background."""
+        if not self.use_async:
+            payload = self._payload(state, step)
+            if is_main_process():
+                self._write(payload, step, best_name)
+            barrier()
+            return
+        self.finish()
+        payload = self._payload(state, step)
+        if is_main_process():
+            host, event = self._snapshot(payload)
+            if event is not None:
+                state.optimizer.wait_before_update(event)
+            self._thread = threading.Thread(target=self._commit, args=(host, step, event),
+                                            name=f"checkpoint-step-{step}", daemon=True)
+            self._thread.start()
+        self._pending = (step, best_name)
+
+    def _snapshot(self, payload):
+        """``payload`` with every tensor copied into this saver's host buffers
+        (allocated once, pinned for card tensors); and the CUDA event that
+        marks the copies done (None where no tensor is on a card)."""
+        device = next((t.device for t in _tensors(payload) if t.is_cuda), None)
+        if device is None:
+            return _map_tensors(payload, lambda path, t: self._buffer(path, t, False).copy_(t)), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream(device))  # after every update already queued
+
+        def copy(path, t):
+            buf = self._buffer(path, t, t.is_cuda)
+            if t.is_cuda:
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(stream)  # a gathered ZeRO tensor may be freed before the copy is done
+            else:
+                buf.copy_(t)
+            return buf
+
+        with torch.cuda.stream(stream):
+            host = _map_tensors(payload, copy)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return host, event
+
+    def _buffer(self, path: str, t: torch.Tensor, pin: bool) -> torch.Tensor:
+        buf = self._host.get(path)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            self._host[path] = buf
+        return buf
+
+    def _commit(self, host, step: int, event) -> None:
+        t0 = time.perf_counter()
+        try:
+            if event is not None:
+                event.synchronize()
+            self._write(host, step, None, bookkeep=False)
+        except BaseException as e:  # raised again by finish()
+            self._error = e
+        self.writes.append((step, t0, time.perf_counter()))
+
+    def _write(self, payload, step: int, best_name: Optional[str], bookkeep: bool = True) -> None:
+        path = _ckpt_dir(self.output_dir, step)
         tmp = path + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -82,10 +170,27 @@ class ModelSaver:
         if os.path.exists(path):
             shutil.rmtree(path)
         os.replace(tmp, path)
-        self._bookkeep(step, best_name)
+        if bookkeep:
+            self._bookkeep(step, best_name)
 
     def finish(self) -> None:
-        """Nothing is ever in flight: writes are synchronous."""
+        """Wait until the write in flight (if any) is durable and run its
+        bookkeeping; every rank then meets at a barrier.  Nothing to do after
+        synchronous saves, or twice."""
+        if self._pending is None:
+            return
+        step, best_name = self._pending
+        self._pending = None
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise RuntimeError(f"writing checkpoint step {step} failed") from err
+            self._bookkeep(step, best_name)
+        else:
+            self.last_step = step
+        barrier()
 
     def _bookkeep(self, step: int, best_name: Optional[str]) -> None:
         path = _ckpt_dir(self.output_dir, step)
@@ -101,6 +206,7 @@ class ModelSaver:
         self.last_step = step
 
     def latest_step(self) -> Optional[int]:
+        self.finish()
         root = os.path.join(self.output_dir, "ckpt")
         if not os.path.isdir(root):
             return None
@@ -109,7 +215,8 @@ class ModelSaver:
 
     def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """The payload of checkpoint ``step`` (the latest when None) on the
-        CPU, or None when there is none."""
+        CPU, or None when there is none (a write in flight is waited for)."""
+        self.finish()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -117,6 +224,24 @@ class ModelSaver:
         payload = torch.load(path, map_location="cpu", weights_only=True)
         LOGGER.info(f"restored checkpoint at step {step}")
         return payload
+
+
+def _map_tensors(obj, fn, path: str = ""):
+    """``obj`` (dicts, lists and leaves) with every tensor ``t`` at ``path``
+    replaced by ``fn(path, t)``."""
+    if isinstance(obj, torch.Tensor):
+        return fn(path, obj)
+    if isinstance(obj, dict):
+        return type(obj)((k, _map_tensors(v, fn, f"{path}/{k}")) for k, v in obj.items())
+    if isinstance(obj, list):
+        return [_map_tensors(v, fn, f"{path}/{i}") for i, v in enumerate(obj)]
+    return obj
+
+
+def _tensors(obj) -> list:
+    out: list = []
+    _map_tensors(obj, lambda path, t: out.append(t))
+    return out
 
 
 def load_state(state, payload: Mapping[str, Any]) -> None:

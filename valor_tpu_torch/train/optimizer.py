@@ -25,11 +25,25 @@ With ``gradient_accumulation_steps`` k > 1 the optimizer follows
 ``optax.MultiSteps``: the running mean of k micro-batch gradients, one update
 every k calls.  The arithmetic is plain tensor code over lists
 (``torch._foreach_*``), updating parameters and moments in place.
+
+ZeRO-1 (``zero_optimizer`` with a process group of two ranks or more; one
+process, or one rank, is the replicated optimizer): the JAX package's placement
+(``parallel/mesh.py:zero_sharded``) splits a parameter's moments and
+accumulated gradient on dim 0 into one block a rank where the leaf holds at
+least 2^14 elements and dim 0 divides by the ranks; smaller or indivisible
+leaves stay whole on every rank.  ``reduce_grads`` averages the gradients over
+ranks, handing a split leaf's block alone; the flat clip sums the squares of
+the blocks over ranks and adds each whole leaf once; each rank updates its
+blocks of the parameters and then gathers every rank's (``parallel/
+collectives.py``), so every rank holds the whole model again.  ``state_dict``
+gathers the whole state to rank 0, which writes the checkpoints, so a
+checkpoint has one layout at any number of ranks, and ``load_state_dict``
+takes this rank's blocks of it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +52,8 @@ from torch import nn
 from valor_tpu_torch.core.config import TrainConfig
 from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.ops.layers import Embed, LayerNorm
+from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel import mesh as P
 from valor_tpu_torch.train.schedule import make_schedule
 
 _F = np.float32
@@ -133,14 +149,21 @@ class GroupedAdam:
         self.max_norm = cfg.grad_norm
         self.accum = max(cfg.gradient_accumulation_steps, 1)
         self.live = [i for i, lbl in enumerate(self.labels) if lbl != "frozen"]
+        # ZeRO-1: the ranks the state is split over (0: replicated, as one rank is), and which leaves split
+        self.zero_world = P.world_size() if cfg.zero_optimizer and P.world_size() > 1 else 0
+        self.zero_rank = P.rank() if self.zero_world else 0
+        self.sharded = [bool(self.zero_world) and P.zero_sharded(tuple(p.shape), self.zero_world)
+                        for p in self.params]
         mu_dtype = torch_dtype(cfg.adam_mu_dtype) if cfg.optim != "adamax" else torch.float32
         nu_dtype = torch_dtype(cfg.adam_nu_dtype) if cfg.optim == "adamw" else torch.float32
-        self.mu = [torch.zeros_like(self.params[i], dtype=mu_dtype) for i in self.live]
-        self.nu = [torch.zeros_like(self.params[i], dtype=nu_dtype) for i in self.live]
+        self.mu = [torch.zeros_like(self._mine(i, self.params[i]), dtype=mu_dtype) for i in self.live]
+        self.nu = [torch.zeros_like(self._mine(i, self.params[i]), dtype=nu_dtype) for i in self.live]
         self.count = 0  # moment updates made (optax's count)
         self.mini_step = 0  # micro-batches accumulated toward the next update
         self.gradient_step = 0  # updates made (optax.MultiSteps' gradient_step)
-        self.acc = ([torch.zeros_like(p) for p in self.params] if self.accum > 1 else None)
+        self.acc = ([torch.zeros_like(self._mine(i, p)) for i, p in enumerate(self.params)]
+                    if self.accum > 1 else None)
+        self._waits: list = []  # CUDA events the next update waits on (a checkpoint's snapshot)
         self.by_label: Dict[str, List[int]] = {}
         for j, i in enumerate(self.live):
             self.by_label.setdefault(self.labels[i], []).append(j)
@@ -148,47 +171,122 @@ class GroupedAdam:
     def lr(self, label: str, step: int) -> float:
         return float(self.schedules[label](step))
 
+    def _mine(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's dim-0 block of a tensor of parameter ``i``'s shape (the
+        tensor itself where the leaf is not split; a block passes through)."""
+        if not self.sharded[i] or t.shape[0] != self.params[i].shape[0]:
+            return t
+        rows = t.shape[0] // self.zero_world
+        return t.narrow(0, self.zero_rank * rows, rows)
+
+    def _whole(self, tensors: Sequence[torch.Tensor], idx: Sequence[int]) -> List[torch.Tensor]:
+        """State tensors of parameters ``idx`` as a checkpoint holds them:
+        under ZeRO-1 a split leaf is gathered whole into a new tensor on rank 0
+        (a collective) and stays this rank's block on the others; any other
+        leaf as it is."""
+        if not self.zero_world:
+            return list(tensors)
+        out, blocks, wholes = [], [], []
+        for t, i in zip(tensors, idx):
+            if self.sharded[i]:
+                blocks.append(t)
+                if self.zero_rank == 0:
+                    t = t.new_empty(self.params[i].shape)
+                    wholes.append(t)
+            out.append(t)
+        C.gather_blocks_(blocks, wholes)
+        return out
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds: moments and accumulator."""
+        return sum(t.numel() * t.element_size() for t in self.mu + self.nu + (self.acc or []))
+
     def state_dict(self) -> Dict[str, Any]:
         """Everything an exact resume needs (the counterparts of the optax
         state): the moments, the update count, ``mini_step`` and
         ``gradient_step`` of the accumulation, and its half-accumulated
         gradients ``acc`` (None without accumulation).  The tensors are the
-        optimizer's own, not copies."""
+        optimizer's own, not copies; under ZeRO-1 a split leaf is gathered
+        whole into a new tensor on rank 0, the rank that writes checkpoints,
+        and is this rank's block on the others (a collective: every rank
+        calls it)."""
         return {
             "names": list(self.names),
             "count": self.count,
             "mini_step": self.mini_step,
             "gradient_step": self.gradient_step,
-            "mu": list(self.mu),
-            "nu": list(self.nu),
-            "acc": None if self.acc is None else list(self.acc),
+            "mu": self._whole(self.mu, self.live),
+            "nu": self._whole(self.nu, self.live),
+            "acc": None if self.acc is None else self._whole(self.acc, range(len(self.params))),
         }
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Copy ``state`` (from ``state_dict``, on any device) into this
-        optimizer's tensors, keeping their device and dtype."""
+        """Copy ``state`` (from ``state_dict``, on any device, whole at any
+        number of ranks) into this optimizer's tensors, keeping their device
+        and dtype; under ZeRO-1 this rank's blocks of the split leaves."""
         if list(state["names"]) != self.names:
             raise ValueError("optimizer state is for another parameter list")
         if (state["acc"] is None) != (self.acc is None):
             raise ValueError("optimizer state is for another gradient_accumulation_steps")
-        for mine, theirs in (("mu", state["mu"]), ("nu", state["nu"]), ("acc", state["acc"] or [])):
+        everything = range(len(self.params))
+        for mine, theirs, idx in (("mu", state["mu"], self.live), ("nu", state["nu"], self.live),
+                                  ("acc", state["acc"] or [], everything)):
             dst = getattr(self, mine) or []
             if len(dst) != len(theirs):
                 raise ValueError(f"optimizer state has {len(theirs)} {mine} tensors, not {len(dst)}")
-            for d, t in zip(dst, theirs):
-                if d.shape != t.shape or d.dtype != t.dtype:
+            for d, t, i in zip(dst, theirs, idx):
+                if t.shape != self.params[i].shape or d.dtype != t.dtype:
                     raise ValueError(f"optimizer {mine}: {tuple(t.shape)} {t.dtype} "
-                                     f"for {tuple(d.shape)} {d.dtype}")
-                d.copy_(t)
+                                     f"for {tuple(self.params[i].shape)} {d.dtype}")
+                d.copy_(self._mine(i, t))
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         self.gradient_step = int(state["gradient_step"])
+
+    def wait_before_update(self, event) -> None:
+        """The next ``update`` waits (on the device) for ``event``: a copy that
+        reads the parameters or the state, which the update must not overwrite
+        before it is done."""
+        self._waits.append(event)
+
+    def reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every parameter's gradient averaged over ranks (where a process group
+        is set): in place through ``all_reduce_mean_``; under ZeRO-1 a split
+        leaf's gradient is handed as this rank's block (``reduce_scatter_mean``)."""
+        grads = list(grads)
+        if not self.zero_world:
+            C.all_reduce_mean_(grads)
+            return grads
+        split = [i for i in range(len(grads)) if self.sharded[i]]
+        C.all_reduce_mean_([g for i, g in enumerate(grads) if not self.sharded[i]])
+        for i, block in zip(split, C.reduce_scatter_mean([grads[i] for i in split])):
+            grads[i] = block.to(grads[i].dtype)
+        return grads
+
+    def grad_norm(self, grads: Sequence[torch.Tensor], idx: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """The global L2 norm of the gradients of parameters ``idx`` (all when
+        None), each handed whole or, under ZeRO-1, as this rank's block: the
+        blocks' squares are summed over ranks, a whole leaf counted once."""
+        idx = range(len(grads)) if idx is None else idx
+        if not self.zero_world:
+            return global_norm(grads)
+        norms = list(torch._foreach_norm([g.float() for g in grads]))
+        split = [j for j, i in enumerate(idx) if self.sharded[i]]
+        if split:
+            whole = C.all_reduce_sum(torch.stack([norms[j] * norms[j] for j in split])).sqrt()
+            for j, n in zip(split, whole):
+                norms[j] = n
+        return torch.linalg.vector_norm(torch.stack(norms))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> bool:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        for event in self._waits:
+            torch.cuda.current_stream().wait_event(event)
+        self._waits = []
+        grads = [self._mine(i, g) for i, g in enumerate(grads)]
         if self.acc is not None:
             n = self.mini_step
             for a, g in zip(self.acc, grads):  # Welford mean, as optax.MultiSteps
@@ -206,10 +304,10 @@ class GroupedAdam:
     def _inner(self, grads: List[torch.Tensor]) -> None:
         # 1-2: frozen grads out of the norm, then the flat global-norm clip
         live_g = [grads[i] for i in self.live]
-        norm = global_norm(live_g)
+        norm = self.grad_norm(live_g, self.live)
         scale = torch.clamp(self.max_norm / norm.clamp_min(1e-9), max=1.0)
         g32 = [(g * scale).to(g.dtype).float() for g in live_g]
-        params = [self.params[i] for i in self.live]
+        params = [self._mine(i, self.params[i]) for i in self.live]
         wd = self.weight_decay
         # 3: coupled L2 for adam and adamax
         if self.optim in ("adam", "adamax") and wd:
@@ -248,6 +346,8 @@ class GroupedAdam:
             if self.optim == "adamw" and wd and lbl.endswith("_wd"):
                 torch._foreach_add_(us, ps, alpha=wd)
             torch._foreach_add_(ps, us, alpha=-self.lr(lbl, step))
+        if self.zero_world:  # every rank's blocks of the parameters it did not update
+            C.all_gather_blocks_([self.params[i] for i in self.live if self.sharded[i]])
 
 
 def build_optimizer(model: nn.Module, cfg: TrainConfig, frozen_vision: bool = False,

@@ -15,15 +15,17 @@ reads (``tools/profile_training.py``) and which do nothing otherwise.
 Across processes (``parallel/``) a step runs in its batch's
 ``parallel.mesh.batch_shard``: random draws at the global batch's shape, global
 loss normalisers and contrastive gallery; the gradients are averaged over ranks
-in fp32 before the cast and the update, and the reported losses are the global
-batch's.  Every rank then makes the same update, the one a single process makes
-on the global batch.
+in fp32 before the cast and the update (``GroupedAdam.reduce_grads``: under
+ZeRO-1 a split leaf's gradient as this rank's block), and the reported losses
+are the global batch's.  Every rank then makes the same update, the one a
+single process makes on the global batch.  ``scst_update`` does the same with
+the SCST loss normalised over the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,9 +35,9 @@ from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.core.tasks import TaskSpec
 from valor_tpu_torch.ops.layers import RNGStreams, _mix, rng_scope, sow_scope
 from valor_tpu_torch.parallel import collectives as C
-from valor_tpu_torch.parallel.mesh import batch_shard, step_shard
+from valor_tpu_torch.parallel.mesh import BatchShard, batch_shard, step_shard
 from valor_tpu_torch.tasks.scst import scst_loss
-from valor_tpu_torch.train.optimizer import GroupedAdam, global_norm
+from valor_tpu_torch.train.optimizer import GroupedAdam
 
 RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
 HOST_KEYS = ("ids", "ids_txt", "sample_num", "answers", "question_ids")
@@ -92,10 +94,12 @@ def with_moe_aux(losses: Dict[str, torch.Tensor], sown: list, weight: float) -> 
 def losses_and_grads(
     model: nn.Module, batch: Dict[str, Any], task: TaskSpec, seed: int,
     grad_dtype: Optional[str] = None, moe_aux_weight: float = 0.0,
+    reduce_grads: Optional[Callable[[list], list]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], list]:
     """The losses (with ``total_loss``, detached) and every parameter's
     gradient of one micro-batch, drawn from ``seed``'s streams; across
-    processes the global batch's, as every rank holds them."""
+    processes the global batch's, averaged over ranks by ``reduce_grads``
+    (the optimizer's; ``all_reduce_mean_`` when None)."""
     params = [p for p in model.parameters()]
     fwd, bwd, _ = RANGES
     with rng_scope(RNGStreams(seed)), batch_shard(step_shard(batch)):
@@ -110,7 +114,10 @@ def losses_and_grads(
             # step's psum of each global-batch gradient), so accumulation and
             # the grad_norm metric see the global gradient; one reduction an
             # update would do for the update alone
-            C.all_reduce_mean_(grads)
+            if reduce_grads is None:
+                C.all_reduce_mean_(grads)
+            else:
+                grads = reduce_grads(grads)
             grads = cast_grads(grads, grad_dtype)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
@@ -125,17 +132,17 @@ def train_step(
     losses, ``total_loss`` and the gradients' global norm, as device scalars:
     nothing here waits for the device (but a gloo collective)."""
     metrics, grads = losses_and_grads(state.model, batch, task, _mix(seed, state.step), grad_dtype,
-                                      moe_aux_weight)
+                                      moe_aux_weight, state.optimizer.reduce_grads)
     with record_function(RANGES[2]):
         state.optimizer.update(grads)
     state.step += 1
-    metrics["grad_norm"] = global_norm(grads)
+    metrics["grad_norm"] = state.optimizer.grad_norm(grads)
     return metrics
 
 
 def scst_update(
     state: TrainState, batch: Dict[str, Any], sequences: torch.Tensor, rewards: torch.Tensor,
-    caption_type: str, group: str,
+    caption_type: str, group: str, shard: Optional[BatchShard] = None,
 ) -> Dict[str, torch.Tensor]:
     """One REINFORCE update of the fusion stack and its head on a sampled
     rollout (``tasks/scst.py:scst_loss``; ``batch`` holds the fusion-space
@@ -144,25 +151,27 @@ def scst_update(
     and its training mode is restored after.  Every parameter gets a gradient,
     zeros for the towers that encoded the media without autograd (as
     ``jax.grad`` gives them), so the optimizer decays them as the JAX step
-    does.  ``state.step`` counts the update.  Returns ``{"loss": ...}``, a
-    device scalar."""
+    does.  ``state.step`` counts the update.  Across processes (``shard``, this
+    rank's rows of the global batch) the loss is this rank's share of the
+    global batch's and the gradients are averaged over ranks.  Returns
+    ``{"loss": ...}``, the global batch's loss, a device scalar."""
     model = state.model
     params = [p for p in model.parameters()]
     fwd, bwd, upd = RANGES
     was_training = model.training
     model.eval()
     try:
-        with record_function(fwd):
+        with record_function(fwd), batch_shard(shard):
             loss = scst_loss(model, batch, sequences, rewards, caption_type,
                              use_video="v" in group, use_audio="a" in group)
         with record_function(bwd):
-            grads = param_grads(loss, params)
+            grads = state.optimizer.reduce_grads(param_grads(loss, params))
     finally:
         model.train(was_training)
     with record_function(upd):
         state.optimizer.update(grads)
     state.step += 1
-    return {"loss": loss.detach()}
+    return C.mean_over_ranks({"loss": loss.detach()})
 
 
 def eval_step(model: nn.Module, batch: Dict[str, Any], task: TaskSpec) -> Dict[str, Any]:

@@ -34,6 +34,7 @@ into one compiled call on a TPU) is read and ignored.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -50,6 +51,8 @@ from valor_tpu_torch.eval.scorer import AdaptiveAlpha, Scorer
 from valor_tpu_torch.eval.validate import eval_mode
 from valor_tpu_torch.models.valor import EOS_TOKEN
 from valor_tpu_torch.ops.layers import _mix
+from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.mesh import batch_shard, step_shard
 from valor_tpu_torch.train.step import (
     TrainState, moe_aux_weight_for, scst_update, to_device, train_step,
 )
@@ -200,7 +203,15 @@ class Trainer:
         sampled rollouts of every group draw from one seed, from
         ``train.seed`` and the step, on the decode's device (as the JAX step
         uses one key for every group).  Returns ``scst_reward_{g}`` (the mean
-        sampled reward) and ``caption_loss_{g}`` as device scalars."""
+        sampled reward) and ``caption_loss_{g}`` as device scalars.
+
+        Across processes each rank decodes its rows of the global batch, its
+        sampled rollout drawing its rows of the global batch's uniforms; the
+        ids and both rollouts are gathered in the global batch's order, every
+        rank rewards the whole batch and updates ``AdaptiveAlpha`` on it (so
+        every rank holds the same alpha), and the update's loss is normalised
+        over the global batch with its gradients averaged over ranks
+        (``train/step.py:scst_update``): W ranks make one process's step."""
         if self.scorer is None:
             raise ValueError("SCST needs a Scorer over the training annotations")
         c = self.cfg.model
@@ -210,22 +221,28 @@ class Trainer:
             video_input, audio_input = generator.encode(batch, spec.caption_groups)
         prompt = batch.get("prompt_tokens_caption")
         seed = _mix(self.cfg.train.seed, self.state.step)
+        shard = step_shard(batch)
+        decode_shard = None if shard is None else dataclasses.replace(shard, collective=False)
         metrics: Dict[str, torch.Tensor] = {}
         for g in spec.caption_groups:
             v = video_input if "v" in g else None
             a = audio_input if "a" in g else None
             sampler = torch.Generator(device=self.device).manual_seed(seed)
-            with torch.no_grad(), eval_mode(model):
+            with torch.no_grad(), eval_mode(model), batch_shard(decode_shard):
                 seq_g, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "greedy",
                                    prompt, v, a, None)
                 seq_s, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "sample",
                                    prompt, v, a, sampler)
-            r_greedy = self.scorer(ids, [_strip(s) for s in seq_g.cpu().numpy()])
-            r_sample = self.scorer(ids, [_strip(s) for s in seq_s.cpu().numpy()])
+            rows = C.all_gather_rows(list(zip(ids, seq_g.cpu().numpy(), seq_s.cpu().numpy())), shard)
+            all_ids = [r[0] for r in rows]
+            r_greedy = self.scorer(all_ids, [_strip(r[1]) for r in rows])
+            r_sample = self.scorer(all_ids, [_strip(r[2]) for r in rows])
             self.alpha.update(r_sample, r_greedy)
-            rewards = torch.from_numpy(r_sample - r_greedy * self.alpha.value()).to(self.device)
+            advantage = r_sample - r_greedy * self.alpha.value()
+            mine = advantage if shard is None else advantage[shard.index]
+            rewards = torch.from_numpy(np.ascontiguousarray(mine)).to(self.device)
             scst_batch = {"video_input": v, "audio_input": a, "prompt_tokens_caption": prompt}
-            m = scst_update(self.state, scst_batch, seq_s, rewards, c.caption_type, g)
+            m = scst_update(self.state, scst_batch, seq_s, rewards, c.caption_type, g, shard)
             metrics[f"scst_reward_{g}"] = torch.tensor(float(np.mean(r_sample)), device=self.device)
             metrics[f"caption_loss_{g}"] = m["loss"]
         return metrics
