@@ -240,7 +240,18 @@ line:
      this script's ``--ddp-worker``, which runs the flows through
      ``cli.train``'s ``main`` in one process group, counts each flow's
      launches and times its collectives; a rank's failure or the launcher's
-     nonzero exit fails the run;
+     nonzero exit fails the run.  The same launch then runs the parameter
+     axes: (vi) (ii)'s training without its validation, with ``--fsdp true``
+     (data 2 x model 1), deterministic: every loss and grad norm within 1e-5
+     of (ii)'s, each rank's parameter, gradient and optimizer bytes against
+     (ii)'s, the peak, the gathers' and reduce-scatters' ms and bytes a step,
+     the launches; it writes one whole checkpoint, which the plain process of
+     (iii) restores to (vi)'s ``state_digest``; (vii) (ii) with
+     ``--model_shards 2`` (data 1 x model 2, tensor parallelism; the global
+     batch of 32 on both ranks): the first step's losses within 2e-2 of (ii)'s
+     and its grad norm within 5e-2 (bf16), finite losses after, the model axis's all-reduces (count, ms and
+     bytes a step), each rank's parameter bytes, the peak, ``validate_pt``'s
+     reports equal on both ranks, the launches;
   9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22, b-e
      and f handed each kernel is held against the plain version: listed where
      phase 2, 6 or 10 compared it, compared here where they did not.
@@ -248,9 +259,10 @@ line:
 It prints a ``{"kernels": [...]}`` line (launches by path: serving,
 serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
 qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
-large_train, swin_cap_train, mscoco_train, ddp_train, ddp_zero_train and
-ddp_scst_train (both ranks of phase f (ii), (v) and (iv)) and
-ddp_nccl_train (phase f (iii)'s NCCL process)), the card's name and power
+large_train, swin_cap_train, mscoco_train, ddp_train, ddp_zero_train,
+ddp_scst_train, ddp_fsdp_train and ddp_tp_train (both ranks of phase f (ii),
+(v), (iv), (vi) and (vii)) and ddp_nccl_train (phase f (iii)'s NCCL
+process)), the card's name and power
 limit before it, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
@@ -272,6 +284,13 @@ result line.
 runs phases 1 and f alone, on a caption dataset (64 training and 8
 evaluation ids) and a sharp-law caption run written for it, then phase 9 over
 the shapes phase f handed the kernels.  It prints no result line.
+
+    python3 chip_smoke.py --tp-dtypes
+
+runs phase f (ii) and (vii) alone at a global batch of 16 (no validation),
+each in fp32 and in bf16, in one two-rank launch, and prints each flow's
+losses: tensor parallelism against the replicated ranks with and without
+bf16's rounding.  It prints no result line.
 """
 
 from __future__ import annotations
@@ -3643,6 +3662,13 @@ def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
 DDP_WORLD = 2
 DDP_TOL = 1e-5  # phase f (i), absolute and relative: fp32 with TF32 off, sums in another order
 NCCL_TOL = 1e-6  # phase f (iii): one NCCL rank against one process, the same arithmetic
+FSDP_TOL = 1e-5  # phase f (vi): fsdp against the replicated ranks, absolute and relative (the gathers are exact;
+# the clip's norm sums the blocks' squares in another order)
+TP_TOL = 2e-2  # phase f (vii): tensor parallelism's first-step losses against (ii)'s, absolute and relative: in bf16
+# each row-parallel product is rounded (2^-9 relative) before the model axis sums the two halves, where one process
+# rounds the whole product once; the difference runs through the 12-layer towers and the fusion stack (5 bf16 ulps)
+TP_NORM_TOL = 5e-2  # and its first grad norm, relative: the norm of bf16 gradients moves with that rounding as it
+# moves between bf16 and fp32 (1.3 % between one bf16 and one fp32 process of the tiny config on the CPU)
 
 
 def _take(batch: dict, rows) -> dict:
@@ -3781,12 +3807,14 @@ REPLICATED_MOMENT_BYTES = 2 * 4 * 374_089_791  # fp32 mu and nu of VALOR-base's 
 
 def state_digest(state) -> dict:
     """Two wrapping int64 sums of the bits of every tensor a checkpoint
-    holds: "params", the parameters and the counters, the same on every rank;
-    "optimizer", the moments and the accumulator as a checkpoint takes them
-    (under ZeRO-1 gathered whole on rank 0, a collective which every rank
-    calls, and a rank's blocks elsewhere).  Equal digests are equal states,
-    bar a collision."""
+    holds: "params", the parameters (gathered whole where the mesh splits
+    them, a collective which every rank calls) and the counters, the same on
+    every rank; "optimizer", the moments and the accumulator as a checkpoint
+    takes them (gathered whole on rank 0, and a rank's blocks elsewhere).
+    Equal digests are equal states, bar a collision."""
     import torch
+
+    from valor_tpu_torch.parallel.partition import whole_state_dict
 
     opt = state.optimizer.state_dict()
     bits_of = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -3799,7 +3827,7 @@ def state_digest(state) -> dict:
         return torch.stack(out).tolist()
 
     counters = [state.step, opt["count"], opt["mini_step"], opt["gradient_step"]]
-    return {"params": sums(state.model.state_dict().values()) + counters,
+    return {"params": sums(whole_state_dict(state.model).values()) + counters,
             "optimizer": sums(opt["mu"] + opt["nu"] + (opt["acc"] or []))}
 
 
@@ -3845,7 +3873,12 @@ def ddp_worker(out_dir: str, flows_path: str) -> int:
     if P.launched():
         P.init_data_parallel(_flag(flows[0]["argv"], "--dist_backend"), device)
     timed: dict = {}  # collective -> [(ms, bytes, host start)]
-    names = ("all_reduce_mean_", "reduce_scatter_mean", "all_gather_blocks_", "gather_blocks_", "all_gather_rows")
+    names = ("all_reduce_mean_", "reduce_scatter_mean", "all_gather_blocks_", "gather_blocks_", "all_gather_rows",
+             "all_gather_dim", "reduce_scatter_dim", "model_all_reduce_")
+    nbytes = {"reduce_scatter_mean": lambda a, out: 4 * sum(t.numel() for t in a[0]),
+              "all_gather_dim": lambda a, out: out.numel() * out.element_size(),
+              "reduce_scatter_dim": lambda a, out: a[0].numel() * a[0].element_size(),
+              "model_all_reduce_": lambda a, out: out.numel() * out.element_size()}
     originals = {n: getattr(C, n) for n in names}
 
     def timer(name, fn):
@@ -3856,8 +3889,7 @@ def ddp_worker(out_dir: str, flows_path: str) -> int:
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             sync()
-            n = out if isinstance(out, int) else (
-                4 * sum(t.numel() for t in a[0]) if name == "reduce_scatter_mean" else 0)
+            n = out if isinstance(out, int) else nbytes[name](a, out) if name in nbytes else 0
             timed.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3, n, t0))
             return out
         return wrapped
@@ -3871,6 +3903,8 @@ def ddp_worker(out_dir: str, flows_path: str) -> int:
             t0 = time.perf_counter()
             if flow.get("tiny"):
                 results[flow["name"]] = _worker_tiny(device or "cuda")
+            elif flow.get("restore"):
+                results[flow["name"]] = _worker_restore(flow, device or "cuda")
             else:
                 results[flow["name"]] = _worker_flow(flow, cuda, sync, timed)
             results[flow["name"]]["flow_s"] = time.perf_counter() - t0
@@ -3926,7 +3960,13 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
     model, opt = trainer.state.model, trainer.state.optimizer
     world = P.world_size()
     step_s = np.diff([rec["start"]] + rec["stamps"])
-    local_batch = cfg.data_train[0].batch_size // world
+    local_batch = cfg.data_train[0].batch_size // P.data_world()
+    bounds = list(zip([rec["start"]] + rec["stamps"][:-1], rec["stamps"]))
+    by_step = {k: {"ms": [sum(t for t, _, t0 in v if lo <= t0 < hi) for lo, hi in bounds],
+                   "calls": [sum(lo <= t0 < hi for _, _, t0 in v) for lo, hi in bounds],
+                   "bytes": [sum(n for _, n, t0 in v if lo <= t0 < hi) for lo, hi in bounds]}
+               for k, v in timed.items()}
+    places = getattr(model, "placements", None) or {}
     median = float(np.median(step_s[1:])) if len(step_s) > 1 else float(step_s[0])
     out = {
         "rank": P.rank(), "world": world, "device": str(model.device),
@@ -3934,7 +3974,13 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
         "deterministic": bool(flow.get("deterministic")), "steps": len(history),
         "first_micro_step": history[0][0], "local_batch": local_batch, "global_batch": cfg.data_train[0].batch_size,
         "step_s": [float(v) for v in step_s], "median_step_s": median,
-        "samples_per_s_rank": local_batch / median, "samples_per_s_global": local_batch * world / median,
+        "samples_per_s_rank": local_batch / median,
+        "samples_per_s_global": local_batch * P.data_world() / median,
+        "grid": [P.data_rank(), P.data_world(), P.model_rank(), P.model_world()],
+        "collectives_by_step": by_step,
+        "split_leaves": sum(pl.split for pl in places.values()),
+        "model_split_leaves": sum(pl.model_dim is not None for pl in places.values()),
+        "data_split_leaves": sum(pl.data_dim is not None for pl in places.values()),
         "max_memory_allocated_gib": rec["peak"] / 2**30,
         "losses": {k: [h[2][k] for h in history] for k in history[0][2]},
         "collectives": {k: {"ms": [t for t, _, _ in v], "bytes": sorted({n for _, n, _ in v})}
@@ -3942,6 +3988,8 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
         "allreduce_ms": [t for t, _, _ in timed.get("all_reduce_mean_", [])],
         "allreduce_bytes": sorted({n for _, n, _ in timed.get("all_reduce_mean_", [])}),
         "param_bytes_fp32": 4 * sum(p.numel() for p in model.parameters()),
+        # a step's gradients are this rank's tensors' shapes, fp32 (grad_dtype unset)
+        "grad_bytes": sum(p.numel() * (2 if cfg.train.grad_dtype == "bfloat16" else 4) for p in model.parameters()),
         "zero_world": opt.zero_world, "optimizer_state_bytes": opt.state_bytes(),
         "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
         "ln_per_step": expected_train_ln_launches(model, spec),
@@ -3963,6 +4011,23 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
                    restored_params_equal=scst["first_step_equal"], max_len=cfg.model.max_generation_len,
                    ln_per_step_fwd_bwd=list(expected_scst_ln_launches(model, spec)))
     del trainer, model, opt
+    return out
+
+
+def _worker_restore(flow: dict, device: str) -> dict:
+    """A flow of ``ddp_worker`` that trains nothing: the state of
+    ``flow["config"]`` built as ``cli.train`` builds it in this process, the
+    latest checkpoint of the run directory ``flow["restore"]`` loaded into it;
+    its ``state_digest``."""
+    from valor_tpu_torch.cli.build import build_model_and_state
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
+
+    cfg = load_config(flow["config"])
+    state = build_model_and_state(cfg, device)
+    load_state(state, ModelSaver(flow["restore"], remove_before_ckpt=False).restore())
+    out = {"digest": state_digest(state), "rank": 0, "world": 1}
+    del state
     return out
 
 
@@ -4101,6 +4166,82 @@ def check_ddp_scst(ranks: list, steps: int, device: str) -> None:
             raise AssertionError(f"phase f (iv) rank {r['rank']}: {[len(x) for x in r['rewards']]} rewards a call")
 
 
+def check_ddp_fsdp(ranks: list, base: list, steps: int, device: str, ckpts, plain_digest) -> dict:
+    """Phase f (vi)'s gates: ``fsdp`` at two ranks against f (ii)'s
+    replicated ranks on the same batches and draws: every loss and grad norm
+    within ``FSDP_TOL``, fewer parameter, gradient and optimizer bytes a rank,
+    the gathers and reduce-scatters timed, the launches of the path, and one
+    whole checkpoint that a plain process restores to (vi)'s own state;
+    returns the largest difference."""
+    worst, err = 0.0, 0.0
+    for r, b in zip(ranks, base):
+        per_step = r["ln_per_step"]
+        want = (per_step * steps, per_step * steps, 0) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["grid"][1], r["steps"]) != (DDP_WORLD, DDP_WORLD, steps) or got != want \
+                or not r["data_split_leaves"]:
+            raise AssertionError(f"phase f (vi) rank {r['rank']}: {r['world']} ranks, grid {r['grid']}, "
+                                 f"{r['steps']} steps, {r['data_split_leaves']} split leaves, launches {got} != {want}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"] or r["losses"].keys() != b["losses"].keys():
+            raise AssertionError(f"phase f (vi) losses of rank {r['rank']}: {r['losses']}")
+        for k, vs in b["losses"].items():
+            for x, y in zip(r["losses"][k], vs):
+                err, worst = max(err, abs(x - y)), max(worst, abs(x - y) - FSDP_TOL * abs(y))
+        for key in ("param_bytes_fp32", "grad_bytes", "optimizer_state_bytes"):  # about half at full width
+            if not (0 < r[key] < (0.75 if device == "cuda" else 1.0) * b[key]):
+                raise AssertionError(f"phase f (vi) rank {r['rank']} holds {r[key]} {key}, the replicated rank {b[key]}")
+        if not {"all_gather_dim", "reduce_scatter_dim"} <= set(r["collectives"]):
+            raise AssertionError(f"phase f (vi) rank {r['rank']} collectives {sorted(r['collectives'])}")
+        if r["digest"]["params"] != ranks[0]["digest"]["params"]:
+            raise AssertionError("phase f (vi): the two ranks' whole parameters or counters differ")
+    if worst > FSDP_TOL or ckpts != [f"step_{steps}"]:
+        raise AssertionError(f"phase f (vi): fsdp losses differ from the replicated ones by {err} (tolerance "
+                             f"{FSDP_TOL} absolute and relative); checkpoints {ckpts}")
+    if plain_digest != ranks[0]["digest"]:
+        raise AssertionError("phase f (vi): a plain process restored another state than the fsdp ranks saved")
+    return {"max_abs_loss_err": err, "tolerance": FSDP_TOL}
+
+
+def check_ddp_tp(ranks: list, base: list, steps: int, val_batch: int, n_val: int, device: str, ckpts) -> dict:
+    """Phase f (vii)'s gates: tensor parallelism at data 1 x model 2, both
+    ranks on the global batch: the same losses and reports on both, the first
+    step's losses within ``TP_TOL`` of f (ii)'s, finite losses after, fewer
+    parameter bytes a rank, the model axis's all-reduces timed, the launches of
+    the path; returns the first step's largest difference."""
+    worst, err = 0.0, 0.0
+    for r in ranks:
+        per_step = r["ln_per_step"]
+        val_batches = -(-r["validations"][0]["items"] // val_batch) if r["validations"] else 0
+        want = (per_step * (steps + val_batches), per_step * steps, 3) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["grid"][1:], r["steps"]) != (DDP_WORLD, [1, r["rank"], DDP_WORLD], steps) or got != want \
+                or not r["model_split_leaves"]:
+            raise AssertionError(f"phase f (vii) rank {r['rank']}: {r['world']} ranks, grid {r['grid']}, "
+                                 f"{r['steps']} steps, {r['model_split_leaves']} split leaves, launches {got} != {want}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"phase f (vii) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
+        if not 0 < r["param_bytes_fp32"] < (0.75 if device == "cuda" else 1.0) * base[0]["param_bytes_fp32"] \
+                or "model_all_reduce_" not in r["collectives"]:
+            raise AssertionError(f"phase f (vii) rank {r['rank']}: {r['param_bytes_fp32']} parameter bytes, "
+                                 f"collectives {sorted(r['collectives'])}")
+        rep = r["validations"][0]["report"] if len(r["validations"]) == 1 else None
+        if rep is None or rep != ranks[0]["validations"][0]["report"] or not all(np.isfinite(v) for v in rep.values()) \
+                or r["validations"][0]["items"] != n_val:
+            raise AssertionError(f"phase f (vii) validate_pt reports differ or are missing: {r['validations']}")
+    for k, vs in base[0]["losses"].items():
+        if k == "grad_norm":
+            continue
+        x, y = ranks[0]["losses"][k][0], vs[0]
+        err, worst = max(err, abs(x - y)), max(worst, abs(x - y) - TP_TOL * abs(y))
+    norm, norm0 = ranks[0]["losses"]["grad_norm"][0], base[0]["losses"]["grad_norm"][0]
+    if worst > TP_TOL or abs(norm - norm0) > TP_NORM_TOL * norm0 or ckpts:
+        raise AssertionError(f"phase f (vii): the first step's losses differ from (ii)'s by {err} (tolerance "
+                             f"{TP_TOL} absolute and relative), its grad norm {norm} from {norm0} (tolerance "
+                             f"{TP_NORM_TOL} relative); checkpoints {ckpts}")
+    return {"first_step_max_abs_loss_err": err, "tolerance": TP_TOL,
+            "first_step_grad_norm_rel_err": abs(norm - norm0) / norm0, "grad_norm_tolerance": TP_NORM_TOL}
+
+
 def cli_config(paths: dict, tmp: str, name: str, label: str, edit) -> str:
     """``configs/<name>`` with ``edit(raw)`` applied, written under ``tmp`` as
     ``config_<label>.json``; its path (``cli_run`` without the environment,
@@ -4135,9 +4276,9 @@ def env_for(paths: dict):
 def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", overrides=None,
               fixture=None, scst_overrides=None, steps: int = DDP_STEPS, batch_size: int = 32,
               val_batch: int = 64, n_val: int = 64) -> dict:
-    """Phase f: (i), then (ii), (v) and (iv) in one launch of two gloo ranks,
-    then (iii), (v)'s checkpoint resumed at one NCCL rank and in a plain
-    process; a summary a path.  (ii) and (v) train on a dataset written here
+    """Phase f: (i), then (ii), (v), (iv), (vi) and (vii) in one launch of
+    two gloo ranks, then (iii), (v)'s checkpoint resumed at one NCCL rank and
+    in a plain process (which also restores (vi)'s); a summary a path.  (ii) and (v) train on a dataset written here
     that draws nothing at random on the host (one caption an id, 4 frames and
     one audio clip an item), the same batches in both, and (iii) trains on it
     too; (iv)
@@ -4177,6 +4318,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                        first_eval=False, **(scst_overrides or overrides or {}))
 
         base_cfg, zero_cfg = pt_config("base", val_batch), pt_config("zero", None)
+        fsdp_cfg, tp_cfg = pt_config("fsdp", None), pt_config("tp", val_batch)
         scst_cfg = cli_config(cap_paths, tmp, "caption-msrvtt.json", "scst", scst_edit)
         gloo = ["--dist_backend", "gloo", *dev]
         with env_for(data):
@@ -4187,22 +4329,31 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                                           "true", *gloo], "deterministic": True, "digest": True},
                 {"name": "scst", "argv": ["--config", scst_cfg, "--scst_finetuning", "true", "--pretrain_dir",
                                           cap_run, *gloo], "scst": True, "no_save": True},
-            ], os.path.join(tmp, "two"), timeout=900)
-            ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt"))) for k in ("base", "zero")}
+                {"name": "fsdp", "argv": ["--config", fsdp_cfg, "--fsdp", "true", *gloo], "deterministic": True,
+                 "digest": True},
+                {"name": "tp", "argv": ["--config", tp_cfg, "--model_shards", str(DDP_WORLD), *gloo],
+                 "deterministic": True, "no_save": True},
+            ], os.path.join(tmp, "two"), timeout=1000)
+            ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt"))) for k in ("base", "zero", "fsdp", "tp")}
             # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps
             resume = ["--resume", "true", "--num_train_steps", str(2 * steps), "--zero_optimizer", "true"]
             one = {}
             for name, nproc, group in (("nccl", 1, ["--dist_backend", "nccl" if cuda else "gloo"]),
                                        ("plain", None, [])):
-                one[name], = run_ranks(nproc, [
+                # the plain process also restores (vi)'s checkpoint, training nothing
+                fsdp_restore = [{"name": "fsdp_restore", "restore": os.path.join(tmp, "fsdp"), "config": fsdp_cfg,
+                                 "argv": dev}] if nproc is None else []
+                one[name] = run_ranks(nproc, [
                     {"name": "resume", "argv": ["--config", zero_cfg, *resume, *group, *dev], "deterministic": True,
-                     "no_save": True},
-                ], os.path.join(tmp, name), timeout=600)
+                     "no_save": True}, *fsdp_restore,
+                ], os.path.join(tmp, name), timeout=600)[0]
     out["ddp_tiny"] = check_ddp_tiny([r["tiny"] for r in two], device)
-    base, zero, scst = ([r[k] for r in two] for k in ("base", "zero", "scst"))
+    base, zero, scst, fsdp, tp = ([r[k] for r in two] for k in ("base", "zero", "scst", "fsdp", "tp"))
     check_ddp_base(base, steps, val_batch, n_val, device, ckpts["base"])
     zero_err = check_ddp_zero(zero, base, steps, device, ckpts["zero"])
     check_ddp_scst(scst, steps, device)
+    fsdp_err = check_ddp_fsdp(fsdp, base, steps, device, ckpts["fsdp"], one["plain"]["fsdp_restore"]["digest"])
+    tp_err = check_ddp_tp(tp, base, steps, val_batch, n_val, device, ckpts["tp"])
     n0, p0 = one["nccl"]["resume"], one["plain"]["resume"]
     if (n0["world"], len(n0["allreduce_ms"]), p0["allreduce_ms"]) != (1, n0["steps"], []) \
             or n0["losses"].keys() != p0["losses"].keys() or not _finite(n0["losses"]):
@@ -4265,6 +4416,33 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "samples_per_s": n0["samples_per_s_global"], "plain_samples_per_s": p0["samples_per_s_global"],
         "max_memory_allocated_gib": n0["max_memory_allocated_gib"],
         "plain_max_memory_allocated_gib": p0["max_memory_allocated_gib"], "collectives": n0["collectives"]})
+    f0, t0_ = fsdp[0], tp[0]
+    out["ddp_fsdp_train"] = dict(_launch_summary(fsdp), **fsdp_err, **{
+        "config": "phase f (ii)'s without validation, --fsdp true (data 2 x model 1)", "steps": steps,
+        "global_batch": batch_size, "deterministic": True, "losses": f0["losses"], "replicated_losses": b0["losses"],
+        "split_leaves": f0["data_split_leaves"],
+        "param_bytes_by_rank": [r["param_bytes_fp32"] for r in fsdp], "replicated_param_bytes": b0["param_bytes_fp32"],
+        "grad_bytes_by_rank": [r["grad_bytes"] for r in fsdp], "replicated_grad_bytes": b0["grad_bytes"],
+        "optimizer_state_bytes_by_rank": [r["optimizer_state_bytes"] for r in fsdp],
+        "replicated_optimizer_state_bytes": b0["optimizer_state_bytes"],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in fsdp],
+        "replicated_max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in base],
+        "median_step_s_by_rank": [r["median_step_s"] for r in fsdp], "step_s_by_rank": [r["step_s"] for r in fsdp],
+        "collectives_by_step_by_rank": [{k: v for k, v in r["collectives_by_step"].items()
+                                         if k in ("all_gather_dim", "reduce_scatter_dim", "all_reduce_mean_")}
+                                        for r in fsdp],
+        "checkpoint": ckpts["fsdp"], "plain_process_restore_digest_equal": True})
+    out["ddp_tp_train"] = dict(_launch_summary(tp), **tp_err, **{
+        "config": f"phase f (ii)'s, --model_shards {DDP_WORLD} (data 1 x model {DDP_WORLD}), global batch "
+                  f"{batch_size} on every rank", "steps": steps, "deterministic": True,
+        "losses": t0_["losses"], "replicated_losses": b0["losses"],
+        "model_split_leaves": t0_["model_split_leaves"],
+        "param_bytes_by_rank": [r["param_bytes_fp32"] for r in tp], "replicated_param_bytes": b0["param_bytes_fp32"],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in tp],
+        "median_step_s_by_rank": [r["median_step_s"] for r in tp], "step_s_by_rank": [r["step_s"] for r in tp],
+        "model_all_reduce_by_step_by_rank": [r["collectives_by_step"].get("model_all_reduce_") for r in tp],
+        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in tp],
+        "report": t0_["validations"][0]["report"], "replicated_report": b0["validations"][0]["report"]})
     out["seconds"] = time.monotonic() - t0
     for k, v in out.items():
         if isinstance(v, dict) and k != "ddp_tiny":
@@ -4360,14 +4538,43 @@ def ddp_alone() -> None:
     phase_path_shapes([v for k, v in ddp.items() if k not in ("ddp_tiny", "seconds")], [], [], [])
 
 
+def tp_dtypes_alone(steps: int = 3, batch_size: int = 16) -> None:
+    """Phase f (ii) and (vii) alone, without validation, at ``batch_size``
+    (half phase f's, so that fp32 activations of two ranks fit the card), each
+    with ``dtype`` float32 and bfloat16, under deterministic algorithms; logs
+    each flow's losses, peak and median step."""
+    from valor_tpu_torch.data.synthetic import write_retrieval_dataset
+
+    phase_card_and_build()
+    with tempfile.TemporaryDirectory(prefix="valor_tp_dtypes_") as tmp:
+        data = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=steps * batch_size, n_val=16, n_frames=4,
+                                       wav_seconds=4.0, captions_per_train_id=1)
+
+        def config(name, dtype):
+            return cli_config(data, tmp, "pretrain-valor-base.json", name, lambda raw: first_pt_flow(
+                raw, data, os.path.join(tmp, name), steps, batch_size, None, False, {"dtype": dtype}))
+
+        gloo = ["--dist_backend", "gloo"]
+        flows = [{"name": f"{kind}_{dt}", "argv": ["--config", config(f"{kind}_{dt}", dt), *extra, *gloo],
+                  "deterministic": True, "no_save": True}
+                 for dt in ("float32", "bfloat16")
+                 for kind, extra in (("replicated", []), ("tp", ["--model_shards", str(DDP_WORLD)]))]
+        with env_for(data):
+            ranks = run_ranks(DDP_WORLD, flows, os.path.join(tmp, "two"), timeout=900)
+    for f in flows:
+        r = ranks[0][f["name"]]
+        log(f"{f['name']} " + json.dumps({"losses": r["losses"], "max_memory_allocated_gib": r["max_memory_allocated_gib"],
+                                          "median_step_s": r["median_step_s"], "grid": r["grid"]}))
+
+
 def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
     if args[:1] == ["--ddp-worker"] and len(args) == 3:
         return ddp_worker(args[1], args[2])
-    if args not in ([], ["--phase18"], ["--families"], ["--ddp"]):
-        print("usage: python3 chip_smoke.py [--phase18 | --families | --ddp]", file=sys.stderr)
+    if args not in ([], ["--phase18"], ["--families"], ["--ddp"], ["--tp-dtypes"]):
+        print("usage: python3 chip_smoke.py [--phase18 | --families | --ddp | --tp-dtypes]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4380,6 +4587,9 @@ def main(argv=None) -> int:
         return 0
     if args == ["--ddp"]:
         ddp_alone()
+        return 0
+    if args == ["--tp-dtypes"]:
+        tp_dtypes_alone()
         return 0
     from valor_tpu_torch.core.config import load_config
     from valor_tpu_torch.models.bridge import init_params, load_model

@@ -1,0 +1,470 @@
+"""The parameter axes across processes: ``fsdp`` and tensor parallelism
+(``model_shards``) on four gloo ranks on the CPU, against one port process
+on the global batch and against the JAX package's step.
+
+One four-rank launch (``parallel/launch.py:run_local``) runs, in turn, the
+meshes (data 4 x model 1) with ``fsdp``, (2 x 2) and (2 x 2) with ``fsdp``
+and ``zero_optimizer``, on the tiny config widened to ``fusion_hidden=128,
+fusion_intermediate=256`` (as ``tests/test_fsdp.py`` widens it) so that the
+fusion tower's attention and MLP kernels and the tied word table reach the
+2^14-element threshold of ``fsdp``.  At each mesh:
+
+  * one ``pt_contra%tva%tv%ta_caption%tva%tv%ta`` step with dropout and the
+    unimlm masks drawn: every loss, the grad norm and every updated parameter
+    (gathered whole) within 1e-5 of one port process on the global batch;
+  * the same step with dropout off and the masks patched by a row-local
+    pattern in both packages (a rank's rows mask as they do in the global
+    batch): the losses and grad norm within 1e-4 of JAX's, and the updated
+    parameters within the learning rate of JAX's update
+    (``tests/test_torch_moe.py:test_one_train_step_matches_jax``'s bound);
+  * ``validate_ret`` reports equal to one process's, and a greedy
+    ``validate_cap`` whose captions (decoded from local-head caches) equal
+    one process's token for token;
+  * one SCST step (``Trainer.scst_step``, unpatched rollouts): rewards and
+    alpha equal on every rank and to one process's;
+  * a whole checkpoint written at the mesh, resumed at another of the three
+    meshes and in one process: the restored parameters and moments bit for
+    bit the file's, and the next step's losses within 1e-5.
+
+Two more steps at (2 x 2): VideoSwin (its relative-position bias tables are
+replicated but read by heads, so their gradients are partial on each model
+rank and summed over the model axis; the test checks both), and grouped-query
+cross-attention with kv_heads divisible by the model axis.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_ddp import PT_TASK, UPDATE, _batch
+from valor_tpu_torch.parallel import mesh as P
+from valor_tpu_torch.parallel.launch import run_local
+
+WORLD = 4
+LIMIT = 420
+TOL = 1e-5
+TOL_JAX = 1e-4
+SEED = 7
+WIDE = dict(fusion_hidden=128, fusion_intermediate=256)
+MESHES = {  # name: (model_shards, fsdp, zero_optimizer)
+    "fsdp_4x1": (1, True, False),
+    "tp_2x2": (2, False, False),
+    "tp_fsdp_zero_2x2": (2, True, True),
+}
+RESUME = {"fsdp_4x1": "tp_2x2", "tp_2x2": "tp_fsdp_zero_2x2", "tp_fsdp_zero_2x2": "fsdp_4x1"}
+EVAL_IDS = [f"v{i}" for i in range(6)]
+SCST_IDS = ["a", "b", "c", "d", "a", "d", "b", "c"]
+
+
+def _cfg(**kw):
+    from tests.test_torch_ddp import _cfg as cfg
+
+    return cfg(**dict(WIDE, **kw))
+
+
+class IdTokenizer:
+    """Decodes ids as their numbers: captions compared token for token."""
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+def _row_mask_torch(gen, tokens, *a):
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    pick = (((tokens.long() * 7 + pos * 3) % 5) < 2) & (tokens != 0)
+    pick[:, 0], pick[:, 1] = False, True
+    return torch.where(pick, 103, tokens).to(tokens.dtype), torch.where(pick, tokens, -1).to(tokens.dtype)
+
+
+def _row_mask_jax(rng, tokens, *a):
+    import jax.numpy as jnp
+
+    pos = jnp.arange(tokens.shape[1])[None]
+    pick = (((tokens * 7 + pos * 3) % 5) < 2) & (tokens != 0)
+    pick = pick.at[:, 0].set(False).at[:, 1].set(True)
+    return jnp.where(pick, 103, tokens).astype(tokens.dtype), jnp.where(pick, tokens, -1).astype(tokens.dtype)
+
+
+def _state(cfg, fsdp=False, zero=False):
+    """A training state from seed 0's weights, placed on this process's mesh."""
+    from valor_tpu_torch.core.config import TrainConfig
+    from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.parallel.partition import shard_model
+    from valor_tpu_torch.train.optimizer import build_optimizer
+    from valor_tpu_torch.train.step import TrainState
+
+    model = train_model(cfg, init_params(cfg, 0, "cpu"), "cpu")
+    shard_model(model, fsdp=fsdp)
+    return TrainState(model, build_optimizer(model, TrainConfig(**UPDATE, zero_optimizer=zero)))
+
+
+def _rows(batch):
+    """This data rank's rows of a global batch."""
+    d, n = P.data_rank(), P.data_world()
+    return {k: v[d::n] for k, v in batch.items()}
+
+
+def _tensors(batch):
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+
+
+def _step(state, batch, task=PT_TASK):
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.train.step import train_step
+
+    return {k: float(v) for k, v in train_step(state, _tensors(batch), parse_task(task), SEED).items()}
+
+
+def _whole(state):
+    """The parameters and the optimizer's moments as a checkpoint takes them
+    (rank 0's are whole)."""
+    from valor_tpu_torch.parallel.partition import whole_state_dict
+
+    opt = state.optimizer.state_dict()
+    return {"params": {k: v.detach().clone() for k, v in whole_state_dict(state.model).items()},
+            "mu": [t.detach().clone() for t in opt["mu"]], "nu": [t.detach().clone() for t in opt["nu"]]}
+
+
+def _kept(x):
+    """Rank 0's copy of what every rank gathered (the others return None)."""
+    return x if P.rank() == 0 else None
+
+
+def _validate(model, cfg, eval_batch, result_dir):
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.eval import validate as V
+    from valor_tpu_torch.train.step import eval_step
+
+    rows = _rows(dict(eval_batch, ids=np.array(EVAL_IDS)))
+    ids = [str(i) for i in rows.pop("ids")]
+    ret = V.validate_ret(model, eval_step, [dict(_tensors(rows), ids=ids)], parse_task("ret%tva%tv"),
+                         cfg.contra_type)
+    media = {k: rows[k] for k in ("video_pixels", "audio_spectrograms")}
+    hyps = {}
+    import valor_tpu_torch.eval.validate as VM
+
+    dump0 = VM._dump
+    VM._dump = lambda path, payload: hyps.update({os.path.basename(path): payload})
+    try:
+        cap = V.validate_cap(model, [dict(_tensors(media), ids=ids)], parse_task("cap%tva"), IdTokenizer(),
+                             {i: ["1 2 3"] for i in EVAL_IDS}, caption_type=cfg.caption_type,
+                             max_len=cfg.max_generation_len, result_dir=result_dir, step=0)
+    finally:
+        VM._dump = dump0
+    return {"ret": ret, "cap": cap, "hyps": hyps}
+
+
+def _scst(cfg, fsdp, zero, batch, ids, ann, vocab):
+    """One SCST step: the advantages of each update, alpha and the metrics."""
+    import valor_tpu_torch.train.trainer as T
+    from valor_tpu_torch.core.config import Config, TrainConfig
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.data.tokenizers.wordpiece import BertTokenizer
+    from valor_tpu_torch.eval.scorer import AdaptiveAlpha, Scorer
+
+    state = _state(cfg, fsdp, zero)
+    tcfg = TrainConfig(**UPDATE, zero_optimizer=zero)
+    trainer = T.Trainer(Config(model=cfg, train=tcfg), state, [], scorer=Scorer(ann, sorted(set(SCST_IDS)),
+                                                                                 BertTokenizer(vocab)))
+    trainer.alpha = AdaptiveAlpha(alpha_type=2, beta=0.9)
+    rewards, update0 = [], T.scst_update
+
+    def update(*a, **kw):
+        rewards.append(a[3].detach().clone())
+        return update0(*a, **kw)
+
+    T.scst_update = update
+    try:
+        metrics = trainer.scst_step(_tensors(batch), ids, parse_task("cap%tva%tv"))
+    finally:
+        T.scst_update = update0
+    a = trainer.alpha
+    return {"rewards": rewards, "alpha": (a.value(), a.idx, a.sample_total, a.greedy_total),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def _partial_table_step(cfg, batch):
+    """A VideoSwin step: each bias table's gradient on this rank before and
+    after ``reduce_grads``, the losses and the updated parameters."""
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.parallel.partition import whole_state_dict
+    from valor_tpu_torch.train.step import losses_and_grads
+
+    state = _state(cfg)
+    names = [n for n, _ in state.model.named_parameters()]
+    metrics, raw = losses_and_grads(state.model, _tensors(batch), parse_task("pt_contra%tva_caption%tva"), SEED,
+                                    reduce_grads=lambda g: g)
+    tables = [i for i, n in enumerate(names) if n.endswith("relative_position_bias_table")]
+    local = {names[i]: raw[i].clone() for i in tables}
+    grads = state.optimizer.reduce_grads(raw)
+    state.optimizer.update(grads)
+    return {"local": local, "reduced": {names[i]: grads[i].clone() for i in tables},
+            "metrics": {k: float(v) for k, v in metrics.items()}, "params": _kept(whole_state_dict(state.model))}
+
+
+def _rank(cfgs, batches, eval_batch, scst, root):
+    import valor_tpu_torch.models.valor as TV
+    from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
+
+    P.init_data_parallel("gloo", "cpu")
+    out = {}
+    for name, (m, fsdp, zero) in MESHES.items():
+        P.make_mesh(m, "cpu")
+        o = out[name] = {}
+        state = _state(cfgs["main"], fsdp, zero)
+        o["held"] = {n: p.numel() for n, p in state.model.named_parameters()}
+        o["split"] = {n: (pl.model_dim, pl.data_dim) for n, pl in state.model.placements.items() if pl.split}
+        o["zero"] = [bool(s) for s in state.optimizer.sharded]
+        o["grid"] = (P.data_rank(), P.data_world(), P.model_rank(), P.model_world())
+        state.model.eval()
+        o["eval"] = _validate(state.model, cfgs["main"], eval_batch, os.path.join(root, "results"))
+        state.model.train()
+        o["step"] = _step(state, _rows(batches[0]))
+        o["after"] = _kept(_whole(state)["params"])
+        ModelSaver(os.path.join(root, name)).save(state, 1)
+        mask0 = TV.mask_tokens
+        TV.mask_tokens = _row_mask_torch
+        try:
+            jstate = _state(cfgs["jax"], fsdp, zero)
+            o["jax_step"] = _step(jstate, _rows(batches[0]))
+            o["jax_after"] = _kept(_whole(jstate)["params"])
+        finally:
+            TV.mask_tokens = mask0
+        o["scst"] = _scst(cfgs["main"], fsdp, zero, _rows(scst["batch"]), _rows({"i": np.array(SCST_IDS)})["i"].tolist(),
+                          scst["ann"], scst["vocab"])
+    for src, dst in RESUME.items():
+        m, fsdp, zero = MESHES[dst]
+        P.make_mesh(m, "cpu")
+        state = _state(cfgs["main"], fsdp, zero)
+        load_state(state, ModelSaver(os.path.join(root, src)).restore())
+        out[src]["restored_at"] = dst
+        out[src]["restored"] = _kept(_whole(state))
+        out[src]["resumed_step"] = _step(state, _rows(batches[1]))
+    P.make_mesh(2, "cpu")
+    out["swin"] = _partial_table_step(cfgs["swin"], _rows(batches[0]))
+    gqa = _state(cfgs["gqa"])
+    out["gqa"] = {"step": _step(gqa, _rows(batches[0])), "after": _kept(_whole(gqa)["params"])}
+    return out
+
+
+def _one_scst(cfg, batch, ann, vocab):
+    return _scst(cfg, False, False, batch, list(SCST_IDS), ann, vocab)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    import json
+
+    from tests.test_data import TINY_VOCAB
+    from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
+
+    root = tmp_path_factory.mktemp("fsdp_tp")
+    (root / "vocab.txt").write_text("\n".join(TINY_VOCAB))
+    ann = {"a": ["A cat sits on the mat.", "the cat sits"], "b": ["The dog runs"], "c": "the mat",
+           "d": ["a dog sits on the cat", "dogs run"]}
+    (root / "ann.json").write_text(json.dumps(ann))
+    cfgs = {"main": _cfg(dropout=0.1, caption_type="unimlm"), "jax": _cfg(dropout=0.0, caption_type="unimlm"),
+            "swin": _cfg(dropout=0.0, caption_type="lm", video_encoder_type="videoswin_tiny_test",
+                         txt_encoder_type="bert_base_uncased", init_clip_head=False),
+            "gqa": _cfg(dropout=0.1, caption_type="unimlm", fusion_heads=4, fusion_cross_attn_kv_heads=2)}
+    batches = [_batch(60), _batch(61)]
+    eval_batch = _batch(62, b=6)
+    scst = {"batch": {k: v for k, v in _batch(63).items() if k in ("video_pixels", "audio_spectrograms")},
+            "ann": str(root / "ann.json"), "vocab": str(root / "vocab.txt")}
+    ranks = run_local(_rank, WORLD, cfgs, batches, eval_batch, scst, str(root / "ckpt"), timeout=LIMIT)
+    # one process on the global batches
+    one = _state(cfgs["main"])
+    one_eval = _validate(one.model.eval(), cfgs["main"], eval_batch, str(root / "results"))
+    one.model.train()
+    one_step = _step(one, batches[0])
+    one_after = _whole(one)["params"]
+    one_scst = _one_scst(cfgs["main"], scst["batch"], scst["ann"], scst["vocab"])
+    resumed = {}
+    for src in MESHES:
+        payload = ModelSaver(str(root / "ckpt" / src)).restore()
+        st = _state(cfgs["main"])
+        load_state(st, payload)
+        resumed[src] = {"payload": payload, "restored": _whole(st), "step": _step(st, batches[1])}
+    swin_one = _partial_table_step(cfgs["swin"], batches[0])
+    gqa = _state(cfgs["gqa"])
+    gqa_one = {"step": _step(gqa, batches[0]), "after": _whole(gqa)["params"]}
+    return {"ranks": ranks, "cfgs": cfgs, "batches": batches, "one_eval": one_eval, "one_step": one_step,
+            "one_after": one_after, "one_scst": one_scst, "resumed": resumed, "swin_one": swin_one,
+            "gqa_one": gqa_one}
+
+
+def _close(a, b, tol, what):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol, atol=tol, err_msg=what)
+
+
+def _metrics_close(got, want, tol, what):
+    assert got.keys() == want.keys(), what
+    for k in want:
+        _close(got[k], want[k], tol, f"{what} {k}")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_each_rank_holds_its_share(run, mesh):
+    m, fsdp, _ = MESHES[mesh]
+    whole = {k: v.numel() for k, v in run["one_after"].items()}
+    for r, out in enumerate(run["ranks"]):
+        o = out[mesh]
+        assert o["grid"] == (r // m, WORLD // m, r % m, m)
+        assert o["split"], mesh
+        assert any(d is not None for _, d in o["split"].values()) == fsdp
+        assert any(md is not None for md, _ in o["split"].values()) == (m > 1)
+        for n, (md, dd) in o["split"].items():
+            parts = (m if md is not None else 1) * (WORLD // m if dd is not None else 1)
+            assert o["held"][n] * parts == whole[n], n
+        assert sum(o["held"].values()) < sum(whole.values())
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_step_equals_one_process(run, mesh):
+    for out in run["ranks"]:
+        _metrics_close(out[mesh]["step"], run["one_step"], TOL, mesh)
+    after = run["ranks"][0][mesh]["after"]
+    assert after.keys() == run["one_after"].keys()
+    for n, p in run["one_after"].items():
+        _close(after[n], p, TOL, f"{mesh} updated {n}")
+
+
+@pytest.fixture(scope="module")
+def jax_ref(run):
+    """JAX's losses, grad norm and updated parameters on the global batch,
+    with the port's seed-0 weights and the row-local masks."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import valor_tpu.models.valor as JV
+    from tests.test_torch_models import _np, jax_layout, jax_shapes
+    from valor_tpu.core.config import TrainConfig as JaxTrainConfig
+    from valor_tpu.core.tasks import parse_task
+    from valor_tpu.models.valor import VALORModel as JaxVALOR
+    from valor_tpu.train.optimizer import build_optimizer as jax_build
+    from valor_tpu.train.step import _apply_losses
+    from valor_tpu_torch.models.bridge import init_params, params_from_jax
+    import dataclasses
+
+    from valor_tpu.core.config import ModelConfig as JaxModelConfig
+
+    cfg = run["cfgs"]["jax"]
+    jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
+    jm = JaxVALOR(jcfg)
+    params = jax_layout(init_params(cfg, 0, "cpu"), jax_shapes(jm, PT_TASK))
+    spec = parse_task(PT_TASK)
+    batch = {k: jnp.asarray(v) for k, v in run["batches"][0].items()}
+    mask0 = JV.mask_tokens
+    JV.mask_tokens = _row_mask_jax
+    try:
+        def loss(p):
+            losses = _apply_losses(jm, p, batch, spec, {"mask": jax.random.PRNGKey(0)}, 0.0)
+            return sum(jnp.asarray(v, jnp.float32) for v in losses.values()), losses
+
+        (total, losses), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    finally:
+        JV.mask_tokens = mask0
+    tx = jax_build(params, JaxTrainConfig(**UPDATE))
+    updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+    after = params_from_jax(_np(optax.apply_updates(params, updates)))
+    metrics = {k: float(v) for k, v in losses.items()}
+    metrics.update(total_loss=float(total), grad_norm=float(optax.global_norm(grads)))
+    return metrics, after
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_step_equals_jax(run, jax_ref, mesh):
+    metrics, after = jax_ref
+    lr = UPDATE["learning_rate"]
+    for out in run["ranks"]:
+        _metrics_close(out[mesh]["jax_step"], metrics, TOL_JAX, f"{mesh} against JAX")
+    got = run["ranks"][0][mesh]["jax_after"]
+    assert got.keys() == after.keys()
+    diff = torch.cat([(got[n] - p).abs().reshape(-1) for n, p in after.items()])
+    assert float(diff.max()) <= lr
+    assert float((diff <= 2e-2 * lr).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_validation_reports_and_captions_equal(run, mesh):
+    one = run["one_eval"]
+    assert one["hyps"] and len({json_seq for v in one["hyps"].values() for json_seq in
+                                (str(x["caption"]) for x in v)}) > 1
+    for out in run["ranks"]:
+        got = out[mesh]["eval"]
+        assert got["ret"] == one["ret"]
+        assert got["cap"] == one["cap"]
+    got = run["ranks"][0][mesh]["eval"]["hyps"]  # rank 0 wrote the dumps
+    assert {k: sorted(v, key=lambda x: x["video_id"]) for k, v in got.items()} == \
+        {k: sorted(v, key=lambda x: x["video_id"]) for k, v in one["hyps"].items()}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_scst_rewards_and_alpha_equal(run, mesh):
+    one = run["one_scst"]
+    assert len(one["rewards"]) == 2
+    for out in run["ranks"]:
+        got = out[mesh]["scst"]
+        assert got["alpha"] == one["alpha"]
+        assert got["metrics"].keys() == one["metrics"].keys()
+        for k, v in one["metrics"].items():
+            if k.startswith("scst_reward"):
+                assert got["metrics"][k] == v, k
+            else:
+                _close(got["metrics"][k], v, TOL, k)
+    for r, out in enumerate(run["ranks"]):
+        m = MESHES[mesh][0]
+        d, n = r // m, WORLD // m
+        for mine, whole in zip(out[mesh]["scst"]["rewards"], one["rewards"]):
+            _close(mine, whole[d::n], 1e-12, "advantage")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_checkpoint_resumes_at_another_mesh_and_in_one_process(run, mesh):
+    res = run["resumed"][mesh]
+    payload = res["payload"]
+    # every tensor of the file is whole, in one process's layout
+    assert {k: tuple(v.shape) for k, v in payload["params"].items()} == \
+        {k: tuple(v.shape) for k, v in run["one_after"].items()}
+    for where in (res["restored"], run["ranks"][0][mesh]["restored"]):
+        for k, v in payload["params"].items():
+            assert torch.equal(where["params"][k], v), k
+        for key in ("mu", "nu"):
+            assert len(where[key]) == len(payload["opt_state"][key])
+            for a, b in zip(where[key], payload["opt_state"][key]):
+                assert torch.equal(a, b), key
+    for out in run["ranks"]:
+        assert out[mesh]["restored_at"] == RESUME[mesh]
+        _metrics_close(out[mesh]["resumed_step"], res["step"], TOL, f"{mesh} resumed at {RESUME[mesh]}")
+
+
+def test_swin_bias_tables_sum_over_the_model_axis(run):
+    """A replicated table read by heads: each model rank's gradient covers its
+    heads' columns only, and after ``reduce_grads`` the whole gradient equals
+    one process's."""
+    one = run["swin_one"]
+    assert one["reduced"]
+    for r, out in enumerate(run["ranks"]):
+        got = out["swin"]
+        _metrics_close(got["metrics"], one["metrics"], TOL, "swin")
+        for n, g in one["reduced"].items():
+            _close(got["reduced"][n], g, TOL, n)
+            local = got["local"][n]
+            heads = g.shape[1] // 2
+            mine = slice((r % 2) * heads, (r % 2 + 1) * heads)
+            other = slice(((r + 1) % 2) * heads, ((r + 1) % 2 + 1) * heads)
+            assert float(local[:, other].abs().max()) == 0.0, n
+            assert float(local[:, mine].abs().max()) > 0.0, n
+    for n, p in one["params"].items():
+        _close(run["ranks"][0]["swin"]["params"][n], p, TOL, f"swin updated {n}")
+
+
+def test_gqa_step_equals_one_process(run):
+    one = run["gqa_one"]
+    for out in run["ranks"]:
+        _metrics_close(out["gqa"]["step"], one["step"], TOL, "gqa")
+    for n, p in one["after"].items():
+        _close(run["ranks"][0]["gqa"]["after"][n], p, TOL, f"gqa updated {n}")

@@ -223,21 +223,32 @@ def test_local_batch_size():
 
 
 @pytest.mark.parametrize("knob", ["model_shards", "fusion_pipeline_stages", "sequence_parallel", "fsdp",
-                                  "zero_optimizer", "scst_finetuning"])
+                                  "zero_optimizer", "scst_finetuning", "model_shards_moe"])
 def test_other_axes_are_refused_across_processes(knob):
-    """The axes past the data axis raise across processes, each naming its
-    part of ROADMAP item 13; ZeRO-1 and SCST, which the data axis now runs,
-    are accepted."""
+    """The knobs still to come raise across processes, each naming its part
+    of ROADMAP item 13 (``model_shards`` with MoE experts: item 13c, which
+    would put the experts on the model axis); ZeRO-1, SCST, ``fsdp`` and
+    ``model_shards``, which the mesh now runs, are accepted."""
     from valor_tpu_torch.core.config import load_config
 
-    value = {"model_shards": 2, "fusion_pipeline_stages": 2}.get(knob, True)
-    cfg = load_config(None, {knob: value})
+    overrides = {"model_shards": {"model_shards": 2}, "fusion_pipeline_stages": {"fusion_pipeline_stages": 2},
+                 "model_shards_moe": {"model_shards": 2, "fusion_moe_experts": 4}}.get(knob, {knob: True})
+    cfg = load_config(None, overrides)
     P.check_data_parallel(cfg, 1)  # read and ignored by one process
-    if knob in ("zero_optimizer", "scst_finetuning"):
+    if knob in ("zero_optimizer", "scst_finetuning", "fsdp", "model_shards"):
         P.check_data_parallel(cfg, 2)
         return
-    with pytest.raises(NotImplementedError, match=f"{knob} across 2 processes: ROADMAP item 13[b-e]"):
+    name = "model_shards with fusion_moe_experts" if knob == "model_shards_moe" else knob
+    with pytest.raises(NotImplementedError, match=f"{name} across 2 processes: ROADMAP item 13[c-e]"):
         P.check_data_parallel(cfg, 2)
+
+
+def test_model_shards_must_divide_the_ranks():
+    from valor_tpu_torch.core.config import load_config
+
+    with pytest.raises(ValueError, match="model_shards 3 does not divide the 2 ranks"):
+        P.check_data_parallel(load_config(None, {"model_shards": 3}), 2)
+    P.check_data_parallel(load_config(None, {"model_shards": 2}), 4)
 
 
 @pytest.mark.parametrize("rows,k", [(8, 1), (6, 3), (5, 2)])

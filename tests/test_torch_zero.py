@@ -20,7 +20,10 @@ All rank-side work runs in one two-rank launch.  The checks:
     each continues within 1e-5 of the other world's continuation (1e-5: two
     ranks against one process, tests/test_torch_ddp_steps.py);
   * ``cli.train --zero_optimizer true`` under two ranks gives the losses of
-    the replicated two-rank run within 1e-5 and saves the whole state.
+    the replicated two-rank run within 1e-5 and saves the whole state;
+  * ``cli.train --model_shards 2`` (tensor parallelism, data 1 x model 2)
+    gives them too, each rank holding half of every model-split leaf, and
+    saves whole tensors.
 """
 
 import json
@@ -119,10 +122,14 @@ def _rank_zero(cfg, batches, one_ckpt, out_dir, cli, env):
     _steps(from_one, mine[3:])
     out["from_one_params"] = _params(from_one)
     # cli.train under two ranks, replicated and ZeRO
-    for name, extra in (("cli_rep", []), ("cli_zero", ["--zero_optimizer", "true"])):
+    for name, extra in (("cli_rep", []), ("cli_zero", ["--zero_optimizer", "true"]),
+                        ("cli_tp", ["--model_shards", "2"])):
         trainer = main(["--config", cli, "--device", "cpu", "--output_dir", os.path.join(out_dir, name), *extra])
         out[name] = [h[2] for h in trainer.history]
         out[f"{name}_zero"] = trainer.state.optimizer.zero_world
+        model = trainer.state.model
+        out[f"{name}_held"] = {n: (p.numel(), model.placements[n].model_dim) for n, p in model.named_parameters()}
+        out[f"{name}_grid"] = (P.data_rank(), P.data_world(), P.model_rank(), P.model_world())
     return out
 
 
@@ -263,3 +270,21 @@ def test_cli_train_zero_under_two_ranks(run):
         assert mu.shape == p.shape  # whole moments, as the replicated run saves them
     with open(os.path.join(run["root"], "ranks", "cli_zero", "hps.json")) as f:
         assert json.load(f)["train"]["zero_optimizer"] is True
+
+
+def test_cli_train_model_shards_under_two_ranks(run):
+    """Tensor parallelism through ``cli.train``: both ranks are model ranks of
+    one data rank, load the same rows and report the losses of the two data
+    ranks' run within 1e-5; each holds half of a model-split leaf."""
+    whole = {n: held for n, (held, _) in run["ranks"][0]["cli_rep_held"].items()}  # the replicated run's
+    for r, out in enumerate(run["ranks"]):
+        assert out["cli_tp_grid"] == (0, 1, r, WORLD) and out["cli_rep_grid"] == (r, WORLD, 0, 1)
+        assert len(out["cli_tp"]) == len(out["cli_rep"]) == 2
+        for got, want in zip(out["cli_tp"], out["cli_rep"]):
+            for k in want:
+                _close(got[k], want[k], f"cli.train --model_shards 2 {k}")
+        split = {n: held for n, (held, dim) in out["cli_tp_held"].items() if dim is not None}
+        assert split and all(held * WORLD == whole[n] for n, held in split.items())
+    saved = torch.load(os.path.join(run["root"], "ranks", "cli_tp", "ckpt", "step_2", "state.pt"),
+                       weights_only=True)
+    assert {n: p.numel() for n, p in saved["params"].items()} == whole

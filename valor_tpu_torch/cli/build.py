@@ -3,8 +3,9 @@ training state (counterpart of ``valor_tpu/cli/build.py``; the reference's
 train_utils.py glue: create_train_dataloaders :415-516,
 create_val_dataloaders :519-576).
 
-Each process loads its rank's shard (``parallel/mesh.py``; one process is
-shard 0 of 1), and no mesh is read.  The
+Each process loads its data rank's shard (``parallel/mesh.py``; one process is
+shard 0 of 1; the model ranks of one data rank load the same), and the model
+is placed on the mesh that ``cli/train.py`` made (``parallel/partition.py``).  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
 ``$VALOR_PRETRAINED_DIR`` (converted by ``models/convert.py``).  QA flows read
@@ -24,7 +25,7 @@ from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSamp
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
 from valor_tpu_torch.data.prompts import maybe_prompt_table, prompted_collate
 from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
-from valor_tpu_torch.parallel.mesh import local_batch_size, rank, world_size
+from valor_tpu_torch.parallel.mesh import data_rank, data_world, local_batch_size
 
 
 def bert_vocab_path() -> str:
@@ -102,15 +103,15 @@ def collate_for(task: str, training: bool):
 def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:
     """The train flows' loaders behind one ``MetaLoader`` (the JAX package's
     seeds and mixing order).  Across processes each rank loads its shard of
-    every global batch (``batch_size`` over the ranks).  ``pin_memory`` pins
+    every global batch (``batch_size`` over the data ranks).  ``pin_memory`` pins
     each batch in the loader's background thread, for a CUDA prefetcher."""
     loaders: Dict[str, Tuple[Any, int]] = {}
     prompts = maybe_prompt_table(cfg.model, tokenizers)
-    world = world_size()
+    world = data_world()
     for i, flow in enumerate(cfg.data_train):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=True)
         sampler = ShardedBatchSampler(len(dataset), batch_size=local_batch_size(max(flow.batch_size, 1), world),
-                                      shard=rank(), n_shards=world, shuffle=True, seed=seed)
+                                      shard=data_rank(), n_shards=world, shuffle=True, seed=seed)
         collate = prompted_collate(collate_for(flow.task, True), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1),
                             pin_memory=pin_memory)
@@ -123,16 +124,16 @@ def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool
 
 def build_val_loaders(cfg: Config, tokenizers) -> List[Tuple[str, DataLoader, Any]]:
     """[(name, loader, task spec)] of the evaluation flows, in order.  Across
-    processes the ranks' shards cover every item once (the last ragged, a
-    rank's maybe empty), each rank's batch ``batch_size`` over the ranks
+    processes the data ranks' shards cover every item once (the last ragged, a
+    rank's maybe empty), each rank's batch ``batch_size`` over the data ranks
     rounded up: batch k of all ranks is one process's batch k (the JAX
     package's hosts each take the whole ``batch_size``)."""
     out = []
     prompts = maybe_prompt_table(cfg.model, tokenizers)
-    world = world_size()
+    world = data_world()
     for i, flow in enumerate(cfg.data_val):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=False)
-        sampler = ShardedBatchSampler(len(dataset), batch_size=-(-flow.batch_size // world), shard=rank(),
+        sampler = ShardedBatchSampler(len(dataset), batch_size=-(-flow.batch_size // world), shard=data_rank(),
                                       n_shards=world, shuffle=False)
         collate = prompted_collate(collate_for(flow.task, False), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1))
@@ -236,19 +237,33 @@ def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, devi
     return sd
 
 
-def build_model_and_state(cfg: Config, device):
+def build_model_and_state(cfg: Config, device, load_weights=None):
     """A training ``TrainState`` on ``device``: seeded weights
     (``models/bridge.py:init_params`` from ``cfg.train.seed``, by the JAX
-    package's initializers), the encoder weight lookup, and ``GroupedAdam``
-    over the model's parameters."""
+    package's initializers, drawn whole whatever the mesh), the encoder weight
+    lookup, then ``load_weights(model)`` (the caller's whole weights, where
+    given), the placement on this process's mesh (``parallel/partition.py:
+    shard_model``: tensor parallelism with ``model_shards``, ``fsdp``; each
+    rank keeps its blocks), and ``GroupedAdam`` over the model's
+    parameters."""
     from valor_tpu_torch.models.bridge import init_params, train_model
+    from valor_tpu_torch.parallel.partition import shard_model
     from valor_tpu_torch.train.optimizer import build_optimizer
     from valor_tpu_torch.train.step import TrainState
 
     sd = initialize_encoder_weights(cfg.model, init_params(cfg.model, seed=cfg.train.seed, device=device, law="jax"))
     model = train_model(cfg.model, sd, device)
+    del sd
     n_params = sum(p.numel() for p in model.parameters())
     LOGGER.info(f"model has {n_params / 1e6:.1f}M params")
+    if load_weights is not None:
+        load_weights(model)
+    pl = shard_model(model, fsdp=cfg.train.fsdp)
+    split = [n for n, p in pl.placements.items() if p.split]
+    if split:
+        LOGGER.info(f"placed on data={pl.n_data} x model={pl.n_model}: {len(split)} leaves split "
+                    f"({len(pl.tp)} tensor-parallel modules), {len(pl.f11)} kept whole (F11); this rank holds "
+                    f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
     optimizer = build_optimizer(model, cfg.train, frozen_vision=cfg.model.frozen_vision,
                                 frozen_multimodal=cfg.model.frozen_multimodal)
     return TrainState(model, optimizer)

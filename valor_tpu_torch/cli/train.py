@@ -42,10 +42,14 @@ step's losses, gradients and updates are those of one process on the global
 batch; rank 0 writes ``hps.json``, the log, ``tb/`` and the checkpoints.  SCST
 runs across processes (each rank decodes its rows, every rank rewards the
 global batch), and so does ``--zero_optimizer true`` (ZeRO-1: the optimizer
-state split over the ranks, ``train/optimizer.py``); the other mesh knobs
-(``fsdp``, ``model_shards``, ``fusion_pipeline_stages``,
-``sequence_parallel``) are refused across processes
-(``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
+state split over the data ranks, ``train/optimizer.py``).  The parameter axes:
+``--model_shards M`` makes a (W / M data) x (M model) grid with tensor
+parallelism over the model axis (``parallel/mesh.py:make_mesh``), ``--fsdp
+true`` splits the large parameters over the data axis
+(``parallel/partition.py``, ``parallel/fsdp.py``); the M ranks of one data
+rank load the same batches.  The other mesh knobs (``fusion_pipeline_stages``,
+``sequence_parallel``, and ``model_shards`` with MoE experts) are refused
+across processes (``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
 it runs one process, as before; where the caller has joined the group already
 (several runs in one launch), ``main`` runs in it and leaves it up.
 ``--async_checkpoint true`` writes checkpoints in the background
@@ -68,7 +72,7 @@ from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
 from valor_tpu_torch.parallel.mesh import (
-    check_data_parallel, init_data_parallel, is_initialized, launched, rank, shutdown, world_size,
+    check_data_parallel, data_rank, init_data_parallel, is_initialized, launched, make_mesh, shutdown, world_size,
 )
 
 
@@ -164,10 +168,10 @@ def restore_weights(path: str, step: Optional[int] = None) -> Dict[str, Any]:
     return restored
 
 
-def _adapted(state, params) -> Dict[str, Any]:
+def _adapted(model, params) -> Dict[str, Any]:
     from valor_tpu_torch.train.checkpoints import adapt_pretrained_params
 
-    return adapt_pretrained_params(params, state.model.state_dict())
+    return adapt_pretrained_params(params, model.state_dict())
 
 
 def main(argv=None):
@@ -200,7 +204,8 @@ def _run(argv, device):
         inherited = inherit_pretrain_config(cfg)
         if inherited:
             LOGGER.info(f"inherited from pretrain hps.json: {inherited}")
-    random.seed(cfg.train.seed + rank())
+    grid = make_mesh(cfg.train.model_shards if world_size() > 1 else 1, device)
+    random.seed(cfg.train.seed + data_rank())
     out_dir = cfg.train.output_dir or "output"
     if is_main_process():
         os.makedirs(out_dir, exist_ok=True)
@@ -208,6 +213,8 @@ def _run(argv, device):
             f.write(config_to_json(cfg))
         add_log_to_file(os.path.join(out_dir, "log", "train.log"))
         TB_LOGGER.create(os.path.join(out_dir, "tb"))
+    if world_size() > 1:
+        LOGGER.info(f"mesh data={grid.data_world} x model={grid.model_world}")
 
     from valor_tpu_torch.cli.build import build_model_and_state, build_tokenizers, build_train_loaders
     from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
@@ -217,34 +224,37 @@ def _run(argv, device):
     validate_fn = make_validate_fn(cfg, tokenizers) if cfg.data_val else None
     meta = (build_train_loaders(cfg, tokenizers, seed=cfg.train.seed, pin_memory=device.type == "cuda")
             if not cfg.train.zero_shot else None)
-    state = build_model_and_state(cfg, device)
 
     saver = ModelSaver(out_dir, cfg.train.remove_before_ckpt, use_async=cfg.train.async_checkpoint)
-    restored: Optional[Dict[str, Any]] = None
-    if cfg.train.resume:
-        restored = saver.restore()
-        if restored:
-            load_state(state, restored)
-    elif cfg.train.pretrain_dir:
-        # --pretrain_step selects a checkpoint other than the latest
-        # (reference train_utils.py:120-121)
-        restored = restore_weights(cfg.train.pretrain_dir, cfg.train.pretrain_step)
-        state.model.load_state_dict(_adapted(state, restored["params"]))
-    elif cfg.train.checkpoint:
-        path = cfg.train.checkpoint
-        if os.path.isfile(path):
+    restored = saver.restore() if cfg.train.resume else None
+
+    def load_weights(model):
+        """Weights loaded whole, before the model is placed on the mesh."""
+        if cfg.train.resume:
+            return
+        if cfg.train.pretrain_dir:
+            # --pretrain_step selects a checkpoint other than the latest
+            # (reference train_utils.py:120-121)
+            params = restore_weights(cfg.train.pretrain_dir, cfg.train.pretrain_step)["params"]
+        elif cfg.train.checkpoint and os.path.isfile(cfg.train.checkpoint):
             # a torch artifact: full VALOR .pt / CLIP jit archive / bert bin / ast,
             # converted by key inspection
             from valor_tpu_torch.cli.build import converted_state_dict
             from valor_tpu_torch.models.convert import load_converted
 
-            params = converted_state_dict(load_converted(path, resolution=cfg.model.video_resolution))
-            state.model.load_state_dict(_adapted(state, params))
-            del params
+            params = converted_state_dict(load_converted(cfg.train.checkpoint,
+                                                         resolution=cfg.model.video_resolution))
+        elif cfg.train.checkpoint:
+            params = restore_weights(cfg.train.checkpoint)["params"]
         else:
-            restored = restore_weights(path)
-            state.model.load_state_dict(_adapted(state, restored["params"]))
-    del restored  # a full-width payload holds 4.5 GB on the host
+            return
+        model.load_state_dict(_adapted(model, params))
+        del params  # a full-width payload holds 4.5 GB on the host
+
+    state = build_model_and_state(cfg, device, load_weights)
+    if restored:
+        load_state(state, restored)
+    del restored
 
     if cfg.train.zero_shot:
         if validate_fn:

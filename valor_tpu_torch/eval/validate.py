@@ -12,7 +12,10 @@ Captions (``validate_cap``) and answers (``validate_qa``): generate every
 batch through ``eval/generate.py:Generator``, decode to text on the host and
 score the whole merged set in one call (CIDEr-D's document frequencies are
 those of the set), writing the JAX package's dump files.  The ranks' shards are
-merged before scoring, and rank 0 writes the dumps.
+merged before scoring, and rank 0 writes the dumps.  On a (data, model) mesh
+the shards and merges are the data axis's: the model ranks of one data rank
+run the same batches (tensor parallelism's all-reduces) and decode the same
+tokens; ``fsdp``'s parameters are gathered once for a whole validation.
 
 Pretraining (``validate_pt``): masked-token accuracies of the caption and MLM
 objectives through ``eval_step``, and a retrieval recall per contrastive group;
@@ -24,6 +27,7 @@ equals one process's on the same data.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,6 +42,7 @@ from valor_tpu_torch.eval.generate import Generator
 from valor_tpu_torch.eval.retrieval import qa_accuracy, retrieval_report
 from valor_tpu_torch.models.valor import EOS_TOKEN
 from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.fsdp import unsharded
 from valor_tpu_torch.parallel.mesh import batch_shard, sampler_shard
 from valor_tpu_torch.tasks import losses as L
 
@@ -125,6 +130,18 @@ def retrieval_scores(model, feats: Dict[str, Any], group: str, contra_type: str)
     return L.fine_score_gallery(q[0], g[0], q[1], g[1], q[2], g[2])
 
 
+def _whole_params(fn):
+    """``fn(model, ...)`` with ``fsdp``'s blocks of ``model`` gathered once
+    for the whole validation (``parallel/fsdp.py:unsharded``): data ranks may
+    hold different numbers of batches, so no forward gathers."""
+    @functools.wraps(fn)
+    def run(model, *a, **kw):
+        with unsharded(model):
+            return fn(model, *a, **kw)
+
+    return run
+
+
 def _gather_eval_features(
     feats_all: Dict[str, List[torch.Tensor]], ids: List, ids_txt: List, device
 ) -> Tuple[Dict[str, Optional[torch.Tensor]], List, List]:
@@ -155,6 +172,7 @@ def _gather_eval_features(
     return feats, C.all_gather_lists(ids), C.all_gather_lists(ids_txt)
 
 
+@_whole_params
 def validate_ret(
     model, eval_step, loader, task: TaskSpec, contra_type: str,
     dual_softmax: bool = False, evaluate_ret_text: bool = False,
@@ -213,6 +231,7 @@ def _dump(path: str, payload) -> None:
         json.dump(payload, f)
 
 
+@_whole_params
 def validate_cap(
     model, loader, task: TaskSpec, tokenizer, annotations: Dict[str, List[str]], *,
     caption_type: str = "unimlm", max_len: int = 30, beam_size: int = 1,
@@ -271,6 +290,7 @@ def validate_cap(
     return report
 
 
+@_whole_params
 def validate_qa(
     model, loader, task: TaskSpec, tokenizer, answers: Optional[Dict[str, Any]] = None, *,
     caption_type: str = "unimlm", max_len: int = 10, beam_size: int = 1,
@@ -341,6 +361,7 @@ def validate_qa(
     return report
 
 
+@_whole_params
 def validate_pt(model, eval_step, loader, task: TaskSpec, contra_type: str = "fine") -> Dict[str, float]:
     """Pretraining proxy metrics over the batches of ``loader`` (reference
     test.py:415-665, as the JAX package reports them): per group, the

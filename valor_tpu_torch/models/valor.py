@@ -53,7 +53,7 @@ from valor_tpu_torch.models.videoswin import SwinTransformer3D, swin_preset
 from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param, current_rng, remat_for
 from valor_tpu_torch.ops.masking import full_mask, lm_shift_labels, mask_tokens
 from valor_tpu_torch.parallel import collectives as C
-from valor_tpu_torch.parallel.mesh import answer_shard, batch_shard, collective_step, current_shard, rank
+from valor_tpu_torch.parallel.mesh import answer_shard, batch_shard, collective_step, current_shard, data_rank
 from valor_tpu_torch.tasks import losses as L
 
 # BERT special tokens (bert-base-uncased vocab)
@@ -409,7 +409,7 @@ class VALORModel(nn.Module):
             return sum(ls) / len(ls)
         local = dict(feats, txt_tokens=txt_tokens)
         every = {k: None if v is None else C.all_gather_with_grad(v) for k, v in local.items()}
-        offset = rank() * next(v.shape[0] for v in local.values() if v is not None)
+        offset = data_rank() * next(v.shape[0] for v in local.values() if v is not None)
         ls = [L.sharded_contrastive_loss(self.group_score_matrix(g, local, txt_tokens, every),
                                          self.group_score_matrix(g, every, every["txt_tokens"], local),
                                          temp, offset) for g in groups]

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from valor_tpu_torch.ops.layers import Dense, LayerNorm, MlpBlock, _param, run_layer
+from valor_tpu_torch.parallel.collectives import copy_to_model
 
 LN_EPS = 1e-5
 
@@ -145,11 +146,21 @@ def _device_array(kind: str, fn, device, *geometry) -> Optional[torch.Tensor]:
 # -- modules -------------------------------------------------------------------
 
 class WindowAttention3D(nn.Module):
+    """Window attention with a relative-position bias.  Under tensor
+    parallelism (``tensor_parallel``, ``parallel/partition.py``) ``num_heads``
+    is this model rank's, heads ``head_offset`` on: ``qkv`` holds their rows of
+    q, k and v, the bias table (whole on every rank) is read at their columns,
+    and ``proj`` is row-parallel."""
+
+    tensor_parallel = False
+    head_offset = 0
+
     def __init__(self, dim: int, window: Tuple[int, int, int], num_heads: int,
                  qkv_bias: bool = True, dtype=torch.float32, device=None):
         super().__init__()
         self.window = tuple(window)
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, use_bias=qkv_bias, dtype=dtype, device=device)
         size = (2 * window[0] - 1) * (2 * window[1] - 1) * (2 * window[2] - 1)
@@ -158,15 +169,21 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """x [B_, N, C] windows; mask [nW, N, N] or None."""
-        b_, n, c = x.shape
+        if self.tensor_parallel:
+            x = copy_to_model(x)
+        b_, n, _ = x.shape
         h = self.num_heads
-        head = c // h
+        head = self.head_dim
+        c = h * head  # this rank's width
         qkv = self.qkv(x).reshape(b_, n, 3, h, head).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * (head ** -0.5), qkv[1], qkv[2]
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
         idx = _device_array("relative_index", np_relative_index, x.device, self.window)
         idx = idx[:n, :n].reshape(-1)
-        bias = self.relative_position_bias_table[idx].reshape(n, n, h).permute(2, 0, 1)
+        table = self.relative_position_bias_table
+        if self.tensor_parallel:
+            table = table[:, self.head_offset : self.head_offset + h]
+        bias = table[idx].reshape(n, n, h).permute(2, 0, 1)
         attn = attn + bias[None]
         if mask is not None:
             nw = mask.shape[0]

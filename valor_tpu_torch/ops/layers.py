@@ -12,7 +12,16 @@ Training mode (``module.train()``) turns on dropout where the JAX package has
 ``maybe_dropout``.  Its masks come from the seeded streams of the enclosing
 ``rng_scope`` (the counterpart of flax's ``rngs={"dropout": ..., "mask": ...}``),
 never from torch's global generator; inside a ``parallel.mesh.batch_shard`` they
-are drawn at the global batch's shape and this rank's rows taken.  ``run_layer`` runs one encoder layer,
+are drawn at the global batch's shape and this rank's rows taken.
+
+Tensor parallelism over the model axis (``parallel/partition.py`` sets it up):
+a split ``MultiHeadAttention`` runs its rank's heads (its input through
+``copy_to_model``, its ``out`` row-parallel: the partial products summed by
+``reduce_from_model``, then the bias once), a split ``MlpBlock`` its rank's
+hidden units (``fc1`` by rows, ``fc2`` by columns).  Dropout on a rank's
+columns of a wider tensor draws the whole width and keeps its columns, so the
+model ranks draw what one process draws.  LayerNorms stay whole on every rank.
+``run_layer`` runs one encoder layer,
 under ``torch.utils.checkpoint`` where the config's ``checkpointing`` and
 ``remat_scope`` ask for it (``remat_for``); each layer draws from a stream of its
 own, so the recompute of the backward draws the same masks.
@@ -31,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from valor_tpu_torch.ops.kernels.layernorm import layernorm
+from valor_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from valor_tpu_torch.parallel.mesh import batch_shard, current_shard, draw_rows
 
 NEG_INF = -1e4  # the attention mask value: (1 - mask) * -10000
@@ -103,13 +113,23 @@ def current_rng(what: str) -> RNGStreams:
     return rng
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``maybe_dropout``: keep each element w.p. 1 - rate and scale it by
-    1 / (1 - rate); an identity when not training or at rate 0."""
+    1 / (1 - rate); an identity when not training or at rate 0.  ``cols`` =
+    (i, n): ``x`` is block i of n equal column blocks of a wider tensor (a
+    model rank's heads), whose mask is drawn whole and block i kept."""
     if not training or rate <= 0.0:
         return x
     g = current_rng("dropout").generator(x.device, "dropout")
-    keep = draw_rows(lambda shape: torch.rand(shape, generator=g, device=x.device), x.shape) < 1.0 - rate
+    shape = tuple(x.shape)
+    if cols is not None:
+        i, n = cols
+        w = shape[-1]
+        shape = shape[:-1] + (w * n,)
+    keep = draw_rows(lambda s: torch.rand(s, generator=g, device=x.device), shape) < 1.0 - rate
+    if cols is not None:
+        keep = keep[..., i * w : (i + 1) * w]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -216,7 +236,12 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """Linear layer: fp32 weight [out, in], matmul in the compute dtype."""
+    """Linear layer: fp32 weight [out, in], matmul in the compute dtype.
+    ``row_parallel`` (tensor parallelism): the weight holds this model rank's
+    input columns, the partial products are summed over the model axis and
+    the bias is added once, after the sum."""
+
+    row_parallel = False
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
                  dtype=torch.float32, device=None):
@@ -227,6 +252,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(self.dtype) if self.bias is not None else None
+        if self.row_parallel:
+            y = reduce_from_model(F.linear(x.to(self.dtype), self.weight.to(self.dtype)))
+            return y if bias is None else y + bias
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
@@ -302,7 +330,13 @@ class MultiHeadAttention(nn.Module):
     ``kv_heads`` (0: ``num_heads``) below ``num_heads`` projects K and V to
     ``kv_heads`` heads of the same head width, each serving a group of query
     heads; at ``num_heads`` the parameters are those of full multi-head
-    attention."""
+    attention.  Under tensor parallelism (``tensor_parallel``) ``num_heads``
+    and ``kv_heads`` are this model rank's, ``compute_kv`` gives its heads'
+    K/V (the decode caches hold 1/M of the heads) and ``model_cols`` (rank, M)
+    places its heads in the whole width for dropout."""
+
+    tensor_parallel = False
+    model_cols: Optional[Tuple[int, int]] = None
 
     def __init__(self, width: int, num_heads: int, dtype=torch.float32, device=None,
                  dropout: float = 0.0, kv_heads: int = 0):
@@ -324,9 +358,12 @@ class MultiHeadAttention(nn.Module):
         bias: BiasTerms = None,
         extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        same = kv_in is q_in
+        if self.tensor_parallel:
+            q_in = copy_to_model(q_in)
         qh = split_heads(self.query(q_in), self.num_heads)
         if kv_in is not None:
-            kh, vh = self.compute_kv(kv_in)
+            kh, vh = self._project_kv(q_in if same else self._model_input(kv_in))
             if extra_kv is not None:
                 ek, ev = extra_kv
                 kh = torch.cat([kh, ek.to(kh.dtype)], dim=2)
@@ -336,10 +373,17 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("cache-only attention needs extra_kv")
             kh, vh = (t.to(qh.dtype) for t in extra_kv)
         out = dot_product_attention(qh, kh, vh, bias=bias, dtype=self.dtype)
-        return self.out(dropout(merge_heads(out), self.dropout, self.training))
+        return self.out(dropout(merge_heads(out), self.dropout, self.training, self.model_cols))
+
+    def _model_input(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to_model(x) if self.tensor_parallel else x
 
     def compute_kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Project and split K/V for caching (no attention)."""
+        """Project and split K/V for caching (no attention): this model
+        rank's heads under tensor parallelism."""
+        return self._project_kv(self._model_input(kv_in))
+
+    def _project_kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return (
             split_heads(self.key(kv_in), self.kv_heads),
             split_heads(self.value(kv_in), self.kv_heads),
@@ -347,7 +391,10 @@ class MultiHeadAttention(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """Transformer FFN: dense -> activation -> dense."""
+    """Transformer FFN: dense -> activation -> dense; under tensor
+    parallelism this model rank's hidden units (``fc2`` row-parallel)."""
+
+    tensor_parallel = False
 
     def __init__(self, width: int, intermediate: int, activation: str = "gelu",
                  dtype=torch.float32, device=None):
@@ -357,6 +404,8 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(intermediate, width, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor_parallel:
+            x = copy_to_model(x)
         return self.fc2(self.act(self.fc1(x)))
 
 

@@ -1,12 +1,17 @@
-"""Collectives of the data axis (counterpart of ``valor_tpu/parallel/collectives.py``).
+"""Collectives of the mesh's axes (counterpart of ``valor_tpu/parallel/collectives.py``).
+
+Every function takes the axis it reduces over, ``axis`` ("data", the
+default, or "model"): its process group is this rank's model column (the
+data axis) or data row (the model axis) of ``parallel/mesh.py:make_mesh``'s
+grid, the default group where there is no model axis.
 
 Host objects and evaluation arrays (the JAX package's ``process_allgather``
 uses): ``all_gather_objects``, ``all_gather_lists``, ``gather_arrays`` and
 ``all_gather_ragged``, which pads every rank's rows to the largest shard,
-gathers and trims.  Every one of them short-circuits in one process.
+gathers and trims.  Every one of them short-circuits at one rank.
 
-A training step's global arithmetic, which XLA derives from the global array
-in the JAX package:
+A training step's global arithmetic over the data axis, which XLA derives
+from the global array in the JAX package:
 
   * ``all_gather_with_grad``: the batch's rows from every rank; its backward
     gives this rank's slice of the gradient summed over ranks;
@@ -18,14 +23,21 @@ in the JAX package:
   * ``all_reduce_mean_``: the gradients averaged over ranks in fp32 buckets;
   * ``mean_over_ranks``: the step's reported losses, as global values.
 
+Tensor parallelism over the model axis (the Megatron pair, ``ops/layers.py``):
+``copy_to_model`` (identity forward, all-reduce of the gradient backward) and
+``reduce_from_model`` (all-reduce forward, identity backward), both through
+``model_all_reduce_``.  ``fsdp`` over the data axis (``parallel/fsdp.py``):
+``all_gather_dim`` (every rank's block of a tensor, concatenated on a dim)
+and ``reduce_scatter_dim`` (this rank's block of the sum over ranks).
+
 ZeRO-1 (``zero_optimizer``; ``train/optimizer.py``) splits a leaf on dim 0 into
-one block a rank, in rank order:
+one block a data rank, in rank order:
 
   * ``reduce_scatter_mean``: this rank's block of each tensor, averaged over
     ranks;
   * ``all_gather_blocks_``: every rank's block of each tensor, in place;
-  * ``gather_blocks_``: every rank's block of each tensor into rank 0's whole
-    tensors (a checkpoint's optimizer state).
+  * ``gather_blocks_``: every rank's block of each tensor into data rank 0's
+    whole tensors (a checkpoint's optimizer state).
 
 They go through flat fp32 buckets whose row w holds rank w's blocks.  NCCL
 takes the tensor forms (``reduce_scatter_tensor``, ``all_gather_into_tensor``);
@@ -44,27 +56,43 @@ from typing import Any, Dict, List, Sequence
 import torch
 import torch.distributed as dist
 
-from valor_tpu_torch.parallel.mesh import collective_step, is_initialized, rank, world_size
+from valor_tpu_torch.parallel import mesh as P
+from valor_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, collective_step, is_initialized
 
 BUCKET_ELEMS = 1 << 25  # fp32 elements a gradient bucket (128 MiB)
 
 
+def _axis(axis: str):
+    """(process group, this rank's index in it, its size) of ``axis``."""
+    if axis == MODEL_AXIS:
+        return P.model_group(), P.model_rank(), P.model_world()
+    if axis != DATA_AXIS:
+        raise ValueError(f"axis {axis!r}: {DATA_AXIS!r} or {MODEL_AXIS!r}")
+    return P.data_group(), P.data_rank(), P.data_world()
+
+
 def process_count() -> int:
-    return world_size()
+    return P.world_size()
 
 
-def all_gather_objects(obj: Any) -> List[Any]:
+def axis_size(axis: str = DATA_AXIS) -> int:
+    """The ranks of ``axis``."""
+    return _axis(axis)[2]
+
+
+def all_gather_objects(obj: Any, axis: str = DATA_AXIS) -> List[Any]:
     """One picklable object a rank -> the list in rank order."""
-    if world_size() == 1:
+    group, _, world = _axis(axis)
+    if world == 1:
         return [obj]
-    out: List[Any] = [None] * world_size()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * world
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def all_gather_lists(items: Sequence[Any]) -> List[Any]:
+def all_gather_lists(items: Sequence[Any], axis: str = DATA_AXIS) -> List[Any]:
     """Every rank's list, concatenated in rank order."""
-    return [x for chunk in all_gather_objects(list(items)) for x in chunk]
+    return [x for chunk in all_gather_objects(list(items), axis) for x in chunk]
 
 
 def all_gather_rows(items: Sequence[Any], shard) -> List[Any]:
@@ -80,77 +108,82 @@ def all_gather_rows(items: Sequence[Any], shard) -> List[Any]:
     return out
 
 
-def gather_arrays(x: torch.Tensor) -> torch.Tensor:
+def gather_arrays(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     """A tensor of one shape on every rank, stacked in rank order."""
-    if world_size() == 1:
+    group, _, world = _axis(axis)
+    if world == 1:
         return x[None]
-    out = [torch.empty_like(x) for _ in range(world_size())]
-    dist.all_gather(out, x.contiguous())
+    out = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(out, x.contiguous(), group=group)
     return torch.stack(out)
 
 
-def all_gather_ragged(x: torch.Tensor) -> torch.Tensor:
+def all_gather_ragged(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     """Every rank's rows concatenated in rank order, where ranks hold
     different numbers of rows (ragged evaluation shards, an empty one
     included)."""
-    if world_size() == 1:
+    if _axis(axis)[2] == 1:
         return x
-    sizes = all_gather_objects(int(x.shape[0]))
+    sizes = all_gather_objects(int(x.shape[0]), axis)
     pad = x.new_zeros((max(sizes),) + tuple(x.shape[1:]))
     pad[: x.shape[0]] = x
-    gathered = gather_arrays(pad)
+    gathered = gather_arrays(pad, axis)
     return torch.cat([gathered[i, :n] for i, n in enumerate(sizes)])
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.rows = x.shape[0]
-        return gather_arrays(x).flatten(0, 1)
+    def forward(ctx, x, axis):
+        ctx.rows, ctx.axis = x.shape[0], axis
+        return gather_arrays(x, axis).flatten(0, 1)
 
     @staticmethod
     def backward(ctx, grad):
+        group, r, _ = _axis(ctx.axis)
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        r = rank()
-        return grad[r * ctx.rows : (r + 1) * ctx.rows]
+        dist.all_reduce(grad, group=group)
+        return grad[r * ctx.rows : (r + 1) * ctx.rows], None
 
 
-def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
+def all_gather_with_grad(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     """Every rank's rows (as many on each) concatenated in rank order; the
     gradient of this rank's rows is their gradient summed over every rank's
     loss."""
-    return x if world_size() == 1 else _AllGather.apply(x)
+    return x if _axis(axis)[2] == 1 else _AllGather.apply(x, axis)
 
 
 class _AllReduceMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, axis):
+        group, _, world = _axis(axis)
+        ctx.axis = axis
         y = x.clone()
-        dist.all_reduce(y)
-        return y / world_size()
+        dist.all_reduce(y, group=group)
+        return y / world
 
     @staticmethod
     def backward(ctx, grad):
+        group, _, world = _axis(ctx.axis)
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad / world_size()
+        dist.all_reduce(grad, group=group)
+        return grad / world, None
 
 
-def all_reduce_mean_with_grad(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_mean_with_grad(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     """The mean over ranks, with the gradient of every rank's loss."""
-    return x if world_size() == 1 else _AllReduceMean.apply(x)
+    return x if _axis(axis)[2] == 1 else _AllReduceMean.apply(x, axis)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     """The sum over ranks, outside autograd (counts)."""
+    group, _, world = _axis(axis)
     x = x.detach().clone()
-    if world_size() > 1:
-        dist.all_reduce(x)
+    if world > 1:
+        dist.all_reduce(x, group=group)
     return x
 
 
-def sharded_mean(total: torch.Tensor, count) -> torch.Tensor:
+def sharded_mean(total: torch.Tensor, count, axis: str = DATA_AXIS) -> torch.Tensor:
     """``total / count`` (count at least 1).  In a training step across
     ranks, this rank's share of the mean over the global batch: ``world *
     total / (count summed over ranks)``, whose mean over ranks is the global
@@ -158,17 +191,90 @@ def sharded_mean(total: torch.Tensor, count) -> torch.Tensor:
     count = torch.as_tensor(count, dtype=torch.float32, device=total.device)
     if not collective_step():
         return total / count.clamp_min(1.0)
-    return world_size() * total / all_reduce_sum(count).clamp_min(1.0)
+    return _axis(axis)[2] * total / all_reduce_sum(count, axis).clamp_min(1.0)
 
 
-def global_means(plain: torch.Tensor, with_grad: torch.Tensor, n: int):
+def global_means(plain: torch.Tensor, with_grad: torch.Tensor, n: int, axis: str = DATA_AXIS):
     """Two means over ``n`` rows of this rank as means over the global batch
     (rows weighted by rank), the second with its gradient; as they are in one
     process."""
     if not collective_step():
         return plain, with_grad
-    w = n / float(all_reduce_sum(torch.tensor(float(n), device=plain.device)))
-    return all_reduce_sum(plain * w), all_reduce_mean_with_grad(with_grad * w) * world_size()
+    w = n / float(all_reduce_sum(torch.tensor(float(n), device=plain.device), axis))
+    return (all_reduce_sum(plain * w, axis),
+            all_reduce_mean_with_grad(with_grad * w, axis) * _axis(axis)[2])
+
+
+# -- tensor parallelism: the Megatron pair over the model axis -----------------
+
+def model_all_reduce_(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` over the model axis in place (the pair's one collective)."""
+    dist.all_reduce(x, group=P.model_group())
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce_(grad.contiguous().clone())
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return model_all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel layer: ``x`` itself, its gradient summed
+    over the model axis (each rank's heads or hidden units give a part)."""
+    return _CopyToModel.apply(x) if P.model_world() > 1 else x
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The output of a row-parallel layer: the partial products summed over
+    the model axis; the gradient passes as it is."""
+    return _ReduceFromModel.apply(x) if P.model_world() > 1 else x
+
+
+# -- fsdp: a parameter's blocks over the data axis -----------------------------
+
+def all_gather_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Every rank's block of a tensor (as large on each), concatenated on
+    ``dim`` in rank order."""
+    group, _, world = _axis(axis)
+    x = x.contiguous()
+    if _nccl():
+        full = x.new_empty((world,) + tuple(x.shape))
+        dist.all_gather_into_tensor(full, x, group=group)
+        parts = list(full.unbind(0))
+    else:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, axis: str = DATA_AXIS) -> torch.Tensor:
+    """This rank's block on ``dim`` of ``x`` summed over ranks (``dim``
+    divisible by the ranks)."""
+    group, r, world = _axis(axis)
+    blocks = x.chunk(world, dim)
+    if _nccl():
+        flat = torch.stack([b.contiguous() for b in blocks])
+        mine = flat.new_empty(flat.shape[1:])
+        dist.reduce_scatter_tensor(mine, flat, group=group)
+        return mine
+    full = x.contiguous().clone()
+    dist.all_reduce(full, group=group)
+    return full.chunk(world, dim)[r].contiguous()
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
@@ -185,17 +291,19 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
     return [b for b in buckets if b]
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
-    """Average ``tensors`` over ranks in place, through flat fp32 buckets of
-    up to ``BUCKET_ELEMS`` elements; returns the bytes reduced.  Runs whenever
-    a process group is set, also at one rank (the launcher's path)."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], axis: str = DATA_AXIS, divide: int = 0) -> int:
+    """Average ``tensors`` over ranks in place (or, with ``divide``, sum them
+    and divide by it), through flat fp32 buckets of up to ``BUCKET_ELEMS``
+    elements; returns the bytes reduced.  Runs whenever a process group is
+    set, also at one rank (the launcher's path)."""
     if not is_initialized():
         return 0
-    world, nbytes = world_size(), 0
+    group, _, world = _axis(axis)
+    nbytes = 0
     for bucket in _buckets(tensors):
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
-        dist.all_reduce(flat)
-        flat /= world
+        dist.all_reduce(flat, group=group)
+        flat /= divide or world
         nbytes += flat.numel() * 4
         for t, part in zip(bucket, torch.split(flat, [t.numel() for t in bucket])):
             t.copy_(part.view_as(t))
@@ -206,19 +314,19 @@ def _nccl() -> bool:
     return dist.get_backend() == "nccl"
 
 
-def reduce_scatter_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def reduce_scatter_mean(tensors: Sequence[torch.Tensor], axis: str = DATA_AXIS) -> List[torch.Tensor]:
     """This rank's dim-0 block of each tensor (dim 0 divisible by the ranks),
     averaged over ranks in fp32: rows ``[r * n / W, (r + 1) * n / W)`` of a
     tensor of n rows at rank r.  Needs a process group."""
-    world, r = world_size(), rank()
+    group, r, world = _axis(axis)
     out: List[torch.Tensor] = []
     for bucket in _buckets(tensors):
         flat = torch.cat([t.float().reshape(world, -1) for t in bucket], dim=1)  # row w: rank w's blocks
         if _nccl():
             mine = flat.new_empty(flat.shape[1])
-            dist.reduce_scatter_tensor(mine, flat.reshape(-1))
+            dist.reduce_scatter_tensor(mine, flat.reshape(-1), group=group)
         else:
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=group)
             mine = flat[r]
         mine /= world
         parts = torch.split(mine, [t.numel() // world for t in bucket])
@@ -226,22 +334,22 @@ def reduce_scatter_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def all_gather_blocks_(tensors: Sequence[torch.Tensor]) -> int:
+def all_gather_blocks_(tensors: Sequence[torch.Tensor], axis: str = DATA_AXIS) -> int:
     """Fill every rank's dim-0 block of each tensor (contiguous, dim 0
     divisible by the ranks) from that rank, in place: after it every rank holds
     the whole tensors.  The blocks travel in fp32 (exact for fp32 and bf16
     tensors).  Returns the bytes this rank receives."""
-    world, r = world_size(), rank()
+    group, r, world = _axis(axis)
     nbytes = 0
     for bucket in _buckets(tensors):
         mine = torch.cat([t.reshape(world, -1)[r].float() for t in bucket])
         if _nccl():
             full = mine.new_empty(world * mine.numel())
-            dist.all_gather_into_tensor(full, mine)
+            dist.all_gather_into_tensor(full, mine, group=group)
             full = full.view(world, -1)
         else:
             parts = [torch.empty_like(mine) for _ in range(world)]
-            dist.all_gather(parts, mine)
+            dist.all_gather(parts, mine, group=group)
             full = torch.stack(parts)
         nbytes += full.numel() * 4
         for t, cols in zip(bucket, torch.split(full, [t.numel() // world for t in bucket], dim=1)):
@@ -249,17 +357,20 @@ def all_gather_blocks_(tensors: Sequence[torch.Tensor]) -> int:
     return nbytes
 
 
-def gather_blocks_(blocks: Sequence[torch.Tensor], wholes: Sequence[torch.Tensor]) -> int:
-    """Gather every rank's dim-0 block of each tensor into rank 0's ``wholes``
-    (contiguous, W times a block's rows), in place; the other ranks only send,
-    and their ``wholes`` are not read.  The blocks travel in fp32 (exact for
-    fp32 and bf16 tensors).  Returns the bytes rank 0 receives (0 elsewhere)."""
-    world, first = world_size(), rank() == 0
+def gather_blocks_(blocks: Sequence[torch.Tensor], wholes: Sequence[torch.Tensor], axis: str = DATA_AXIS) -> int:
+    """Gather every rank's dim-0 block of each tensor into the ``wholes`` of
+    the axis's rank 0 (contiguous, W times a block's rows), in place; the other
+    ranks only send, and their ``wholes`` are not read.  The blocks travel in
+    fp32 (exact for fp32 and bf16 tensors).  Returns the bytes the axis's rank
+    0 receives (0 elsewhere)."""
+    group, r, world = _axis(axis)
+    first = r == 0
+    dst0 = dist.get_global_rank(group, 0) if group is not None else 0
     nbytes, dst = 0, iter(wholes)
     for bucket in _buckets(blocks):
         mine = torch.cat([b.reshape(-1).float() for b in bucket])
         parts = [torch.empty_like(mine) for _ in range(world)] if first else None
-        dist.gather(mine, parts, dst=0)
+        dist.gather(mine, parts, dst=dst0, group=group)
         if first:
             full = torch.stack(parts)
             nbytes += full.numel() * 4
@@ -268,10 +379,11 @@ def gather_blocks_(blocks: Sequence[torch.Tensor], wholes: Sequence[torch.Tensor
     return nbytes
 
 
-def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def mean_over_ranks(values: Dict[str, torch.Tensor], axis: str = DATA_AXIS) -> Dict[str, torch.Tensor]:
     """Scalars averaged over ranks, in one collective."""
-    if world_size() == 1 or not values:
+    group, _, world = _axis(axis)
+    if world == 1 or not values:
         return values
     stacked = torch.stack([v.float() for v in values.values()])
-    dist.all_reduce(stacked)
-    return dict(zip(values, stacked / world_size()))
+    dist.all_reduce(stacked, group=group)
+    return dict(zip(values, stacked / world))

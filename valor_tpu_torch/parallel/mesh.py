@@ -19,13 +19,21 @@ makes that arithmetic explicit:
     (``parallel/collectives.py``), and the gradients are averaged over ranks
     before the update (``train/step.py``).
 
-The data axis's memory knob ``zero_optimizer`` (ZeRO-1: the optimizer state
-sharded over ranks) keeps the JAX package's placement rule (``zero_sharded``;
-``train/optimizer.py`` holds and updates the shards).  The other axes' knobs
-(``model_shards``, which also carries MoE expert parallelism,
-``fusion_pipeline_stages``, ``sequence_parallel``, and ``fsdp``) are read and
-ignored by one process and refused across processes (``check_data_parallel``),
-each naming the part of ROADMAP item 13 that will bring it.
+The parameter axes (``make_mesh``): ``model_shards`` M splits the W ranks
+into a (data, model) grid with ``model`` innermost, as the JAX package's
+``make_mesh`` reshapes its devices: rank r is data rank r // M and model rank
+r % M.  One ``torch.distributed`` group a data row (the M ranks of one data
+rank: tensor parallelism's all-reduces) and one a model column (the W / M ranks
+of one model rank: the data axis's collectives) are made in the same order on
+every rank.  Batch shards, the loaders and random draws follow the data axis:
+the M ranks of one data rank hold the same rows and make the same draws.
+``parallel/partition.py`` places the parameters over both axes (tensor
+parallelism over ``model``, ``fsdp`` over ``data``) and keeps the ZeRO-1 rule
+of ``zero_optimizer``.  The knobs still to come (``sequence_parallel``,
+``fusion_pipeline_stages``, and ``model_shards`` with MoE experts, which the
+JAX package puts on the model axis) are read and ignored by one process and
+refused across processes (``check_data_parallel``), each naming the part of
+ROADMAP item 13 that will bring it.
 """
 
 from __future__ import annotations
@@ -35,30 +43,38 @@ import dataclasses
 import math
 import os
 import threading
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+ZERO_MIN_ELEMS = 1 << 14  # smaller leaves stay whole on every rank (replication is cheaper)
+MODEL_AXIS = "model"
 LATER_PART = {  # knob -> the part of ROADMAP item 13 that brings it
-    "fsdp": "ROADMAP item 13b, FSDP (the step must fill param.grad)",
-    "model_shards": "ROADMAP item 13c (MoE expert parallelism) and item 13d (tensor parallelism)",
+    "model_shards with fusion_moe_experts": "ROADMAP item 13c, MoE expert parallelism over the model axis",
     "sequence_parallel": "ROADMAP item 13d, sequence parallelism",
     "fusion_pipeline_stages": "ROADMAP item 13e, pipeline parallelism",
 }
-ZERO_MIN_ELEMS = 1 << 14  # smaller leaves stay whole on every rank (replication is cheaper)
 
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the group."""
+    """This process's place in the group and, after ``make_mesh``, in the
+    (data, model) grid: both ranks, both worlds and both groups (None: the
+    default group, or no group)."""
 
     rank: int
     world: int
     local_rank: int
     backend: str
     device: torch.device
+    data_rank: int = 0
+    data_world: int = 1
+    model_rank: int = 0
+    model_world: int = 1
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
 
 
 def launched() -> bool:
@@ -79,6 +95,80 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Grid:
+    model_shards: int
+    world: int
+    data_group: Optional[object]
+    model_group: Optional[object]
+
+
+_GRID: Dict[tuple, _Grid] = {}  # (group's world, model_shards) -> its groups, made once
+_CURRENT: list = [None]  # the grid of the last make_mesh, while the group lives
+
+
+def make_mesh(model_shards: int, device) -> DataParallel:
+    """The (data, model) grid of this process group with ``model_shards`` M
+    ranks on the model axis (the counterpart of ``valor_tpu/parallel/mesh.py:
+    make_mesh``): rank r is data rank r // M and model rank r % M.  Every rank
+    calls it with the same M (it makes groups, a collective); one process, or
+    M = 1, makes none.  ``ValueError`` where M does not divide the ranks.
+    Returns this process's place in it, on ``device``."""
+    world = world_size()
+    if model_shards < 1 or world % model_shards:
+        raise ValueError(f"model_shards {model_shards} does not divide the {world} ranks")
+    if not is_initialized() or model_shards == 1:
+        _CURRENT[0] = None
+    else:
+        key = (world, model_shards)
+        if key not in _GRID:
+            m = model_shards
+            rows = [dist.new_group(list(range(d * m, (d + 1) * m))) for d in range(world // m)]
+            cols = [dist.new_group(list(range(j, world, m))) for j in range(m)]
+            r = rank()
+            _GRID[key] = _Grid(m, world, cols[r % m], rows[r // m])
+        _CURRENT[0] = _GRID[key]
+    return DataParallel(rank(), world_size(), int(os.environ.get("LOCAL_RANK", rank())),
+                        dist.get_backend() if is_initialized() else "none", torch.device(device),
+                        data_rank(), data_world(), model_rank(), model_world(), data_group(), model_group())
+
+
+def _grid() -> Optional[_Grid]:
+    g = _CURRENT[0]
+    return g if g is not None and is_initialized() and g.world == world_size() else None
+
+
+def model_world() -> int:
+    g = _grid()
+    return g.model_shards if g is not None else 1
+
+
+def model_rank() -> int:
+    return rank() % model_world()
+
+
+def data_world() -> int:
+    return world_size() // model_world()
+
+
+def data_rank() -> int:
+    return rank() // model_world()
+
+
+def data_group():
+    """The process group of this rank's model column (the data axis); None,
+    the default group, where there is no model axis."""
+    g = _grid()
+    return g.data_group if g is not None else None
+
+
+def model_group():
+    """The process group of this rank's data row (the model axis); None where
+    there is no model axis."""
+    g = _grid()
+    return g.model_group if g is not None else None
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
@@ -123,13 +213,16 @@ def init_data_parallel(backend: Optional[str] = None, device=None) -> DataParall
         torch.cuda.set_device(dev)
     if not joined:
         dist.init_process_group(backend, rank=r, world_size=world)
-    return DataParallel(r, world, local, backend, dev)
+    return DataParallel(r, world, local, backend, dev, data_rank(), data_world(), model_rank(), model_world(),
+                        data_group(), model_group())
 
 
 def shutdown() -> None:
-    """Leave the process group, where there is one."""
+    """Leave the process group, where there is one (its grids go with it)."""
     if is_initialized():
         dist.destroy_process_group()
+    _GRID.clear()
+    _CURRENT[0] = None
 
 
 def barrier() -> None:
@@ -138,7 +231,7 @@ def barrier() -> None:
 
 
 def local_batch_size(global_batch: int, world: int) -> int:
-    """A rank's rows of a global training batch."""
+    """A rank's rows of a global training batch (``world``: the data axis's ranks)."""
     if global_batch % world:
         raise ValueError(f"global batch {global_batch} not divisible by the {world} ranks "
                          f"of the {DATA_AXIS!r} axis")
@@ -146,17 +239,21 @@ def local_batch_size(global_batch: int, world: int) -> int:
 
 
 def check_data_parallel(cfg, world: int) -> None:
-    """Refuse, across processes, the mesh axes past the data axis, each with
-    the part of ROADMAP item 13 that will bring it.  One process reads and
-    ignores their knobs.  SCST and ``zero_optimizer`` run across processes."""
+    """Refuse, across processes, the mesh knobs still to come, each with the
+    part of ROADMAP item 13 that will bring it, and a ``model_shards`` that
+    does not divide the ranks (``ValueError``).  One process reads and ignores
+    every mesh knob.  SCST, ``zero_optimizer``, ``fsdp`` and ``model_shards``
+    run across processes."""
     if world <= 1:
         return
     m, t = cfg.model, cfg.train
-    knobs = {"model_shards": t.model_shards > 1, "fusion_pipeline_stages": m.fusion_pipeline_stages > 0,
-             "sequence_parallel": m.sequence_parallel, "fsdp": t.fsdp}
+    knobs = {"model_shards with fusion_moe_experts": t.model_shards > 1 and m.fusion_moe_experts > 0,
+             "fusion_pipeline_stages": m.fusion_pipeline_stages > 0, "sequence_parallel": m.sequence_parallel}
     asked = [k for k, on in knobs.items() if on]
     if asked:
         raise NotImplementedError("; ".join(f"{k} across {world} processes: {LATER_PART[k]}" for k in asked))
+    if t.model_shards < 1 or world % t.model_shards:
+        raise ValueError(f"model_shards {t.model_shards} does not divide the {world} ranks")
 
 
 def zero_sharded(shape, world: int) -> bool:
@@ -164,7 +261,9 @@ def zero_sharded(shape, world: int) -> bool:
     shard_opt_state``): a leaf of the optimizer state (a moment or the
     accumulated gradient of a parameter of ``shape``) is split on dim 0 over
     the data axis where it holds at least 2^14 elements and dim 0 divides by
-    the ``world`` ranks; any other leaf stays whole on every rank."""
+    the ``world`` ranks; any other leaf stays whole on every rank.
+    ``parallel/partition.py`` applies it to the leaves that neither tensor
+    parallelism nor ``fsdp`` split."""
     return len(shape) >= 1 and shape[0] % world == 0 and math.prod(shape) >= ZERO_MIN_ELEMS
 
 
@@ -212,14 +311,14 @@ _ROW_KEYS = ("video_pixels", "audio_spectrograms", "audio_waveforms", "bert_toke
 
 
 def step_shard(batch) -> Optional[BatchShard]:
-    """The shard of a training step's batch across the group (None in one
-    process): every rank holds the same number of rows, its rows of the
+    """The shard of a training step's batch across the data axis (None with
+    one data rank): every rank holds the same number of rows, its rows of the
     global batch strided as the sampler's shards."""
-    world = world_size()
+    world = data_world()
     if world == 1:
         return None
     n = next(batch[k].shape[0] for k in _ROW_KEYS if batch.get(k) is not None)
-    return BatchShard(n * world, slice(rank(), n * world, world), collective=True)
+    return BatchShard(n * world, slice(data_rank(), n * world, world), collective=True)
 
 
 def sampler_shard(sampler, k: int) -> Optional[BatchShard]:
@@ -235,9 +334,9 @@ def sampler_shard(sampler, k: int) -> Optional[BatchShard]:
 
 
 def answer_shard(n: int, counts: Sequence[int]) -> BatchShard:
-    """The shard of a QA step's tiled answer rows: the ranks' rows
+    """The shard of a QA step's tiled answer rows: the data ranks' rows
     (``counts``, ``n`` of them this rank's) concatenated in rank order."""
-    off = sum(counts[: rank()])
+    off = sum(counts[: data_rank()])
     return BatchShard(sum(counts), slice(off, off + n), collective=True)
 
 

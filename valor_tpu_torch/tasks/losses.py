@@ -81,12 +81,12 @@ def sharded_contrastive_loss(rows: torch.Tensor, cols: torch.Tensor, temp: torch
     share: ``rows`` [n, N] scores this rank's n queries against the N items of
     the gathered batch, ``cols`` [N, n] every query against this rank's items,
     whose pairs sit at ``offset`` in the gathered batch.  The mean of the
-    ranks' shares is the loss over the global score matrix."""
+    data ranks' shares is the loss over the global score matrix."""
     n, n_all = rows.shape
     i = torch.arange(n, device=rows.device)
     loss1 = -torch.log_softmax(rows.float() / temp, dim=1)[i, i + offset]
     loss2 = -torch.log_softmax(cols.float() / temp, dim=0)[i + offset, i]
-    return C.process_count() * 0.5 * (loss1.sum() + loss2.sum()) / n_all
+    return C.axis_size() * 0.5 * (loss1.sum() + loss2.sum()) / n_all
 
 
 def coarse_score(feat_a: torch.Tensor, feat_b: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,12 @@ gradient accumulation restarts exactly where it stopped).  A save writes into
 ``step_N.tmp`` and renames it, so a crash mid-write leaves the previous
 checkpoint whole; ``best_<name>`` copies the best one; with
 ``remove_before_ckpt`` the previous step's directory goes once the new one is
-written.  Across processes rank 0 writes and every rank restores; under
-ZeRO-1 every rank first takes part in gathering the optimizer state whole
-to rank 0 (``GroupedAdam.state_dict``), so a checkpoint has one layout at any
-number of ranks.
+written.  Across processes rank 0 writes and every rank restores; every rank
+first takes part in gathering whole to rank 0 what the mesh splits: the
+parameters that tensor parallelism or ``fsdp`` place
+(``parallel/partition.py:whole_state_dict``) and the optimizer state
+(``GroupedAdam.state_dict``, ZeRO-1's blocks included), so a checkpoint has
+one layout at any mesh, and ``load_state`` takes this rank's blocks of it.
 
 ``use_async`` (``TrainConfig.async_checkpoint``; the JAX package's orbax
 AsyncCheckpointer): ``save`` returns once the state is snapshotted to host
@@ -58,6 +60,7 @@ import torch
 
 from valor_tpu_torch.core.logging import LOGGER, is_main_process
 from valor_tpu_torch.parallel.mesh import barrier
+from valor_tpu_torch.parallel.partition import load_whole, whole_state_dict
 
 STATE_FILE = "state.pt"
 
@@ -87,7 +90,7 @@ class ModelSaver:
     @staticmethod
     def _payload(state, step: int) -> Dict[str, Any]:
         return {
-            "params": state.model.state_dict(),
+            "params": whole_state_dict(state.model),
             "opt_state": state.optimizer.state_dict(),
             "step": step,
             "micro_step": int(state.step),
@@ -246,8 +249,9 @@ def _tensors(obj) -> list:
 
 def load_state(state, payload: Mapping[str, Any]) -> None:
     """Copy a restored payload into ``state``'s model and optimizer (keeping
-    their devices and dtypes) and set its micro-step counter."""
-    state.model.load_state_dict(payload["params"], strict=True)
+    their devices and dtypes; this rank's blocks of a placed model) and set
+    its micro-step counter."""
+    load_whole(state.model, payload["params"], strict=True)
     state.optimizer.load_state_dict(payload["opt_state"])
     state.step = int(payload.get("micro_step") or payload["step"])
 

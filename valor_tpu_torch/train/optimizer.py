@@ -26,19 +26,28 @@ With ``gradient_accumulation_steps`` k > 1 the optimizer follows
 every k calls.  The arithmetic is plain tensor code over lists
 (``torch._foreach_*``), updating parameters and moments in place.
 
-ZeRO-1 (``zero_optimizer`` with a process group of two ranks or more; one
-process, or one rank, is the replicated optimizer): the JAX package's placement
+Placed parameters (``parallel/partition.py``: tensor parallelism over the
+model axis, ``fsdp`` over the data axis) are this rank's blocks, and the
+moments and the accumulator are shaped like them.  ``reduce_grads`` averages
+the gradients over the data axis only: an ``fsdp`` block's gradient arrives
+summed over the data ranks (``parallel/fsdp.py``'s reduce-scatter) and is
+divided, a model-split leaf's is its own and is averaged over its data ranks,
+and a replicated leaf whose use is split by heads (VideoSwin's bias tables) is
+first summed over the model axis.  The flat clip's norm is the global one: the
+squares of model-split leaves summed over the model axis, of data-split
+blocks over the data axis, a replicated leaf counted once.
+
+ZeRO-1 (``zero_optimizer`` with two data ranks or more; one process, or one
+data rank, is the replicated optimizer): the JAX package's placement
 (``parallel/mesh.py:zero_sharded``) splits a parameter's moments and
-accumulated gradient on dim 0 into one block a rank where the leaf holds at
-least 2^14 elements and dim 0 divides by the ranks; smaller or indivisible
-leaves stay whole on every rank.  ``reduce_grads`` averages the gradients over
-ranks, handing a split leaf's block alone; the flat clip sums the squares of
-the blocks over ranks and adds each whole leaf once; each rank updates its
-blocks of the parameters and then gathers every rank's (``parallel/
-collectives.py``), so every rank holds the whole model again.  ``state_dict``
-gathers the whole state to rank 0, which writes the checkpoints, so a
-checkpoint has one layout at any number of ranks, and ``load_state_dict``
-takes this rank's blocks of it.
+accumulated gradient on dim 0 into one block a data rank where the leaf holds
+at least 2^14 elements, dim 0 divides by the data ranks and neither tensor
+parallelism nor ``fsdp`` splits it; other leaves stay whole.  ``reduce_grads``
+hands a ZeRO leaf's gradient as its block; each rank updates its blocks of the
+parameters and then gathers every data rank's (``parallel/collectives.py``).
+``state_dict`` gathers the whole state to rank 0, which writes the
+checkpoints, so a checkpoint has one layout at any mesh, and
+``load_state_dict`` takes this rank's blocks of it.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from valor_tpu_torch.core.device import torch_dtype
 from valor_tpu_torch.ops.layers import Embed, LayerNorm
 from valor_tpu_torch.parallel import collectives as C
 from valor_tpu_torch.parallel import mesh as P
+from valor_tpu_torch.parallel import partition as PT
 from valor_tpu_torch.train.schedule import make_schedule
 
 _F = np.float32
@@ -135,7 +145,8 @@ class GroupedAdam:
     parameters moved (False on the first k - 1 of k accumulated calls)."""
 
     def __init__(self, named_params: Sequence, labels: Dict[str, str],
-                 schedules: Dict[str, Callable], cfg: TrainConfig):
+                 schedules: Dict[str, Callable], cfg: TrainConfig,
+                 placements: Optional[Dict[str, "PT.Placement"]] = None):
         if cfg.optim not in ("adam", "adamax", "adamw"):
             raise ValueError(f"invalid optimizer {cfg.optim!r} (adam|adamax|adamw)")
         self.names = [n for n, _ in named_params]
@@ -149,11 +160,12 @@ class GroupedAdam:
         self.max_norm = cfg.grad_norm
         self.accum = max(cfg.gradient_accumulation_steps, 1)
         self.live = [i for i, lbl in enumerate(self.labels) if lbl != "frozen"]
-        # ZeRO-1: the ranks the state is split over (0: replicated, as one rank is), and which leaves split
-        self.zero_world = P.world_size() if cfg.zero_optimizer and P.world_size() > 1 else 0
-        self.zero_rank = P.rank() if self.zero_world else 0
-        self.sharded = [bool(self.zero_world) and P.zero_sharded(tuple(p.shape), self.zero_world)
-                        for p in self.params]
+        placements = placements or {}
+        self.place = [placements.get(n) or PT.Placement(tuple(p.shape)) for n, p in named_params]
+        # ZeRO-1: the data ranks the state is split over (0: replicated, as one rank is), and which leaves split
+        self.zero_world = P.data_world() if cfg.zero_optimizer and P.data_world() > 1 else 0
+        self.zero_rank = P.data_rank() if self.zero_world else 0
+        self.sharded = [bool(self.zero_world) and PT.zero_split(pl, self.zero_world) for pl in self.place]
         mu_dtype = torch_dtype(cfg.adam_mu_dtype) if cfg.optim != "adamax" else torch.float32
         nu_dtype = torch_dtype(cfg.adam_nu_dtype) if cfg.optim == "adamw" else torch.float32
         self.mu = [torch.zeros_like(self._mine(i, self.params[i]), dtype=mu_dtype) for i in self.live]
@@ -181,20 +193,25 @@ class GroupedAdam:
 
     def _whole(self, tensors: Sequence[torch.Tensor], idx: Sequence[int]) -> List[torch.Tensor]:
         """State tensors of parameters ``idx`` as a checkpoint holds them:
-        under ZeRO-1 a split leaf is gathered whole into a new tensor on rank 0
-        (a collective) and stays this rank's block on the others; any other
-        leaf as it is."""
-        if not self.zero_world:
-            return list(tensors)
+        under ZeRO-1 a split leaf is gathered whole into a new tensor on data
+        rank 0 (a collective) and stays this rank's block on the others; a
+        placed leaf is gathered whole over both axes on rank 0 (every rank
+        takes part) and stays this rank's block elsewhere; any other leaf as
+        it is."""
         out, blocks, wholes = [], [], []
+        first = P.rank() == 0
         for t, i in zip(tensors, idx):
             if self.sharded[i]:
                 blocks.append(t)
                 if self.zero_rank == 0:
                     t = t.new_empty(self.params[i].shape)
                     wholes.append(t)
+            elif self.place[i].split:
+                w = PT.whole(t, self.place[i])
+                t = w if first else t
             out.append(t)
-        C.gather_blocks_(blocks, wholes)
+        if self.zero_world:
+            C.gather_blocks_(blocks, wholes)
         return out
 
     def state_bytes(self) -> int:
@@ -236,9 +253,11 @@ class GroupedAdam:
             if len(dst) != len(theirs):
                 raise ValueError(f"optimizer state has {len(theirs)} {mine} tensors, not {len(dst)}")
             for d, t, i in zip(dst, theirs, idx):
-                if t.shape != self.params[i].shape or d.dtype != t.dtype:
+                if tuple(t.shape) != self.place[i].shape or d.dtype != t.dtype:
                     raise ValueError(f"optimizer {mine}: {tuple(t.shape)} {t.dtype} "
-                                     f"for {tuple(self.params[i].shape)} {d.dtype}")
+                                     f"for {self.place[i].shape} {d.dtype}")
+                if self.place[i].split:
+                    t = PT.local(t.to(d.device), self.place[i])
                 d.copy_(self._mine(i, t))
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
@@ -251,32 +270,47 @@ class GroupedAdam:
         self._waits.append(event)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Every parameter's gradient averaged over ranks (where a process group
-        is set): in place through ``all_reduce_mean_``; under ZeRO-1 a split
-        leaf's gradient is handed as this rank's block (``reduce_scatter_mean``)."""
+        """Every parameter's gradient averaged over the data axis (where a
+        process group is set): in place through ``all_reduce_mean_``; an
+        ``fsdp`` block's gradient, summed over the data ranks already, divided
+        by them; a model-partial leaf's summed over the model axis first; under
+        ZeRO-1 a split leaf's gradient handed as this rank's block
+        (``reduce_scatter_mean``)."""
         grads = list(grads)
-        if not self.zero_world:
-            C.all_reduce_mean_(grads)
-            return grads
-        split = [i for i in range(len(grads)) if self.sharded[i]]
-        C.all_reduce_mean_([g for i, g in enumerate(grads) if not self.sharded[i]])
-        for i, block in zip(split, C.reduce_scatter_mean([grads[i] for i in split])):
-            grads[i] = block.to(grads[i].dtype)
+        partial = [g for g, pl in zip(grads, self.place) if pl.model_partial]
+        if partial and P.model_world() > 1:
+            C.all_reduce_mean_(partial, C.MODEL_AXIS, divide=1)
+        fsdp = [g for g, pl in zip(grads, self.place) if pl.data_dim is not None]
+        if fsdp and P.data_world() > 1:
+            torch._foreach_div_(fsdp, float(P.data_world()))
+        rest = [i for i, pl in enumerate(self.place) if pl.data_dim is None]
+        C.all_reduce_mean_([grads[i] for i in rest if not self.sharded[i]])
+        split = [i for i in rest if self.sharded[i]]
+        if split:
+            for i, block in zip(split, C.reduce_scatter_mean([grads[i] for i in split])):
+                grads[i] = block.to(grads[i].dtype)
         return grads
 
     def grad_norm(self, grads: Sequence[torch.Tensor], idx: Optional[Sequence[int]] = None) -> torch.Tensor:
         """The global L2 norm of the gradients of parameters ``idx`` (all when
-        None), each handed whole or, under ZeRO-1, as this rank's block: the
-        blocks' squares are summed over ranks, a whole leaf counted once."""
-        idx = range(len(grads)) if idx is None else idx
-        if not self.zero_world:
+        None), each handed as this rank's tensor: the squares of blocks split
+        over the data axis (``fsdp``, ZeRO-1) summed over the data ranks, of
+        leaves split over the model axis over the model ranks, a whole leaf
+        counted once."""
+        idx = list(range(len(grads)) if idx is None else idx)
+        on_data = [j for j, i in enumerate(idx) if self.sharded[i] or self.place[i].data_dim is not None]
+        on_model = [j for j, i in enumerate(idx) if self.place[i].model_dim is not None]
+        if not (on_data or on_model):
             return global_norm(grads)
         norms = list(torch._foreach_norm([g.float() for g in grads]))
-        split = [j for j, i in enumerate(idx) if self.sharded[i]]
-        if split:
-            whole = C.all_reduce_sum(torch.stack([norms[j] * norms[j] for j in split])).sqrt()
-            for j, n in zip(split, whole):
-                norms[j] = n
+        split = sorted(set(on_data) | set(on_model))
+        sq = {j: norms[j] * norms[j] for j in split}
+        for axis, js in ((C.DATA_AXIS, on_data), (C.MODEL_AXIS, on_model)):
+            if js:
+                for j, v in zip(js, C.all_reduce_sum(torch.stack([sq[j] for j in js]), axis)):
+                    sq[j] = v
+        for j in split:
+            norms[j] = sq[j].sqrt()
         return torch.linalg.vector_norm(torch.stack(norms))
 
     @torch.no_grad()
@@ -365,4 +399,4 @@ def build_optimizer(model: nn.Module, cfg: TrainConfig, frozen_vision: bool = Fa
         sched = make_schedule(cfg.scheduler, lr, cfg.num_train_steps, cfg.warmup_ratio)
         schedules[f"{g}_wd"] = schedules[f"{g}_nd"] = sched
     labels = label_params(model, cfg.new_params_name, frozen_vision, frozen_multimodal)
-    return GroupedAdam(list(model.named_parameters()), labels, schedules, cfg)
+    return GroupedAdam(list(model.named_parameters()), labels, schedules, cfg, PT.placements_of(model))

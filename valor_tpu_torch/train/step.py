@@ -19,7 +19,10 @@ in fp32 before the cast and the update (``GroupedAdam.reduce_grads``: under
 ZeRO-1 a split leaf's gradient as this rank's block), and the reported losses
 are the global batch's.  Every rank then makes the same update, the one a
 single process makes on the global batch.  ``scst_update`` does the same with
-the SCST loss normalised over the global batch.
+the SCST loss normalised over the global batch.  On a (data, model) mesh
+(``parallel/partition.py``) the step runs unchanged in form over this rank's
+tensors: the model axis's collectives sit in the layers, ``fsdp``'s in the
+reads of its parameters, and ``reduce_grads`` reduces over the data axis.
 """
 
 from __future__ import annotations

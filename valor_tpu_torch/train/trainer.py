@@ -52,6 +52,7 @@ from valor_tpu_torch.eval.validate import eval_mode
 from valor_tpu_torch.models.valor import EOS_TOKEN
 from valor_tpu_torch.ops.layers import _mix
 from valor_tpu_torch.parallel import collectives as C
+from valor_tpu_torch.parallel.fsdp import unsharded
 from valor_tpu_torch.parallel.mesh import batch_shard, step_shard
 from valor_tpu_torch.train.step import (
     TrainState, moe_aux_weight_for, scst_update, to_device, train_step,
@@ -211,13 +212,17 @@ class Trainer:
         rank rewards the whole batch and updates ``AdaptiveAlpha`` on it (so
         every rank holds the same alpha), and the update's loss is normalised
         over the global batch with its gradients averaged over ranks
-        (``train/step.py:scst_update``): W ranks make one process's step."""
+        (``train/step.py:scst_update``): W ranks make one process's step.  On
+        a (data, model) mesh the rows, draws and gathers are the data axis's,
+        so the model ranks of one data rank sample the same tokens; the
+        rollouts read ``fsdp``'s parameters gathered once
+        (``parallel/fsdp.py:unsharded``)."""
         if self.scorer is None:
             raise ValueError("SCST needs a Scorer over the training annotations")
         c = self.cfg.model
         model = self.state.model
         generator = Generator(model)
-        with torch.no_grad(), eval_mode(model):
+        with torch.no_grad(), eval_mode(model), unsharded(model):
             video_input, audio_input = generator.encode(batch, spec.caption_groups)
         prompt = batch.get("prompt_tokens_caption")
         seed = _mix(self.cfg.train.seed, self.state.step)
@@ -228,7 +233,7 @@ class Trainer:
             v = video_input if "v" in g else None
             a = audio_input if "a" in g else None
             sampler = torch.Generator(device=self.device).manual_seed(seed)
-            with torch.no_grad(), eval_mode(model), batch_shard(decode_shard):
+            with torch.no_grad(), eval_mode(model), batch_shard(decode_shard), unsharded(model):
                 seq_g, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "greedy",
                                    prompt, v, a, None)
                 seq_s, _ = _decode(model, c.caption_type, c.max_generation_len, 1, "sample",
