@@ -188,7 +188,7 @@ line:
      phase 3's greedy and beam-3 sequences and decoder logits;
   b. MoE pretraining from disk: ``configs/pretrain-valor-base-moe.json``'s
      first flow (8 experts, top-2, every other fusion layer) through
-     ``cli.train`` on phase 14's dataset at batch 32, 10 steps and
+     ``cli.train`` on phase 14's dataset at batch 32, 5 steps and
      ``validate_pt``, as phase 18 without prompts; it prints samples/s against
      phase 18's, peak memory, ``moe_aux`` a step over its weight and each MoE
      layer's share of dropped choices, over all tokens and over non-pad
@@ -214,7 +214,7 @@ line:
      loss, the grad norm and every updated parameter within 1e-5) and
      ``validate_ret`` over 9 items (reports equal); then, in the same
      launch, three ``cli.train`` flows in turn: (ii)
-     ``configs/pretrain-valor-base.json``'s first flow, global batch 32, 3 steps, on a dataset written here that
+     ``configs/pretrain-valor-base.json``'s first flow, global batch 32, 2 steps, on a dataset written here that
      draws nothing at random on the host (96 training ids, one caption an id,
      4 frames and a 4 s WAV), ``validate_pt`` over its 64 evaluation ids, no
      checkpoint written ((v) writes one);
@@ -251,7 +251,19 @@ line:
      batch of 32 on both ranks): the first step's losses within 2e-2 of (ii)'s
      and its grad norm within 5e-2 (bf16), finite losses after, the model axis's all-reduces (count, ms and
      bytes a step), each rank's parameter bytes, the peak, ``validate_pt``'s
-     reports equal on both ranks, the launches;
+     reports equal on both ranks, the launches; (viii)
+     ``configs/pretrain-valor-base-moe.json``'s first flow with
+     ``--model_shards 2 --sequence_parallel true`` (data 1 x model 2: expert
+     parallelism, 4 of 8 experts a rank in each of the 6 MoE layers, sequence
+     parallelism of the 42-token fusion stream and tensor parallelism
+     together), 3 steps at a global batch of 32 and ``validate_pt`` on its 64
+     ids: both counts (``expert_sharding_applied``,
+     ``sequence_sharding_applied``) above 0 on each rank, equal losses on both
+     ranks, the first step's losses with ``moe_aux`` within 2e-2 of a plain
+     process running the same flow on the same batches (its grad norm within
+     5e-2), ``validate_pt``'s reports equal on both ranks, the launches; the
+     model axis's collectives (count, ms and bytes a step), the peak and the
+     step time;
   9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22, b-e
      and f handed each kernel is held against the plain version: listed where
      phase 2, 6 or 10 compared it, compared here where they did not.
@@ -260,9 +272,9 @@ It prints a ``{"kernels": [...]}`` line (launches by path: serving,
 serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
 qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
 large_train, swin_cap_train, mscoco_train, ddp_train, ddp_zero_train,
-ddp_scst_train, ddp_fsdp_train and ddp_tp_train (both ranks of phase f (ii),
-(v), (iv), (vi) and (vii)) and ddp_nccl_train (phase f (iii)'s NCCL
-process)), the card's name and power
+ddp_scst_train, ddp_fsdp_train, ddp_tp_train and ddp_ep_sp_train (both ranks
+of phase f (ii), (v), (iv), (vi), (vii) and (viii)) and ddp_nccl_train (phase
+f (iii)'s NCCL process)), the card's name and power
 limit before it, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero without printing them where CUDA is unavailable.
@@ -3618,6 +3630,9 @@ def phase_gqa_serving(kv_heads: int = 4):
     return summary
 
 
+FAMILY_STEPS = 5  # phases b and c, from disk
+
+
 def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
     """Phases a-e on phase 14's (``cli_paths``) and phase 15's (``cap_paths``)
     datasets; ``pt`` is phase 18's summary, which phase b's rate is set
@@ -3629,7 +3644,7 @@ def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
         torch.cuda.empty_cache()
 
     out = {"families_card_vs_cpu": phase_families_card_vs_cpu()}
-    moe = phase_cli_pt_prompts(cli_paths, config="pretrain-valor-base-moe.json", prompts=False,
+    moe = phase_cli_pt_prompts(cli_paths, steps=FAMILY_STEPS, config="pretrain-valor-base-moe.json", prompts=False,
                                label="cli_moe")
     if pt:
         moe["phase18_samples_per_s"] = pt["samples_per_s"]
@@ -3637,8 +3652,9 @@ def phases_families(cli_paths: dict, cap_paths: dict, pt=None):
     out["moe_train"] = moe
     free()
     batch, tried = largest_batch("pretrain-valor-large.json", PT_TASK)
-    out["large_train"] = dict(phase_cli_pt_prompts(cli_paths, batch_size=batch, config="pretrain-valor-large.json",
-                                                   label="cli_large"), batch_probe=tried)
+    out["large_train"] = dict(phase_cli_pt_prompts(cli_paths, steps=FAMILY_STEPS, batch_size=batch,
+                                                   config="pretrain-valor-large.json", label="cli_large"),
+                              batch_probe=tried)
     free()
     batch, tried = largest_batch("caption-msrvtt.json", "cap%tva", n_txt=30, overrides=SWIN_CAPTION)
     swin = phase_cli_finetune("cap", cap_paths, steps=5, batch_size=batch,
@@ -3669,6 +3685,9 @@ TP_TOL = 2e-2  # phase f (vii): tensor parallelism's first-step losses against (
 # rounds the whole product once; the difference runs through the 12-layer towers and the fusion stack (5 bf16 ulps)
 TP_NORM_TOL = 5e-2  # and its first grad norm, relative: the norm of bf16 gradients moves with that rounding as it
 # moves between bf16 and fp32 (1.3 % between one bf16 and one fp32 process of the tiny config on the CPU)
+# (viii) holds expert and sequence parallelism to a plain process with the same two tolerances: the model axis
+# sums the same bf16 partial products (experts' outputs, row-parallel products) before its reduce-scatters
+MODEL_COLLECTIVES = ("all_gather_dim", "reduce_scatter_dim", "model_all_reduce_")  # (viii)'s, over the model axis
 
 
 def _take(batch: dict, rows) -> dict:
@@ -3801,7 +3820,7 @@ class _Counted:
 
 ZERO_TOL = 1e-5  # phase f (v): ZeRO-1 against the replicated optimizer, absolute and relative (the clip's norm
 # sums the blocks' squares in another order)
-DDP_STEPS = 3  # steps of each full-width run of phase f
+DDP_STEPS = 3  # steps of phase f's full-width runs (iv) and (viii); (ii), (v), (vi) and (vii) take one fewer
 REPLICATED_MOMENT_BYTES = 2 * 4 * 374_089_791  # fp32 mu and nu of VALOR-base's parameters on every rank
 
 
@@ -3930,7 +3949,9 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
     from valor_tpu_torch.core.tasks import parse_task
     from valor_tpu_torch.ops.kernels import fine_score as K2
     from valor_tpu_torch.ops.kernels import layernorm as K
+    from valor_tpu_torch.ops.moe import expert_sharding_applied
     from valor_tpu_torch.parallel import mesh as P
+    from valor_tpu_torch.parallel.activations import sequence_sharding_applied
     from valor_tpu_torch.train import checkpoints as TC
 
     argv = list(flow["argv"])
@@ -3953,6 +3974,7 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
             K.LAUNCHES = K.LAUNCHES_BWD = K2.LAUNCHES = 0  # the main path starts here
             trainer = train_main(argv)
             launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
+            split = (expert_sharding_applied(), sequence_sharding_applied())  # counted since the run built its model
     finally:
         TC.ModelSaver._write, TC.load_state = write0, load0
         torch.use_deterministic_algorithms(False)
@@ -3992,6 +4014,8 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
         "grad_bytes": sum(p.numel() * (2 if cfg.train.grad_dtype == "bfloat16" else 4) for p in model.parameters()),
         "zero_world": opt.zero_world, "optimizer_state_bytes": opt.state_bytes(),
         "layernorm_launches_fwd_bwd": launches[:2], "fine_score_launches": launches[2],
+        "expert_sharding_applied": split[0], "sequence_sharding_applied": split[1],
+        "fusion_len": cfg.data_train[0].max_txt_len + 2,  # the text with its CLS and SEP: the caption groups' S
         "ln_per_step": expected_train_ln_launches(model, spec),
         "validations": [{"items": n, "seconds": t, "report": rep} for n, t, rep in calls],
         "layernorm_calls": sorted(sigs_fwd), "layernorm_bwd_calls": sorted(sigs_bwd),
@@ -4242,6 +4266,56 @@ def check_ddp_tp(ranks: list, base: list, steps: int, val_batch: int, n_val: int
             "first_step_grad_norm_rel_err": abs(norm - norm0) / norm0, "grad_norm_tolerance": TP_NORM_TOL}
 
 
+def check_ddp_ep_sp(ranks: list, one: dict, steps: int, val_batch: int, n_val: int, device: str, ckpts) -> dict:
+    """Phase f (viii)'s gates: expert and sequence parallelism (with tensor
+    parallelism) at data 1 x model 2, both ranks on the global batch: both
+    counts above 0 on each rank, the same losses and reports on both, the
+    first step's losses within ``TP_TOL`` of the plain process ``one`` on the
+    same flow and batches (its grad norm within ``TP_NORM_TOL``), finite losses
+    after, the launches of the path; returns the first step's largest
+    differences."""
+    for r in ranks:
+        if r["sequence_sharding_applied"] == 0 and r["fusion_len"] % DDP_WORLD:
+            raise AssertionError(f"phase f (viii): the fusion sequence of {r['fusion_len']} tokens does not divide "
+                                 f"the model axis of {DDP_WORLD} ranks, so sequence parallelism cannot engage")
+        if min(r["expert_sharding_applied"], r["sequence_sharding_applied"]) <= 0:
+            raise AssertionError(f"phase f (viii) rank {r['rank']}: {r['expert_sharding_applied']} expert-split and "
+                                 f"{r['sequence_sharding_applied']} sequence-split forwards")
+        per_step = r["ln_per_step"]
+        val_batches = -(-r["validations"][0]["items"] // val_batch) if r["validations"] else 0
+        want = (per_step * (steps + val_batches), per_step * steps, 3) if device == "cuda" else (0, 0, 0)
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["grid"][1:], r["steps"]) != (DDP_WORLD, [1, r["rank"], DDP_WORLD], steps) or got != want:
+            raise AssertionError(f"phase f (viii) rank {r['rank']}: {r['world']} ranks, grid {r['grid']}, "
+                                 f"{r['steps']} steps, launches {got} != {want}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"] or "moe_aux" not in r["losses"]:
+            raise AssertionError(f"phase f (viii) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
+        if not set(MODEL_COLLECTIVES) <= set(r["collectives"]):
+            raise AssertionError(f"phase f (viii) rank {r['rank']} collectives {sorted(r['collectives'])}")
+        rep = r["validations"][0]["report"] if len(r["validations"]) == 1 else None
+        if rep is None or rep != ranks[0]["validations"][0]["report"] or not all(np.isfinite(v) for v in rep.values()) \
+                or r["validations"][0]["items"] != n_val:
+            raise AssertionError(f"phase f (viii) validate_pt reports differ or are missing: {r['validations']}")
+    if (one["world"], one["expert_sharding_applied"], one["sequence_sharding_applied"]) != (1, 0, 0) \
+            or one["losses"].keys() != ranks[0]["losses"].keys():
+        raise AssertionError(f"phase f (viii): the plain process ran at {one['world']} ranks, split "
+                             f"{one['expert_sharding_applied']} and {one['sequence_sharding_applied']} forwards, "
+                             f"losses {sorted(one['losses'])}")
+    worst, err = 0.0, 0.0
+    for k, vs in one["losses"].items():
+        if k == "grad_norm":
+            continue
+        x, y = ranks[0]["losses"][k][0], vs[0]
+        err, worst = max(err, abs(x - y)), max(worst, abs(x - y) - TP_TOL * abs(y))
+    norm, norm0 = ranks[0]["losses"]["grad_norm"][0], one["losses"]["grad_norm"][0]
+    if worst > TP_TOL or abs(norm - norm0) > TP_NORM_TOL * norm0 or ckpts:
+        raise AssertionError(f"phase f (viii): the first step's losses differ from the plain process's by {err} "
+                             f"(tolerance {TP_TOL} absolute and relative), its grad norm {norm} from {norm0} "
+                             f"(tolerance {TP_NORM_TOL} relative); checkpoints {ckpts}")
+    return {"first_step_max_abs_loss_err": err, "tolerance": TP_TOL,
+            "first_step_grad_norm_rel_err": abs(norm - norm0) / norm0, "grad_norm_tolerance": TP_NORM_TOL}
+
+
 def cli_config(paths: dict, tmp: str, name: str, label: str, edit) -> str:
     """``configs/<name>`` with ``edit(raw)`` applied, written under ``tmp`` as
     ``config_<label>.json``; its path (``cli_run`` without the environment,
@@ -4276,9 +4350,10 @@ def env_for(paths: dict):
 def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", overrides=None,
               fixture=None, scst_overrides=None, steps: int = DDP_STEPS, batch_size: int = 32,
               val_batch: int = 64, n_val: int = 64) -> dict:
-    """Phase f: (i), then (ii), (v), (iv), (vi) and (vii) in one launch of
-    two gloo ranks, then (iii), (v)'s checkpoint resumed at one NCCL rank and
-    in a plain process (which also restores (vi)'s); a summary a path.  (ii) and (v) train on a dataset written here
+    """Phase f: (i), then (ii), (v), (iv), (vi), (vii) and (viii) in one
+    launch of two gloo ranks, then (iii), (v)'s checkpoint resumed at one NCCL
+    rank and in a plain process (which also restores (vi)'s and runs (viii)'s
+    flow for its reference); a summary a path.  (ii) and (v) train on a dataset written here
     that draws nothing at random on the host (one caption an id, 4 frames and
     one audio clip an item), the same batches in both, and (iii) trains on it
     too; (iv)
@@ -4291,6 +4366,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
 
     t0 = time.monotonic()
     cuda = device == "cuda"
+    short = max(2, steps - 1)  # (ii), (v), (vi) and (vii): one schedule, so their steps compare
     if cuda:
         free, total = torch.cuda.mem_get_info()
         with open("/proc/meminfo") as f:
@@ -4306,9 +4382,9 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                                               **(fixture or {})))
         written_s = time.monotonic() - t0
 
-        def pt_config(name, val):
-            return cli_config(data, tmp, "pretrain-valor-base.json", name, lambda raw: first_pt_flow(
-                raw, data, os.path.join(tmp, name), steps, batch_size, val, False, overrides))
+        def pt_config(name, val, config="pretrain-valor-base.json", n_steps=steps):
+            return cli_config(data, tmp, config, name, lambda raw: first_pt_flow(
+                raw, data, os.path.join(tmp, name), n_steps, batch_size, val, False, overrides))
 
         def scst_edit(raw):
             point_at(raw, cap_paths)
@@ -4317,8 +4393,10 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
             raw.update(output_dir=os.path.join(tmp, "scst"), num_train_steps=steps, valid_steps=0,
                        first_eval=False, **(scst_overrides or overrides or {}))
 
-        base_cfg, zero_cfg = pt_config("base", val_batch), pt_config("zero", None)
-        fsdp_cfg, tp_cfg = pt_config("fsdp", None), pt_config("tp", val_batch)
+        base_cfg, zero_cfg = pt_config("base", val_batch, n_steps=short), pt_config("zero", None, n_steps=short)
+        fsdp_cfg, tp_cfg = pt_config("fsdp", None, n_steps=short), pt_config("tp", val_batch, n_steps=short)
+        moe = "pretrain-valor-base-moe.json"
+        ep_sp_cfg, ep_sp_one_cfg = pt_config("ep_sp", val_batch, moe), pt_config("ep_sp_one", None, moe)
         scst_cfg = cli_config(cap_paths, tmp, "caption-msrvtt.json", "scst", scst_edit)
         gloo = ["--dist_backend", "gloo", *dev]
         with env_for(data):
@@ -4333,27 +4411,35 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                  "digest": True},
                 {"name": "tp", "argv": ["--config", tp_cfg, "--model_shards", str(DDP_WORLD), *gloo],
                  "deterministic": True, "no_save": True},
+                {"name": "ep_sp", "argv": ["--config", ep_sp_cfg, "--model_shards", str(DDP_WORLD),
+                                           "--sequence_parallel", "true", *gloo], "deterministic": True,
+                 "no_save": True},
             ], os.path.join(tmp, "two"), timeout=1000)
-            ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt"))) for k in ("base", "zero", "fsdp", "tp")}
+            ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt")))
+                     for k in ("base", "zero", "fsdp", "tp", "ep_sp")}
             # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps
-            resume = ["--resume", "true", "--num_train_steps", str(2 * steps), "--zero_optimizer", "true"]
+            resume = ["--resume", "true", "--num_train_steps", str(short + steps), "--zero_optimizer", "true"]
             one = {}
             for name, nproc, group in (("nccl", 1, ["--dist_backend", "nccl" if cuda else "gloo"]),
                                        ("plain", None, [])):
-                # the plain process also restores (vi)'s checkpoint, training nothing
-                fsdp_restore = [{"name": "fsdp_restore", "restore": os.path.join(tmp, "fsdp"), "config": fsdp_cfg,
-                                 "argv": dev}] if nproc is None else []
+                # the plain process also restores (vi)'s checkpoint, training nothing, and runs (viii)'s flow
+                plain = [{"name": "fsdp_restore", "restore": os.path.join(tmp, "fsdp"), "config": fsdp_cfg,
+                          "argv": dev},
+                         {"name": "ep_sp_one", "argv": ["--config", ep_sp_one_cfg, *dev], "deterministic": True,
+                          "no_save": True}] if nproc is None else []
                 one[name] = run_ranks(nproc, [
                     {"name": "resume", "argv": ["--config", zero_cfg, *resume, *group, *dev], "deterministic": True,
-                     "no_save": True}, *fsdp_restore,
+                     "no_save": True}, *plain,
                 ], os.path.join(tmp, name), timeout=600)[0]
     out["ddp_tiny"] = check_ddp_tiny([r["tiny"] for r in two], device)
-    base, zero, scst, fsdp, tp = ([r[k] for r in two] for k in ("base", "zero", "scst", "fsdp", "tp"))
-    check_ddp_base(base, steps, val_batch, n_val, device, ckpts["base"])
-    zero_err = check_ddp_zero(zero, base, steps, device, ckpts["zero"])
+    base, zero, scst, fsdp, tp, ep_sp = ([r[k] for r in two] for k in ("base", "zero", "scst", "fsdp", "tp", "ep_sp"))
+    check_ddp_base(base, short, val_batch, n_val, device, ckpts["base"])
+    zero_err = check_ddp_zero(zero, base, short, device, ckpts["zero"])
     check_ddp_scst(scst, steps, device)
-    fsdp_err = check_ddp_fsdp(fsdp, base, steps, device, ckpts["fsdp"], one["plain"]["fsdp_restore"]["digest"])
-    tp_err = check_ddp_tp(tp, base, steps, val_batch, n_val, device, ckpts["tp"])
+    fsdp_err = check_ddp_fsdp(fsdp, base, short, device, ckpts["fsdp"], one["plain"]["fsdp_restore"]["digest"])
+    tp_err = check_ddp_tp(tp, base, short, val_batch, n_val, device, ckpts["tp"])
+    ep_sp_one = one["plain"]["ep_sp_one"]
+    ep_sp_err = check_ddp_ep_sp(ep_sp, ep_sp_one, steps, val_batch, n_val, device, ckpts["ep_sp"])
     n0, p0 = one["nccl"]["resume"], one["plain"]["resume"]
     if (n0["world"], len(n0["allreduce_ms"]), p0["allreduce_ms"]) != (1, n0["steps"], []) \
             or n0["losses"].keys() != p0["losses"].keys() or not _finite(n0["losses"]):
@@ -4365,7 +4451,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
     if n0["layernorm_launches_fwd_bwd"] != [n0["ln_per_step"] * n0["steps"] * cuda] * 2:
         raise AssertionError(f"phase f (iii) launches {n0['layernorm_launches_fwd_bwd']}")
     for r in (n0, p0):
-        if r["restored_digests"] != [zero[0]["digest"]] or r["steps"] != steps or r["first_micro_step"] != steps + 1:
+        if r["restored_digests"] != [zero[0]["digest"]] or r["steps"] != steps or r["first_micro_step"] != short + 1:
             raise AssertionError(f"phase f (v): a resume at one process restored another state than the two "
                                  f"ZeRO ranks saved, or ran {r['steps']} steps from {r['first_micro_step']}")
     if (n0["zero_world"], p0["zero_world"], sorted(n0["collectives"])) != (0, 0, ["all_reduce_mean_"]):
@@ -4376,7 +4462,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "config": "configs/pretrain-valor-base.json (first train flow)", "task": "pt (first flow)",
         "launch": f"python -m torch.distributed.run --standalone --nproc_per_node {DDP_WORLD} "
                   "-m valor_tpu_torch.cli.train ... --dist_backend gloo (through this script's --ddp-worker)",
-        "ranks_on_one_card": DDP_WORLD, "global_batch": batch_size, "steps": steps, "val_items": n_val,
+        "ranks_on_one_card": DDP_WORLD, "global_batch": batch_size, "steps": short, "val_items": n_val,
         "deterministic": True, "samples_per_s_all": batch_size / float(np.median([r["median_step_s"] for r in base])),
         "samples_per_s_by_rank": [r["samples_per_s_rank"] for r in base],
         "median_step_s_by_rank": [r["median_step_s"] for r in base],
@@ -4387,7 +4473,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in base],
         "report": b0["validations"][0]["report"], "losses": b0["losses"], "dataset_written_s": written_s})
     out["ddp_zero_train"] = dict(_launch_summary(zero), **zero_err, **{
-        "config": "phase f (ii)'s, --zero_optimizer true --async_checkpoint true", "steps": steps,
+        "config": "phase f (ii)'s, --zero_optimizer true --async_checkpoint true", "steps": short,
         "losses": z0["losses"], "replicated_losses": b0["losses"],
         "optimizer_state_bytes_by_rank": [r["optimizer_state_bytes"] for r in zero],
         "replicated_optimizer_state_bytes": b0["optimizer_state_bytes"],
@@ -4418,7 +4504,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "plain_max_memory_allocated_gib": p0["max_memory_allocated_gib"], "collectives": n0["collectives"]})
     f0, t0_ = fsdp[0], tp[0]
     out["ddp_fsdp_train"] = dict(_launch_summary(fsdp), **fsdp_err, **{
-        "config": "phase f (ii)'s without validation, --fsdp true (data 2 x model 1)", "steps": steps,
+        "config": "phase f (ii)'s without validation, --fsdp true (data 2 x model 1)", "steps": short,
         "global_batch": batch_size, "deterministic": True, "losses": f0["losses"], "replicated_losses": b0["losses"],
         "split_leaves": f0["data_split_leaves"],
         "param_bytes_by_rank": [r["param_bytes_fp32"] for r in fsdp], "replicated_param_bytes": b0["param_bytes_fp32"],
@@ -4434,7 +4520,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "checkpoint": ckpts["fsdp"], "plain_process_restore_digest_equal": True})
     out["ddp_tp_train"] = dict(_launch_summary(tp), **tp_err, **{
         "config": f"phase f (ii)'s, --model_shards {DDP_WORLD} (data 1 x model {DDP_WORLD}), global batch "
-                  f"{batch_size} on every rank", "steps": steps, "deterministic": True,
+                  f"{batch_size} on every rank", "steps": short, "deterministic": True,
         "losses": t0_["losses"], "replicated_losses": b0["losses"],
         "model_split_leaves": t0_["model_split_leaves"],
         "param_bytes_by_rank": [r["param_bytes_fp32"] for r in tp], "replicated_param_bytes": b0["param_bytes_fp32"],
@@ -4443,6 +4529,24 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         "model_all_reduce_by_step_by_rank": [r["collectives_by_step"].get("model_all_reduce_") for r in tp],
         "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in tp],
         "report": t0_["validations"][0]["report"], "replicated_report": b0["validations"][0]["report"]})
+    e0 = ep_sp[0]
+    out["ddp_ep_sp_train"] = dict(_launch_summary(ep_sp), **ep_sp_err, **{
+        "config": f"configs/pretrain-valor-base-moe.json (first train flow), --model_shards {DDP_WORLD} "
+                  f"--sequence_parallel true (data 1 x model {DDP_WORLD}), global batch {batch_size} on every rank",
+        "steps": steps, "deterministic": True, "fusion_len": e0["fusion_len"],
+        "losses": e0["losses"], "one_process_losses": ep_sp_one["losses"],
+        "expert_split_forwards_by_rank": [r["expert_sharding_applied"] for r in ep_sp],
+        "sequence_split_forwards_by_rank": [r["sequence_sharding_applied"] for r in ep_sp],
+        "model_split_leaves": e0["model_split_leaves"],
+        "param_bytes_by_rank": [r["param_bytes_fp32"] for r in ep_sp], "one_process_param_bytes": ep_sp_one["param_bytes_fp32"],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in ep_sp],
+        "one_process_max_memory_allocated_gib": ep_sp_one["max_memory_allocated_gib"],
+        "median_step_s_by_rank": [r["median_step_s"] for r in ep_sp], "step_s_by_rank": [r["step_s"] for r in ep_sp],
+        "one_process_median_step_s": ep_sp_one["median_step_s"],
+        "model_collectives_by_step_by_rank": [{k: r["collectives_by_step"].get(k) for k in MODEL_COLLECTIVES}
+                                              for r in ep_sp],
+        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in ep_sp],
+        "report": e0["validations"][0]["report"]})
     out["seconds"] = time.monotonic() - t0
     for k, v in out.items():
         if isinstance(v, dict) and k != "ddp_tiny":

@@ -30,6 +30,21 @@ Two more steps at (2 x 2): VideoSwin (its relative-position bias tables are
 replicated but read by heads, so their gradients are partial on each model
 rank and summed over the model axis; the test checks both), and grouped-query
 cross-attention with kv_heads divisible by the model axis.
+
+Then expert and sequence parallelism over the model axis at (2 x 2): ``ep_2x2``
+(``fusion_moe_experts=4, fusion_moe_every=2``: two experts a model rank),
+``sp_2x2`` (``sequence_parallel``, dense) and ``ep_sp_fsdp_2x2`` (MoE,
+``sequence_parallel`` and ``fsdp``).  The batch's text is 8 tokens, so every
+fusion sequence of the step (8 text tokens; 16 in the full-masker halves of
+``unimlm``) divides the model axis and sequence parallelism engages.  Each
+flow's step, with ``moe_aux``: the losses, the grad norm, every updated
+parameter and each model rank's router gradient within 1e-5 of one port
+process; the same step with dropout off and the row-local masks within 1e-4 of
+JAX's single-device step (losses and grad norm; ``sp_2x2``'s updated
+parameters within the learning rate of JAX's update too); both counts above 0 on every rank where the flow
+switches them on.  ``ep_sp_fsdp_2x2`` also validates (greedy captions token for
+token), runs one SCST step (rewards and alpha equal to one process's) and
+writes a whole checkpoint that resumes at ``tp_2x2`` and in one process.
 """
 
 import os
@@ -54,6 +69,13 @@ MESHES = {  # name: (model_shards, fsdp, zero_optimizer)
     "tp_fsdp_zero_2x2": (2, True, True),
 }
 RESUME = {"fsdp_4x1": "tp_2x2", "tp_2x2": "tp_fsdp_zero_2x2", "tp_fsdp_zero_2x2": "fsdp_4x1"}
+EP_SP = {  # name: (config, model_shards, fsdp)
+    "ep_2x2": ("moe", 2, False),
+    "sp_2x2": ("sp", 2, False),
+    "ep_sp_fsdp_2x2": ("moe_sp", 2, True),
+}
+EP_SP_RESUME = ("ep_sp_fsdp_2x2", "tp_2x2")  # the flow whose checkpoint resumes, and where
+MOE = dict(fusion_moe_experts=4, fusion_moe_every=2)
 EVAL_IDS = [f"v{i}" for i in range(6)]
 SCST_IDS = ["a", "b", "c", "d", "a", "d", "b", "c"]
 
@@ -88,7 +110,9 @@ def _row_mask_jax(rng, tokens, *a):
 
 
 def _state(cfg, fsdp=False, zero=False):
-    """A training state from seed 0's weights, placed on this process's mesh."""
+    """A training state from seed 0's weights, placed on this process's mesh
+    with the config's expert and sequence parallelism switches."""
+    from valor_tpu_torch.cli.build import install_mesh_switches
     from valor_tpu_torch.core.config import TrainConfig
     from valor_tpu_torch.models.bridge import init_params, train_model
     from valor_tpu_torch.parallel.partition import shard_model
@@ -97,6 +121,7 @@ def _state(cfg, fsdp=False, zero=False):
 
     model = train_model(cfg, init_params(cfg, 0, "cpu"), "cpu")
     shard_model(model, fsdp=fsdp)
+    install_mesh_switches(cfg)
     return TrainState(model, build_optimizer(model, TrainConfig(**UPDATE, zero_optimizer=zero)))
 
 
@@ -115,6 +140,33 @@ def _step(state, batch, task=PT_TASK):
     from valor_tpu_torch.train.step import train_step
 
     return {k: float(v) for k, v in train_step(state, _tensors(batch), parse_task(task), SEED).items()}
+
+
+def _routed_step(state, batch, cfg):
+    """``_step`` with the config's ``moe_aux`` weight; also each router's
+    gradient as ``reduce_grads`` hands it to the update, and how many forwards
+    ran expert- and sequence-split."""
+    from valor_tpu_torch.core.tasks import parse_task
+    from valor_tpu_torch.ops.moe import expert_sharding_applied
+    from valor_tpu_torch.parallel.activations import sequence_sharding_applied
+    from valor_tpu_torch.train.step import moe_aux_weight_for, train_step
+
+    names = [n for n, _ in state.model.named_parameters()]
+    reduce0, routers = state.optimizer.reduce_grads, {}
+
+    def reduce(grads):
+        out = reduce0(grads)
+        routers.update({n: g.clone() for n, g in zip(names, out) if n.endswith(".router")})
+        return out
+
+    counts0 = (expert_sharding_applied(), sequence_sharding_applied())
+    state.optimizer.reduce_grads = reduce
+    try:
+        metrics = train_step(state, _tensors(batch), parse_task(PT_TASK), SEED, moe_aux_weight=moe_aux_weight_for(cfg))
+    finally:
+        del state.optimizer.reduce_grads
+    counts = (expert_sharding_applied() - counts0[0], sequence_sharding_applied() - counts0[1])
+    return {k: float(v) for k, v in metrics.items()}, routers, counts
 
 
 def _whole(state):
@@ -246,6 +298,35 @@ def _rank(cfgs, batches, eval_batch, scst, root):
     out["swin"] = _partial_table_step(cfgs["swin"], _rows(batches[0]))
     gqa = _state(cfgs["gqa"])
     out["gqa"] = {"step": _step(gqa, _rows(batches[0])), "after": _kept(_whole(gqa)["params"])}
+    for name, (key, m, fsdp) in EP_SP.items():
+        P.make_mesh(m, "cpu")
+        o = out[name] = {}
+        state = _state(cfgs[key], fsdp)
+        if name == EP_SP_RESUME[0]:
+            state.model.eval()
+            o["eval"] = _validate(state.model, cfgs[key], eval_batch, os.path.join(root, "results_" + name))
+            state.model.train()
+        o["step"], o["routers"], o["counts"] = _routed_step(state, _rows(batches[0]), cfgs[key])
+        o["after"] = _kept(_whole(state)["params"])
+        if name == EP_SP_RESUME[0]:
+            ModelSaver(os.path.join(root, name)).save(state, 1)
+            o["scst"] = _scst(cfgs[key], fsdp, False, _rows(scst["batch"]),
+                              _rows({"i": np.array(SCST_IDS)})["i"].tolist(), scst["ann"], scst["vocab"])
+        mask0 = TV.mask_tokens
+        TV.mask_tokens = _row_mask_torch
+        try:
+            jstate = _state(cfgs[key + "_jax"], fsdp)
+            o["jax_step"] = _routed_step(jstate, _rows(batches[0]), cfgs[key])[0]
+            o["jax_after"] = _kept(_whole(jstate)["params"])
+        finally:
+            TV.mask_tokens = mask0
+    src, dst = EP_SP_RESUME
+    m, fsdp, zero = MESHES[dst]
+    P.make_mesh(m, "cpu")
+    state = _state(cfgs["moe"], fsdp, zero)
+    load_state(state, ModelSaver(os.path.join(root, src)).restore())
+    out[src]["restored"] = _kept(_whole(state))
+    out[src]["resumed_step"] = _routed_step(state, _rows(batches[1]), cfgs["moe"])[0]
     return out
 
 
@@ -258,6 +339,7 @@ def run(tmp_path_factory):
     import json
 
     from tests.test_data import TINY_VOCAB
+    from valor_tpu_torch.cli.build import install_mesh_switches
     from valor_tpu_torch.train.checkpoints import ModelSaver, load_state
 
     root = tmp_path_factory.mktemp("fsdp_tp")
@@ -269,6 +351,10 @@ def run(tmp_path_factory):
             "swin": _cfg(dropout=0.0, caption_type="lm", video_encoder_type="videoswin_tiny_test",
                          txt_encoder_type="bert_base_uncased", init_clip_head=False),
             "gqa": _cfg(dropout=0.1, caption_type="unimlm", fusion_heads=4, fusion_cross_attn_kv_heads=2)}
+    for key, kw in {"moe": MOE, "sp": dict(sequence_parallel=True),
+                    "moe_sp": dict(MOE, sequence_parallel=True)}.items():
+        cfgs[key] = _cfg(dropout=0.1, caption_type="unimlm", **kw)
+        cfgs[key + "_jax"] = _cfg(dropout=0.0, caption_type="unimlm", **kw)
     batches = [_batch(60), _batch(61)]
     eval_batch = _batch(62, b=6)
     scst = {"batch": {k: v for k, v in _batch(63).items() if k in ("video_pixels", "audio_spectrograms")},
@@ -290,9 +376,25 @@ def run(tmp_path_factory):
     swin_one = _partial_table_step(cfgs["swin"], batches[0])
     gqa = _state(cfgs["gqa"])
     gqa_one = {"step": _step(gqa, batches[0]), "after": _whole(gqa)["params"]}
+    ep_sp_one = {}
+    for key in ("moe", "sp", "moe_sp"):
+        st = _state(cfgs[key])
+        o = ep_sp_one[key] = {}
+        if key == "moe_sp":
+            o["eval"] = _validate(st.model.eval(), cfgs[key], eval_batch, str(root / "results_one_moe"))
+            st.model.train()
+            o["scst"] = _one_scst(cfgs[key], scst["batch"], scst["ann"], scst["vocab"])
+        o["step"], o["routers"], o["counts"] = _routed_step(st, batches[0], cfgs[key])
+        o["after"] = _whole(st)["params"]
+    payload = ModelSaver(str(root / "ckpt" / EP_SP_RESUME[0])).restore()
+    st = _state(cfgs["moe"])
+    load_state(st, payload)
+    ep_sp_one["resumed"] = {"payload": payload, "restored": _whole(st),
+                            "step": _routed_step(st, batches[1], cfgs["moe"])[0]}
+    install_mesh_switches(cfgs["main"])  # both off again for the tests that follow in this process
     return {"ranks": ranks, "cfgs": cfgs, "batches": batches, "one_eval": one_eval, "one_step": one_step,
             "one_after": one_after, "one_scst": one_scst, "resumed": resumed, "swin_one": swin_one,
-            "gqa_one": gqa_one}
+            "gqa_one": gqa_one, "ep_sp_one": ep_sp_one}
 
 
 def _close(a, b, tol, what):
@@ -331,9 +433,9 @@ def test_step_equals_one_process(run, mesh):
         _close(after[n], p, TOL, f"{mesh} updated {n}")
 
 
-@pytest.fixture(scope="module")
-def jax_ref(run):
-    """JAX's losses, grad norm and updated parameters on the global batch,
+def _jax_reference(run, key, update=True):
+    """JAX's losses, grad norm and (with ``update``; else None) updated
+    parameters of config ``key`` on the global batch (with its ``moe_aux``),
     with the port's seed-0 weights and the row-local masks."""
     import jax
     import jax.numpy as jnp
@@ -347,11 +449,12 @@ def jax_ref(run):
     from valor_tpu.train.optimizer import build_optimizer as jax_build
     from valor_tpu.train.step import _apply_losses
     from valor_tpu_torch.models.bridge import init_params, params_from_jax
+    from valor_tpu_torch.train.step import moe_aux_weight_for
     import dataclasses
 
     from valor_tpu.core.config import ModelConfig as JaxModelConfig
 
-    cfg = run["cfgs"]["jax"]
+    cfg = run["cfgs"][key]
     jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
     jm = JaxVALOR(jcfg)
     params = jax_layout(init_params(cfg, 0, "cpu"), jax_shapes(jm, PT_TASK))
@@ -361,31 +464,54 @@ def jax_ref(run):
     JV.mask_tokens = _row_mask_jax
     try:
         def loss(p):
-            losses = _apply_losses(jm, p, batch, spec, {"mask": jax.random.PRNGKey(0)}, 0.0)
+            losses = _apply_losses(jm, p, batch, spec, {"mask": jax.random.PRNGKey(0)}, moe_aux_weight_for(cfg))
             return sum(jnp.asarray(v, jnp.float32) for v in losses.values()), losses
 
         (total, losses), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     finally:
         JV.mask_tokens = mask0
-    tx = jax_build(params, JaxTrainConfig(**UPDATE))
-    updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
-    after = params_from_jax(_np(optax.apply_updates(params, updates)))
     metrics = {k: float(v) for k, v in losses.items()}
     metrics.update(total_loss=float(total), grad_norm=float(optax.global_norm(grads)))
-    return metrics, after
+    if not update:
+        return metrics, None
+    tx = jax_build(params, JaxTrainConfig(**UPDATE))
+    updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+    return metrics, params_from_jax(_np(optax.apply_updates(params, updates)))
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-def test_step_equals_jax(run, jax_ref, mesh):
-    metrics, after = jax_ref
+@pytest.fixture(scope="module")
+def jax_ref(run):
+    """JAX's step of the dense config (``_jax_reference``)."""
+    return _jax_reference(run, "jax")
+
+
+@pytest.fixture(scope="module")
+def jax_moe_ref(run):
+    """JAX's losses and grad norm of the MoE config, with ``moe_aux`` (the MoE
+    flows' updates are held to one port process, whose update
+    ``tests/test_torch_moe.py`` holds to JAX's)."""
+    return _jax_reference(run, "moe_jax", update=False)
+
+
+def _against_jax(got_ranks, ref, what):
+    """Every rank's step within ``TOL_JAX`` of JAX's, and rank 0's updated
+    parameters within the learning rate of JAX's update, where it has one."""
+    metrics, after = ref
     lr = UPDATE["learning_rate"]
-    for out in run["ranks"]:
-        _metrics_close(out[mesh]["jax_step"], metrics, TOL_JAX, f"{mesh} against JAX")
-    got = run["ranks"][0][mesh]["jax_after"]
+    for step, _ in got_ranks:
+        _metrics_close(step, metrics, TOL_JAX, f"{what} against JAX")
+    if after is None:
+        return
+    got = got_ranks[0][1]
     assert got.keys() == after.keys()
     diff = torch.cat([(got[n] - p).abs().reshape(-1) for n, p in after.items()])
     assert float(diff.max()) <= lr
     assert float((diff <= 2e-2 * lr).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_step_equals_jax(run, jax_ref, mesh):
+    _against_jax([(out[mesh]["jax_step"], out[mesh]["jax_after"]) for out in run["ranks"]], jax_ref, mesh)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -402,12 +528,12 @@ def test_validation_reports_and_captions_equal(run, mesh):
         {k: sorted(v, key=lambda x: x["video_id"]) for k, v in one["hyps"].items()}
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-def test_scst_rewards_and_alpha_equal(run, mesh):
-    one = run["one_scst"]
+def _scst_equal(got_ranks, one, m):
+    """Every rank's SCST alpha and rewards equal one process's, its other
+    metrics within ``TOL``, and its advantages its data rank's rows of one
+    process's (``m`` model ranks)."""
     assert len(one["rewards"]) == 2
-    for out in run["ranks"]:
-        got = out[mesh]["scst"]
+    for got in got_ranks:
         assert got["alpha"] == one["alpha"]
         assert got["metrics"].keys() == one["metrics"].keys()
         for k, v in one["metrics"].items():
@@ -415,11 +541,15 @@ def test_scst_rewards_and_alpha_equal(run, mesh):
                 assert got["metrics"][k] == v, k
             else:
                 _close(got["metrics"][k], v, TOL, k)
-    for r, out in enumerate(run["ranks"]):
-        m = MESHES[mesh][0]
+    for r, got in enumerate(got_ranks):
         d, n = r // m, WORLD // m
-        for mine, whole in zip(out[mesh]["scst"]["rewards"], one["rewards"]):
+        for mine, whole in zip(got["rewards"], one["rewards"]):
             _close(mine, whole[d::n], 1e-12, "advantage")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_scst_rewards_and_alpha_equal(run, mesh):
+    _scst_equal([out[mesh]["scst"] for out in run["ranks"]], run["one_scst"], MESHES[mesh][0])
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -468,3 +598,76 @@ def test_gqa_step_equals_one_process(run):
         _metrics_close(out["gqa"]["step"], one["step"], TOL, "gqa")
     for n, p in one["after"].items():
         _close(run["ranks"][0]["gqa"]["after"][n], p, TOL, f"gqa updated {n}")
+
+
+@pytest.mark.parametrize("flow", list(EP_SP))
+def test_ep_sp_step_equals_one_process(run, flow):
+    """Losses with ``moe_aux``, grad norm, every updated parameter, and the
+    router gradient that each model rank hands its update."""
+    key = EP_SP[flow][0]
+    one = run["ep_sp_one"][key]
+    assert ("moe_aux" in one["step"]) == ("moe" in key)
+    assert bool(one["routers"]) == ("moe" in key)
+    for r, out in enumerate(run["ranks"]):
+        o = out[flow]
+        _metrics_close(o["step"], one["step"], TOL, flow)
+        assert o["routers"].keys() == one["routers"].keys()
+        for n, g in one["routers"].items():
+            assert float(g.abs().max()) > 0, n
+            _close(o["routers"][n], g, TOL, f"{flow} rank {r} router gradient {n}")
+    after = run["ranks"][0][flow]["after"]
+    assert after.keys() == one["after"].keys()
+    for n, p in one["after"].items():
+        _close(after[n], p, TOL, f"{flow} updated {n}")
+
+
+@pytest.mark.parametrize("flow", list(EP_SP))
+def test_ep_sp_step_equals_jax(run, jax_ref, jax_moe_ref, flow):
+    ref = jax_moe_ref if "moe" in EP_SP[flow][0] else jax_ref
+    _against_jax([(out[flow]["jax_step"], out[flow]["jax_after"]) for out in run["ranks"]], ref, flow)
+
+
+@pytest.mark.parametrize("flow", list(EP_SP))
+def test_ep_sp_split_on_every_rank(run, flow):
+    """Every rank's step ran its experts split where the flow has MoE, and its
+    fusion sequence split where the flow asks for it; one process neither."""
+    key = EP_SP[flow][0]
+    for out in run["ranks"]:
+        ep, sp = out[flow]["counts"]
+        assert (ep > 0, sp > 0) == ("moe" in key, "sp" in key), (flow, ep, sp)
+    assert run["ep_sp_one"][key]["counts"] == (0, 0)
+
+
+def test_ep_sp_fsdp_validation_equals_one_process(run):
+    flow = EP_SP_RESUME[0]
+    one = run["ep_sp_one"]["moe_sp"]["eval"]
+    assert one["hyps"] and len({str(x["caption"]) for v in one["hyps"].values() for x in v}) > 1
+    for out in run["ranks"]:
+        got = out[flow]["eval"]
+        assert got["ret"] == one["ret"]
+        assert got["cap"] == one["cap"]
+    got = run["ranks"][0][flow]["eval"]["hyps"]
+    assert {k: sorted(v, key=lambda x: x["video_id"]) for k, v in got.items()} == \
+        {k: sorted(v, key=lambda x: x["video_id"]) for k, v in one["hyps"].items()}
+
+
+def test_ep_sp_fsdp_scst_rewards_and_alpha_equal(run):
+    flow = EP_SP_RESUME[0]
+    _scst_equal([out[flow]["scst"] for out in run["ranks"]], run["ep_sp_one"]["moe_sp"]["scst"], EP_SP[flow][1])
+
+
+def test_ep_sp_fsdp_checkpoint_resumes_at_tp_and_in_one_process(run):
+    flow, dst = EP_SP_RESUME
+    res = run["ep_sp_one"]["resumed"]
+    payload = res["payload"]
+    assert {k: tuple(v.shape) for k, v in payload["params"].items()} == \
+        {k: tuple(v.shape) for k, v in run["ep_sp_one"]["moe_sp"]["after"].items()}
+    for where in (res["restored"], run["ranks"][0][flow]["restored"]):
+        for k, v in payload["params"].items():
+            assert torch.equal(where["params"][k], v), k
+        for key in ("mu", "nu"):
+            assert len(where[key]) == len(payload["opt_state"][key])
+            for a, b in zip(where[key], payload["opt_state"][key]):
+                assert torch.equal(a, b), key
+    for out in run["ranks"]:
+        _metrics_close(out[flow]["resumed_step"], res["step"], TOL, f"{flow} resumed at {dst}")

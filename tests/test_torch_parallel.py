@@ -225,21 +225,20 @@ def test_local_batch_size():
 @pytest.mark.parametrize("knob", ["model_shards", "fusion_pipeline_stages", "sequence_parallel", "fsdp",
                                   "zero_optimizer", "scst_finetuning", "model_shards_moe"])
 def test_other_axes_are_refused_across_processes(knob):
-    """The knobs still to come raise across processes, each naming its part
-    of ROADMAP item 13 (``model_shards`` with MoE experts: item 13c, which
-    would put the experts on the model axis); ZeRO-1, SCST, ``fsdp`` and
-    ``model_shards``, which the mesh now runs, are accepted."""
+    """The knob still to come, ``fusion_pipeline_stages``, raises across
+    processes, naming its part of ROADMAP item 13; ZeRO-1, SCST, ``fsdp``,
+    ``model_shards`` (with MoE experts too: expert parallelism) and
+    ``sequence_parallel``, which the mesh now runs, are accepted."""
     from valor_tpu_torch.core.config import load_config
 
     overrides = {"model_shards": {"model_shards": 2}, "fusion_pipeline_stages": {"fusion_pipeline_stages": 2},
                  "model_shards_moe": {"model_shards": 2, "fusion_moe_experts": 4}}.get(knob, {knob: True})
     cfg = load_config(None, overrides)
     P.check_data_parallel(cfg, 1)  # read and ignored by one process
-    if knob in ("zero_optimizer", "scst_finetuning", "fsdp", "model_shards"):
+    if knob != "fusion_pipeline_stages":
         P.check_data_parallel(cfg, 2)
         return
-    name = "model_shards with fusion_moe_experts" if knob == "model_shards_moe" else knob
-    with pytest.raises(NotImplementedError, match=f"{name} across 2 processes: ROADMAP item 13[c-e]"):
+    with pytest.raises(NotImplementedError, match=f"{knob} across 2 processes: ROADMAP item 13e"):
         P.check_data_parallel(cfg, 2)
 
 

@@ -237,6 +237,18 @@ def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, devi
     return sd
 
 
+def install_mesh_switches(mcfg: ModelConfig) -> None:
+    """Expert parallelism where the config has MoE experts, sequence
+    parallelism where it asks for it (``valor_tpu/cli/build.py:280-286``);
+    both split over the model axis and do nothing on a model axis of one
+    rank.  Their counts start again at 0."""
+    from valor_tpu_torch.ops.moe import set_expert_sharding
+    from valor_tpu_torch.parallel.activations import set_sequence_sharding
+
+    set_sequence_sharding(mcfg.sequence_parallel)
+    set_expert_sharding(mcfg.fusion_moe_experts > 0)
+
+
 def build_model_and_state(cfg: Config, device, load_weights=None):
     """A training ``TrainState`` on ``device``: seeded weights
     (``models/bridge.py:init_params`` from ``cfg.train.seed``, by the JAX
@@ -244,8 +256,9 @@ def build_model_and_state(cfg: Config, device, load_weights=None):
     lookup, then ``load_weights(model)`` (the caller's whole weights, where
     given), the placement on this process's mesh (``parallel/partition.py:
     shard_model``: tensor parallelism with ``model_shards``, ``fsdp``; each
-    rank keeps its blocks), and ``GroupedAdam`` over the model's
-    parameters."""
+    rank keeps its blocks) with the expert and sequence parallelism switches
+    of the config (``install_mesh_switches``), and ``GroupedAdam`` over the
+    model's parameters."""
     from valor_tpu_torch.models.bridge import init_params, train_model
     from valor_tpu_torch.parallel.partition import shard_model
     from valor_tpu_torch.train.optimizer import build_optimizer
@@ -259,6 +272,7 @@ def build_model_and_state(cfg: Config, device, load_weights=None):
     if load_weights is not None:
         load_weights(model)
     pl = shard_model(model, fsdp=cfg.train.fsdp)
+    install_mesh_switches(cfg.model)
     split = [n for n, p in pl.placements.items() if p.split]
     if split:
         LOGGER.info(f"placed on data={pl.n_data} x model={pl.n_model}: {len(split)} leaves split "

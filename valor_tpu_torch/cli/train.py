@@ -47,9 +47,11 @@ state split over the data ranks, ``train/optimizer.py``).  The parameter axes:
 parallelism over the model axis (``parallel/mesh.py:make_mesh``), ``--fsdp
 true`` splits the large parameters over the data axis
 (``parallel/partition.py``, ``parallel/fsdp.py``); the M ranks of one data
-rank load the same batches.  The other mesh knobs (``fusion_pipeline_stages``,
-``sequence_parallel``, and ``model_shards`` with MoE experts) are refused
-across processes (``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
+rank load the same batches.  On the model axis MoE experts split too
+(``fusion_moe_experts`` divisible by M, ``ops/moe.py``), and ``--sequence_parallel
+true`` splits the fusion sequence between layers (``parallel/activations.py``).
+``fusion_pipeline_stages`` is refused across processes
+(``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
 it runs one process, as before; where the caller has joined the group already
 (several runs in one launch), ``main`` runs in it and leaves it up.
 ``--async_checkpoint true`` writes checkpoints in the background

@@ -110,7 +110,8 @@ class ModelConfig:
     fusion_vocab: int = 30522
     # Mixture-of-Experts fusion FFN (TPU-native extension; reference FFNs
     # are dense).  >0 swaps every fusion_moe_every-th fusion layer's FFN
-    # for a top-k MoE with expert-parallel sharding (ops/moe.py)
+    # for a top-k MoE, its experts split over the model axis where
+    # model_shards divides them (ops/moe.py)
     fusion_moe_experts: int = 0
     fusion_moe_top_k: int = 2
     fusion_moe_every: int = 1
@@ -151,8 +152,9 @@ class ModelConfig:
     checkpointing: bool = False
     remat_scope: str = "all"
     remat_policy: str = ""
-    # sequence-parallel sharding of the fusion residual stream over a mesh
-    # axis; one card has no mesh, so the port ignores it
+    # sequence parallelism: the fusion residual stream split over the model
+    # axis between layers (parallel/activations.py); across processes with
+    # model_shards > 1, a no-op in one process
     sequence_parallel: bool = False
     dtype: str = "bfloat16"  # activation dtype; params stay fp32
     # TPU-only knobs, read and ignored by the port (PERF.md lists them): the
@@ -226,7 +228,7 @@ class TrainConfig:
     gradient_accumulation_steps: int = 1
     dataset_mix_type: str = "random"  # random | accum (round-robin)
     train_inner_steps: int = 1  # steps fused per jit call (TPU-only; ignored by the port)
-    model_shards: int = 1  # tensor-parallel axis size (mesh = data x model)
+    model_shards: int = 1  # model axis size (mesh = data x model): tensor, expert and sequence parallelism
     prefetch: bool = True  # keep one device batch in flight (H2D overlap)
     zero_optimizer: bool = False  # ZeRO-1: shard the optimizer state over the data axis
     # ZeRO-3-style fully-sharded params (FSDP): every large param leaf

@@ -18,6 +18,13 @@
     per-layer cross-attention K/V that the decode projects once per rollout;
     without cross-attention ``precompute_ctx_kv`` and ``decode_with_ctx`` cache
     the [prompt | media] context's self-attention K/V once per rollout.
+  * Sequence parallelism (``parallel/activations.py``): where
+    ``sequence_sharded`` engages, the forward runs the residual stream between
+    layers as this model rank's [B, S/M, D] chunk; each sublayer gathers the
+    sequence and scatters its output, and the residual adds, dropout and
+    LayerNorms run on the chunk.  After the last layer the sequence is
+    gathered whole.  The context-K/V decode (``precompute_ctx_kv``,
+    ``decode_with_ctx``) runs unsplit, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from valor_tpu_torch.ops.layers import (
 )
 from valor_tpu_torch.ops.moe import MoEMlpBlock
 from valor_tpu_torch.ops.masks import concat_key_mask, fusion_attention_bias_terms
+from valor_tpu_torch.parallel.activations import gather_sequence, scatter_sequence, sequence_sharded
 
 CROSS_ATTN_TYPES = ("va_concate", "va_parallel", "video_audio", "audio_video")
 
@@ -96,8 +104,8 @@ class _ResidualAttn(nn.Module):
         self.attn = MultiHeadAttention(width, num_heads, dtype, device, dropout, kv_heads)
         self.ln = LayerNorm(width, 1e-12, dtype, device)
 
-    def forward(self, x, kv, bias=None, extra_kv=None):
-        return self.ln(x + self.attn(x, kv, bias, extra_kv=extra_kv))
+    def forward(self, x, kv, bias=None, extra_kv=None, sequence=False):
+        return self.ln(x + self.attn(x, kv, bias, extra_kv=extra_kv, sequence=sequence), sequence)
 
     def compute_kv(self, mem):
         return self.attn.compute_kv(mem)
@@ -148,20 +156,22 @@ class BertFusionLayer(nn.Module):
         return out
 
     def forward(self, x, bias, video_feat, audio_feat, cross_kv: Optional[dict] = None,
-                self_extra_kv=None):
+                self_extra_kv=None, sequence: bool = False):
         """``self_extra_kv`` (k, v): cached keys and values that self-attention
-        takes beside those of ``x`` (the context-K/V decode)."""
-        c = self.cfg
-        x = self.self_attn(x, x, bias, extra_kv=self_extra_kv)
+        takes beside those of ``x`` (the context-K/V decode); ``sequence``:
+        ``x`` is this model rank's chunk of the sequence, and so is the
+        output."""
+        c, sp = self.cfg, sequence
+        x = self.self_attn(x, x, bias, extra_kv=self_extra_kv, sequence=sp)
         has_media = video_feat is not None or audio_feat is not None or bool(cross_kv)
         if c.has_cross_attn and has_media:
             t = c.cross_attn_type
             if cross_kv:
                 if t == "va_concate":
-                    x = self.cross_attn(x, None, extra_kv=cross_kv["cross_attn"])
+                    x = self.cross_attn(x, None, extra_kv=cross_kv["cross_attn"], sequence=sp)
                 elif t == "va_parallel":
                     parts = [
-                        getattr(self, key)(x, None, extra_kv=cross_kv[key])
+                        getattr(self, key)(x, None, extra_kv=cross_kv[key], sequence=sp)
                         for key in ("cross_attn_v", "cross_attn_a") if key in cross_kv
                     ]
                     x = sum(parts) if len(parts) > 1 else parts[0]
@@ -170,30 +180,30 @@ class BertFusionLayer(nn.Module):
                     for mod in order:
                         key = f"cross_attn_{mod}"
                         if key in cross_kv:
-                            x = getattr(self, key)(x, None, extra_kv=cross_kv[key])
+                            x = getattr(self, key)(x, None, extra_kv=cross_kv[key], sequence=sp)
             elif t == "va_concate":
                 mem = [f for f in (video_feat, audio_feat) if f is not None]
                 mem = torch.cat(mem, dim=1) if len(mem) > 1 else mem[0]
-                x = self.cross_attn(x, mem)
+                x = self.cross_attn(x, mem, sequence=sp)
             elif t == "va_parallel":
                 if video_feat is not None and audio_feat is not None:
-                    x = self.cross_attn_v(x, video_feat) + self.cross_attn_a(x, audio_feat)
+                    x = self.cross_attn_v(x, video_feat, sequence=sp) + self.cross_attn_a(x, audio_feat, sequence=sp)
                 elif video_feat is not None:
-                    x = self.cross_attn_v(x, video_feat)
+                    x = self.cross_attn_v(x, video_feat, sequence=sp)
                 else:
-                    x = self.cross_attn_a(x, audio_feat)
+                    x = self.cross_attn_a(x, audio_feat, sequence=sp)
             else:
                 order = ("v", "a") if t == "video_audio" else ("a", "v")
                 for mod in order:
                     feat = video_feat if mod == "v" else audio_feat
                     if feat is not None:
-                        x = getattr(self, f"cross_attn_{mod}")(x, feat)
+                        x = getattr(self, f"cross_attn_{mod}")(x, feat, sequence=sp)
         if self.use_moe:
-            h, aux = self.moe_mlp(x)
+            h, aux = self.moe_mlp(x, sequence=sp)
             sow(aux)
         else:
-            h = self.mlp(x)
-        return self.out_ln(x + dropout(h, c.dropout, self.training))
+            h = self.mlp(x, sequence=sp)
+        return self.out_ln(x + dropout(h, c.dropout, self.training, sequence=sp), sp)
 
 
 class BertFusionEncoder(nn.Module):
@@ -304,10 +314,13 @@ class BertFusionEncoder(nn.Module):
 
         cross_v = video_feat.to(self.dtype) if (c.has_cross_attn and video_feat is not None) else None
         cross_a = audio_feat.to(self.dtype) if (c.has_cross_attn and audio_feat is not None) else None
+        sp = sequence_sharded(x)
+        if sp:
+            x = scatter_sequence(x, partial=False)
         for i, layer in enumerate(self.layers):
             kv = cross_kv_list[i] if cross_kv_list is not None else None
-            x = run_layer(layer, self.remat, x, bias, cross_v, cross_a, kv)
-        return x
+            x = run_layer(layer, self.remat, x, bias, cross_v, cross_a, kv, None, sp)
+        return gather_sequence(x, partial=False) if sp else x
 
 
 class BertPredictionHead(nn.Module):

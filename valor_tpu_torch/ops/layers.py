@@ -21,6 +21,13 @@ a split ``MultiHeadAttention`` runs its rank's heads (its input through
 hidden units (``fc1`` by rows, ``fc2`` by columns).  Dropout on a rank's
 columns of a wider tensor draws the whole width and keeps its columns, so the
 model ranks draw what one process draws.  LayerNorms stay whole on every rank.
+Under sequence parallelism (``parallel/activations.py``) a ``sequence`` call
+takes and returns this rank's chunk of the sequence: the input's sequence is
+gathered in place of ``copy_to_model``, and the output scattered in place of
+``reduce_from_model`` (a module that stays whole gathers, computes whole and
+keeps its chunk); dropout on a chunk draws the whole sequence and keeps it,
+and a LayerNorm's parameters and a row-parallel bias read on a chunk have
+their gradients summed over the model axis (``sequence_params``).
 ``run_layer`` runs one encoder layer,
 under ``torch.utils.checkpoint`` where the config's ``checkpointing`` and
 ``remat_scope`` ask for it (``remat_for``); each layer draws from a stream of its
@@ -40,6 +47,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from valor_tpu_torch.ops.kernels.layernorm import layernorm
+from valor_tpu_torch.parallel import mesh as P
+from valor_tpu_torch.parallel.activations import gather_sequence, scatter_sequence, sequence_params
 from valor_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from valor_tpu_torch.parallel.mesh import batch_shard, current_shard, draw_rows
 
@@ -114,22 +123,29 @@ def current_rng(what: str) -> RNGStreams:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            cols: Optional[Tuple[int, int]] = None, sequence: bool = False) -> torch.Tensor:
     """``maybe_dropout``: keep each element w.p. 1 - rate and scale it by
     1 / (1 - rate); an identity when not training or at rate 0.  ``cols`` =
     (i, n): ``x`` is block i of n equal column blocks of a wider tensor (a
-    model rank's heads), whose mask is drawn whole and block i kept."""
+    model rank's heads), whose mask is drawn whole and block i kept;
+    ``sequence``: ``x`` [B, S/M, ...] is this model rank's chunk of the
+    sequence, whose mask is drawn whole and the chunk kept."""
     if not training or rate <= 0.0:
         return x
     g = current_rng("dropout").generator(x.device, "dropout")
-    shape = tuple(x.shape)
+    shape = list(x.shape)
     if cols is not None:
         i, n = cols
         w = shape[-1]
-        shape = shape[:-1] + (w * n,)
+        shape[-1] = w * n
+    if sequence:
+        s, m, r = shape[1], P.model_world(), P.model_rank()
+        shape[1] = s * m
     keep = draw_rows(lambda s: torch.rand(s, generator=g, device=x.device), shape) < 1.0 - rate
     if cols is not None:
         keep = keep[..., i * w : (i + 1) * w]
+    if sequence:
+        keep = keep[:, r * s : (r + 1) * s]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -222,7 +238,8 @@ ACT2FN = {"gelu": gelu_exact, "quick_gelu": quick_gelu}
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics, output in the compute dtype."""
+    """LayerNorm with fp32 statistics, output in the compute dtype;
+    ``sequence``: on this model rank's chunk of the sequence."""
 
     def __init__(self, dim: int, eps: float = 1e-12, dtype=torch.float32, device=None):
         super().__init__()
@@ -231,15 +248,17 @@ class LayerNorm(nn.Module):
         self.weight = _param((dim,), device)
         self.bias = _param((dim,), device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.weight, self.bias, self.eps, self.dtype)
+    def forward(self, x: torch.Tensor, sequence: bool = False) -> torch.Tensor:
+        w, b = sequence_params(self.weight, self.bias) if sequence else (self.weight, self.bias)
+        return layernorm(x, w, b, self.eps, self.dtype)
 
 
 class Dense(nn.Module):
     """Linear layer: fp32 weight [out, in], matmul in the compute dtype.
     ``row_parallel`` (tensor parallelism): the weight holds this model rank's
     input columns, the partial products are summed over the model axis and
-    the bias is added once, after the sum."""
+    the bias is added once, after the sum.  ``sequence``: the output is this
+    rank's chunk of the sequence (of the sum, where row-parallel)."""
 
     row_parallel = False
 
@@ -250,12 +269,18 @@ class Dense(nn.Module):
         self.weight = _param((out_features, in_features), device)
         self.bias = _param((out_features,), device) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sequence: bool = False) -> torch.Tensor:
         bias = self.bias.to(self.dtype) if self.bias is not None else None
         if self.row_parallel:
-            y = reduce_from_model(F.linear(x.to(self.dtype), self.weight.to(self.dtype)))
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            if sequence:
+                y = scatter_sequence(y)
+                bias = None if bias is None else sequence_params(self.bias)[0].to(self.dtype)
+            else:
+                y = reduce_from_model(y)
             return y if bias is None else y + bias
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        return scatter_sequence(y, partial=False) if sequence else y
 
 
 class Embed(nn.Module):
@@ -333,7 +358,9 @@ class MultiHeadAttention(nn.Module):
     attention.  Under tensor parallelism (``tensor_parallel``) ``num_heads``
     and ``kv_heads`` are this model rank's, ``compute_kv`` gives its heads'
     K/V (the decode caches hold 1/M of the heads) and ``model_cols`` (rank, M)
-    places its heads in the whole width for dropout."""
+    places its heads in the whole width for dropout.  ``sequence``: ``q_in``
+    (and ``kv_in`` where it is ``q_in``) is this rank's chunk of the
+    sequence, gathered here, and so is the output."""
 
     tensor_parallel = False
     model_cols: Optional[Tuple[int, int]] = None
@@ -357,9 +384,12 @@ class MultiHeadAttention(nn.Module):
         kv_in: Optional[torch.Tensor],  # [B, K, C] or None (cache-only)
         bias: BiasTerms = None,
         extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        sequence: bool = False,
     ) -> torch.Tensor:
         same = kv_in is q_in
-        if self.tensor_parallel:
+        if sequence:
+            q_in = gather_sequence(q_in, partial=self.tensor_parallel)
+        elif self.tensor_parallel:
             q_in = copy_to_model(q_in)
         qh = split_heads(self.query(q_in), self.num_heads)
         if kv_in is not None:
@@ -373,7 +403,7 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("cache-only attention needs extra_kv")
             kh, vh = (t.to(qh.dtype) for t in extra_kv)
         out = dot_product_attention(qh, kh, vh, bias=bias, dtype=self.dtype)
-        return self.out(dropout(merge_heads(out), self.dropout, self.training, self.model_cols))
+        return self.out(dropout(merge_heads(out), self.dropout, self.training, self.model_cols), sequence)
 
     def _model_input(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to_model(x) if self.tensor_parallel else x
@@ -392,7 +422,8 @@ class MultiHeadAttention(nn.Module):
 
 class MlpBlock(nn.Module):
     """Transformer FFN: dense -> activation -> dense; under tensor
-    parallelism this model rank's hidden units (``fc2`` row-parallel)."""
+    parallelism this model rank's hidden units (``fc2`` row-parallel);
+    ``sequence``: on this rank's chunk of the sequence."""
 
     tensor_parallel = False
 
@@ -403,10 +434,12 @@ class MlpBlock(nn.Module):
         self.fc1 = Dense(width, intermediate, dtype=dtype, device=device)
         self.fc2 = Dense(intermediate, width, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tensor_parallel:
+    def forward(self, x: torch.Tensor, sequence: bool = False) -> torch.Tensor:
+        if sequence:
+            x = gather_sequence(x, partial=self.tensor_parallel)
+        elif self.tensor_parallel:
             x = copy_to_model(x)
-        return self.fc2(self.act(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)), sequence)
 
 
 class PreNormLayer(nn.Module):

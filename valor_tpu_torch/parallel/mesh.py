@@ -29,11 +29,12 @@ every rank.  Batch shards, the loaders and random draws follow the data axis:
 the M ranks of one data rank hold the same rows and make the same draws.
 ``parallel/partition.py`` places the parameters over both axes (tensor
 parallelism over ``model``, ``fsdp`` over ``data``) and keeps the ZeRO-1 rule
-of ``zero_optimizer``.  The knobs still to come (``sequence_parallel``,
-``fusion_pipeline_stages``, and ``model_shards`` with MoE experts, which the
-JAX package puts on the model axis) are read and ignored by one process and
-refused across processes (``check_data_parallel``), each naming the part of
-ROADMAP item 13 that will bring it.
+of ``zero_optimizer``; MoE experts (``ops/moe.py``) and, with
+``sequence_parallel``, the fusion sequence (``parallel/activations.py``) split
+over ``model`` too.  The knob still to come, ``fusion_pipeline_stages``, is
+read and ignored by one process and refused across processes
+(``check_data_parallel``), naming the part of ROADMAP item 13 that will bring
+it.
 """
 
 from __future__ import annotations
@@ -52,8 +53,6 @@ DATA_AXIS = "data"
 ZERO_MIN_ELEMS = 1 << 14  # smaller leaves stay whole on every rank (replication is cheaper)
 MODEL_AXIS = "model"
 LATER_PART = {  # knob -> the part of ROADMAP item 13 that brings it
-    "model_shards with fusion_moe_experts": "ROADMAP item 13c, MoE expert parallelism over the model axis",
-    "sequence_parallel": "ROADMAP item 13d, sequence parallelism",
     "fusion_pipeline_stages": "ROADMAP item 13e, pipeline parallelism",
 }
 
@@ -242,18 +241,16 @@ def check_data_parallel(cfg, world: int) -> None:
     """Refuse, across processes, the mesh knobs still to come, each with the
     part of ROADMAP item 13 that will bring it, and a ``model_shards`` that
     does not divide the ranks (``ValueError``).  One process reads and ignores
-    every mesh knob.  SCST, ``zero_optimizer``, ``fsdp`` and ``model_shards``
-    run across processes."""
+    every mesh knob.  SCST, ``zero_optimizer``, ``fsdp``, ``model_shards``
+    (with MoE experts too) and ``sequence_parallel`` run across processes."""
     if world <= 1:
         return
-    m, t = cfg.model, cfg.train
-    knobs = {"model_shards with fusion_moe_experts": t.model_shards > 1 and m.fusion_moe_experts > 0,
-             "fusion_pipeline_stages": m.fusion_pipeline_stages > 0, "sequence_parallel": m.sequence_parallel}
-    asked = [k for k, on in knobs.items() if on]
-    if asked:
-        raise NotImplementedError("; ".join(f"{k} across {world} processes: {LATER_PART[k]}" for k in asked))
-    if t.model_shards < 1 or world % t.model_shards:
-        raise ValueError(f"model_shards {t.model_shards} does not divide the {world} ranks")
+    knob = "fusion_pipeline_stages"
+    if cfg.model.fusion_pipeline_stages > 0:
+        raise NotImplementedError(f"{knob} across {world} processes: {LATER_PART[knob]}")
+    m = cfg.train.model_shards
+    if m < 1 or world % m:
+        raise ValueError(f"model_shards {m} does not divide the {world} ranks")
 
 
 def zero_sharded(shape, world: int) -> bool:
