@@ -78,7 +78,7 @@ line:
      ``main`` at the full width of ``configs/retrieval-msrvtt.json`` (batch 64,
      4 frames, 2 clips, crop_flip, device fbank, uint8 pixels, bf16; seeded
      random weights): a seeded MSR-VTT-shaped dataset written to a temporary
-     directory (640 training ids, 256 evaluation ids, 40 JPEG frames of 320 x
+     directory (320 training ids, 128 evaluation ids, 40 JPEG frames of 320 x
      240 and a 10 s 22050 Hz WAV an id, one in ten without audio), run 1 of ten
      steps with its evaluations and saves at steps 5 and 10, run 2 resumed to
      step 20, both with ``--async_checkpoint true``; the restored state equal
@@ -143,7 +143,7 @@ line:
   18. prompted pretraining from disk through ``cli.train``'s ``main``:
      ``configs/pretrain-valor-base.json``'s first train flow with
      ``use_task_prompt`` on, at batch 32, on phase 14's dataset, and a ``pt``
-     evaluation flow over its 256 evaluation ids: ten steps, then
+     evaluation flow over its 128 evaluation ids: ten steps, then
      ``validate_pt``; the batches carry the task's prompt arrays, losses and
      report finite, one fine-score launch a fine contrastive group, the
      LayerNorm launches those of the path; it prints samples/s from disk
@@ -151,7 +151,7 @@ line:
      and which decoder ran (``transforms`` none: the C++ decoder of
      ``data/native.py`` for every item where it builds, else PIL for all);
   19. the C++ decoder (``csrc/host/valor_native.cpp``, built with the host
-     compiler) against the PIL route on phase 14's 256 evaluation ids (8
+     compiler) against the PIL route on phase 14's 128 evaluation ids (8
      frames of 320 x 240 each, to 224 px, uint8): whether it built (else the
      compiler's message), frames/s of each route single-threaded and from 8
      threads, and their agreement (correlation per item above 0.98);
@@ -256,14 +256,24 @@ line:
      ``--model_shards 2 --sequence_parallel true`` (data 1 x model 2: expert
      parallelism, 4 of 8 experts a rank in each of the 6 MoE layers, sequence
      parallelism of the 42-token fusion stream and tensor parallelism
-     together), 3 steps at a global batch of 32 and ``validate_pt`` on its 64
+     together), 2 steps at a global batch of 32 and ``validate_pt`` on its 64
      ids: both counts (``expert_sharding_applied``,
      ``sequence_sharding_applied``) above 0 on each rank, equal losses on both
      ranks, the first step's losses with ``moe_aux`` within 2e-2 of a plain
      process running the same flow on the same batches (its grad norm within
      5e-2), ``validate_pt``'s reports equal on both ranks, the launches; the
      model axis's collectives (count, ms and bytes a step), the peak and the
-     step time;
+     step time; (ix) (ii) with ``--fusion_pipeline_stages 2`` (data 1 x pipe
+     2: 16 rows a rank at the towers, the 12 fusion layers in 2 stages of 6,
+     4 microbatches of 8 rows, GPipe), 2 steps and ``validate_pt`` on the 64
+     ids: the stack pipelined on both ranks in every caption group's pass,
+     equal losses and reports on both ranks, the first step's losses within
+     2e-2 of (ii)'s on the same batches (grad norm within 5e-2), K1 launches
+     of a pipe rank (its stage's layers once a microbatch; the validation runs
+     the stack whole) and K2's; the transport of the stage sends (gloo through
+     pinned host memory on one card), the stage sends, the pipe's gathers and
+     hand-backs (count, bytes and ms a step), the bubble measured by timing
+     each block between two synchronisations, the step time and the peak;
   9. every shape that the main paths of phases 4, 8, 12, 14-18, 20-22, b-e
      and f handed each kernel is held against the plain version: listed where
      phase 2, 6 or 10 compared it, compared here where they did not.
@@ -272,8 +282,9 @@ It prints a ``{"kernels": [...]}`` line (launches by path: serving,
 serve_video, gqa_serving, pretraining, retrieval, cli_train, cap_train,
 qa_train, scst_train, infer, weights_train, pt_prompt_train, moe_train,
 large_train, swin_cap_train, mscoco_train, ddp_train, ddp_zero_train,
-ddp_scst_train, ddp_fsdp_train, ddp_tp_train and ddp_ep_sp_train (both ranks
-of phase f (ii), (v), (iv), (vi), (vii) and (viii)) and ddp_nccl_train (phase
+ddp_scst_train, ddp_fsdp_train, ddp_tp_train, ddp_ep_sp_train and
+ddp_pp_train (both ranks of phase f (ii), (v), (iv), (vi), (vii), (viii) and
+(ix)) and ddp_nccl_train (phase
 f (iii)'s NCCL process)), the card's name and power
 limit before it, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1088,6 +1099,39 @@ def expected_train_ln_launches(model, spec) -> int:
     return n + fusion * (len(spec.caption_groups) + len(spec.mlm_groups))
 
 
+def pipelined_encoders(model, spec) -> list:
+    """(encoder, passes a step, text only) of every fusion-stack pass that a
+    training step of ``spec`` runs pipelined: the fusion encoder once a
+    caption or MLM group, and a BERT text tower with stages (the fusion
+    encoder itself where shared), without media, for the contrastive groups
+    that read text."""
+    from valor_tpu_torch.models.bert import BertFusionEncoder
+
+    out = [(model.multimodal_encoder, len(spec.caption_groups) + len(spec.mlm_groups), False)]
+    txt = model.text_encoder
+    if isinstance(txt, BertFusionEncoder) and spec.contra_groups and any("t" in g for g in spec.contra_groups):
+        out.append((txt, 1, True))
+    return [o for o in out if o[0].cfg.pipeline_stages > 0 and o[1]]
+
+
+def expected_pipelined_ln_launches(model, spec, stage: int, stages: int, microbatches: int) -> int:
+    """``expected_train_ln_launches`` of a pipe rank whose stacks run
+    pipelined (``pipelined_encoders``): its stage's layers once a microbatch
+    in place of every layer once (the embeddings and the head run on every
+    rank, on its rows)."""
+    from valor_tpu_torch.ops.layers import LayerNorm
+    from valor_tpu_torch.parallel.pipeline import stage_layers
+
+    n = expected_train_ln_launches(model, spec)
+    for enc, passes, text_only in pipelined_encoders(model, spec):
+        interleave = max(enc.cfg.pipeline_interleave, 1)
+        mine = [i for chunk in stage_layers(len(enc.layers), stages, interleave)[stage] for i in chunk]
+        per_layer = [sum(isinstance(x, LayerNorm) and not (text_only and "cross_attn" in name)
+                         for name, x in layer.named_modules()) for layer in enc.layers]
+        n += passes * (microbatches * sum(per_layer[i] for i in mine) - sum(per_layer))
+    return n
+
+
 def phase_pretrain(batch_size: int = 32, steps: int = 10, cfg=None, device: str = "cuda",
                    config: str = "pretrain-valor-base.json", task: str = PT_TASK, frames: int = 4,
                    n_txt: int = 40, label: str = "pretrain"):
@@ -1797,7 +1841,7 @@ def cli_run(paths: dict, tmp: str, name: str, edit):
                 os.environ[k] = v
 
 
-def phase_cli_train(steps: int = 10, n_train: int = 640, n_val: int = 256, fixture=None, overrides=None,
+def phase_cli_train(steps: int = 10, n_train: int = 320, n_val: int = 128, fixture=None, overrides=None,
                     device: str = "cuda", synthetic=None, root=None):
     """``valor_tpu_torch.cli.train`` from disk at the full width of
     ``configs/retrieval-msrvtt.json`` (only the dataset paths, ``output_dir``,
@@ -3820,7 +3864,7 @@ class _Counted:
 
 ZERO_TOL = 1e-5  # phase f (v): ZeRO-1 against the replicated optimizer, absolute and relative (the clip's norm
 # sums the blocks' squares in another order)
-DDP_STEPS = 3  # steps of phase f's full-width runs (iv) and (viii); (ii), (v), (vi) and (vii) take one fewer
+DDP_STEPS = 3  # steps of phase f's full-width run (iv); (ii), (v)-(ix) take one fewer
 REPLICATED_MOMENT_BYTES = 2 * 4 * 374_089_791  # fp32 mu and nu of VALOR-base's parameters on every rank
 
 
@@ -3950,7 +3994,9 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
     from valor_tpu_torch.ops.kernels import fine_score as K2
     from valor_tpu_torch.ops.kernels import layernorm as K
     from valor_tpu_torch.ops.moe import expert_sharding_applied
+    from valor_tpu_torch.parallel import collectives as C
     from valor_tpu_torch.parallel import mesh as P
+    from valor_tpu_torch.parallel import pipeline as PL
     from valor_tpu_torch.parallel.activations import sequence_sharding_applied
     from valor_tpu_torch.train import checkpoints as TC
 
@@ -3967,6 +4013,8 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
     if flow.get("no_save"):
         TC.ModelSaver._write = lambda self, payload, step, best_name, bookkeep=True: None
     torch.use_deterministic_algorithms(bool(flow.get("deterministic")), warn_only=True)
+    PL.set_timing(bool(flow.get("pipeline")))  # a pipelined flow times its blocks (synchronising the card)
+    C.reset_pipe_stats()
     try:
         with record_trainers(sync, cuda) as runs, record_ln_calls() as (sigs_fwd, sigs_bwd), \
                 record_fine_calls() as fine_calls, record_pt_validations(sync) as calls, \
@@ -3975,14 +4023,17 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
             trainer = train_main(argv)
             launches = (K.LAUNCHES, K.LAUNCHES_BWD, K2.LAUNCHES)  # the main path ends here
             split = (expert_sharding_applied(), sequence_sharding_applied())  # counted since the run built its model
+            piped = PL.pipeline_applied()
     finally:
         TC.ModelSaver._write, TC.load_state = write0, load0
         torch.use_deterministic_algorithms(False)
+        pipe_stats, pipe_timing, pipe_bubble = dict(C.PIPE_STATS), dict(PL.TIMING), PL.bubble()
+        PL.set_timing(False)
     rec, history = runs[0], list(trainer.history)
     model, opt = trainer.state.model, trainer.state.optimizer
     world = P.world_size()
     step_s = np.diff([rec["start"]] + rec["stamps"])
-    local_batch = cfg.data_train[0].batch_size // P.data_world()
+    local_batch = cfg.data_train[0].batch_size // P.batch_world()
     bounds = list(zip([rec["start"]] + rec["stamps"][:-1], rec["stamps"]))
     by_step = {k: {"ms": [sum(t for t, _, t0 in v if lo <= t0 < hi) for lo, hi in bounds],
                    "calls": [sum(lo <= t0 < hi for _, _, t0 in v) for lo, hi in bounds],
@@ -3997,8 +4048,9 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
         "first_micro_step": history[0][0], "local_batch": local_batch, "global_batch": cfg.data_train[0].batch_size,
         "step_s": [float(v) for v in step_s], "median_step_s": median,
         "samples_per_s_rank": local_batch / median,
-        "samples_per_s_global": local_batch * P.data_world() / median,
+        "samples_per_s_global": local_batch * P.batch_world() / median,
         "grid": [P.data_rank(), P.data_world(), P.model_rank(), P.model_world()],
+        "pipe": [P.pipe_rank(), P.pipe_world(), P.batch_world()],
         "collectives_by_step": by_step,
         "split_leaves": sum(pl.split for pl in places.values()),
         "model_split_leaves": sum(pl.model_dim is not None for pl in places.values()),
@@ -4022,6 +4074,16 @@ def _worker_flow(flow: dict, cuda: bool, sync, timed: dict) -> dict:
         "fine_score_calls": sorted({tuple(s_) for s_, _ in fine_calls}), "restored_digests": restored,
         "digest": state_digest(trainer.state) if flow.get("digest") else None,
     }
+    if flow.get("pipeline"):
+        out.update(pipeline_applied=piped, pipe_stats=pipe_stats, pipe_timing=pipe_timing, bubble=pipe_bubble,
+                   pipelined_passes_a_step=sum(n for _, n, _ in pipelined_encoders(model, spec)),
+                   fusion_layers=cfg.model.fusion_layers,
+                   transport=C.transport(model.device), microbatches=PL.pipeline_microbatches(
+                       cfg.data_train[0].batch_size, P.pipe_world(), P.data_world()),
+                   ln_per_step_pipelined=expected_pipelined_ln_launches(model, spec, P.pipe_rank(), P.pipe_world(),
+                                                                        PL.pipeline_microbatches(
+                                                                            cfg.data_train[0].batch_size,
+                                                                            P.pipe_world(), P.data_world())))
     if flow.get("scst"):
         bounds = list(zip([rec["start"]] + rec["stamps"][:-1], rec["stamps"]))
         gathers = [(t0, ms / 1e3) for ms, _, t0 in timed.get("all_gather_rows", [])]
@@ -4316,6 +4378,52 @@ def check_ddp_ep_sp(ranks: list, one: dict, steps: int, val_batch: int, n_val: i
             "first_step_grad_norm_rel_err": abs(norm - norm0) / norm0, "grad_norm_tolerance": TP_NORM_TOL}
 
 
+def check_ddp_pp(ranks: list, base: list, steps: int, val_batch: int, n_val: int, device: str, ckpts) -> dict:
+    """Phase f (ix)'s gates: the fusion stack pipelined over data 1 x pipe 2,
+    16 rows a rank at the towers: the stack ran pipelined on both ranks (every
+    pass of every step, ``pipelined_encoders``), the same losses and reports on both,
+    the first step's losses within ``TP_TOL`` of f (ii)'s on the same batches
+    (its grad norm within ``TP_NORM_TOL``), the launches of a pipe rank (its
+    stage's fusion layers once a microbatch; ``validate_pt`` runs the stack
+    whole), stage sends and the pipe's gathers and hand-backs on both ranks;
+    returns the first step's largest differences."""
+    for r in ranks:
+        passes = steps * r["pipelined_passes_a_step"]
+        val_batches = -(-r["validations"][0]["items"] // (val_batch // DDP_WORLD)) if r["validations"] else 0
+        want = ((r["ln_per_step_pipelined"] * steps + r["ln_per_step"] * val_batches,
+                 r["ln_per_step_pipelined"] * steps, 3) if device == "cuda" else (0, 0, 0))
+        got = (*r["layernorm_launches_fwd_bwd"], r["fine_score_launches"])
+        if (r["world"], r["grid"], r["pipe"], r["steps"]) != (DDP_WORLD, [0, 1, 0, 1], [r["rank"], DDP_WORLD, DDP_WORLD],
+                                                             steps) or got != want:
+            raise AssertionError(f"phase f (ix) rank {r['rank']}: {r['world']} ranks, grid {r['grid']} pipe "
+                                 f"{r['pipe']}, {r['steps']} steps, launches {got} != {want}")
+        st = r["pipe_stats"]
+        if r["pipeline_applied"] != passes or min(st["sends"], st["gathers"], st["hand_backs"]) <= 0:
+            raise AssertionError(f"phase f (ix) rank {r['rank']}: {r['pipeline_applied']} pipelined passes of "
+                                 f"{passes}, pipe traffic {st}")
+        if not _finite(r["losses"]) or r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"phase f (ix) losses of rank {r['rank']}: {r['losses']}, rank 0 {ranks[0]['losses']}")
+        rep = r["validations"][0]["report"] if len(r["validations"]) == 1 else None
+        if rep is None or rep != ranks[0]["validations"][0]["report"] or not all(np.isfinite(v) for v in rep.values()):
+            raise AssertionError(f"phase f (ix) validate_pt reports differ or are missing: {r['validations']}")
+    if sum(r["validations"][0]["items"] for r in ranks) != n_val or ckpts:
+        raise AssertionError(f"phase f (ix): {[r['validations'][0]['items'] for r in ranks]} evaluation items "
+                             f"of {n_val}, checkpoints {ckpts}")
+    worst, err = 0.0, 0.0
+    for k, vs in base[0]["losses"].items():
+        if k == "grad_norm":
+            continue
+        x, y = ranks[0]["losses"][k][0], vs[0]
+        err, worst = max(err, abs(x - y)), max(worst, abs(x - y) - TP_TOL * abs(y))
+    norm, norm0 = ranks[0]["losses"]["grad_norm"][0], base[0]["losses"]["grad_norm"][0]
+    if worst > TP_TOL or abs(norm - norm0) > TP_NORM_TOL * norm0:
+        raise AssertionError(f"phase f (ix): the first step's losses differ from (ii)'s by {err} (tolerance "
+                             f"{TP_TOL} absolute and relative), its grad norm {norm} from {norm0} (tolerance "
+                             f"{TP_NORM_TOL} relative)")
+    return {"first_step_max_abs_loss_err": err, "tolerance": TP_TOL,
+            "first_step_grad_norm_rel_err": abs(norm - norm0) / norm0, "grad_norm_tolerance": TP_NORM_TOL}
+
+
 def cli_config(paths: dict, tmp: str, name: str, label: str, edit) -> str:
     """``configs/<name>`` with ``edit(raw)`` applied, written under ``tmp`` as
     ``config_<label>.json``; its path (``cli_run`` without the environment,
@@ -4350,7 +4458,7 @@ def env_for(paths: dict):
 def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", overrides=None,
               fixture=None, scst_overrides=None, steps: int = DDP_STEPS, batch_size: int = 32,
               val_batch: int = 64, n_val: int = 64) -> dict:
-    """Phase f: (i), then (ii), (v), (iv), (vi), (vii) and (viii) in one
+    """Phase f: (i), then (ii), (v), (iv), (vi), (vii), (viii) and (ix) in one
     launch of two gloo ranks, then (iii), (v)'s checkpoint resumed at one NCCL
     rank and in a plain process (which also restores (vi)'s and runs (viii)'s
     flow for its reference); a summary a path.  (ii) and (v) train on a dataset written here
@@ -4366,7 +4474,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
 
     t0 = time.monotonic()
     cuda = device == "cuda"
-    short = max(2, steps - 1)  # (ii), (v), (vi) and (vii): one schedule, so their steps compare
+    short = max(2, steps - 1)  # (ii), (v)-(ix): one schedule, so their steps compare
     if cuda:
         free, total = torch.cuda.mem_get_info()
         with open("/proc/meminfo") as f:
@@ -4396,7 +4504,9 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
         base_cfg, zero_cfg = pt_config("base", val_batch, n_steps=short), pt_config("zero", None, n_steps=short)
         fsdp_cfg, tp_cfg = pt_config("fsdp", None, n_steps=short), pt_config("tp", val_batch, n_steps=short)
         moe = "pretrain-valor-base-moe.json"
-        ep_sp_cfg, ep_sp_one_cfg = pt_config("ep_sp", val_batch, moe), pt_config("ep_sp_one", None, moe)
+        ep_sp_cfg = pt_config("ep_sp", val_batch, moe, n_steps=short)
+        ep_sp_one_cfg = pt_config("ep_sp_one", None, moe, n_steps=short)
+        pp_cfg = pt_config("pp", val_batch, n_steps=short)
         scst_cfg = cli_config(cap_paths, tmp, "caption-msrvtt.json", "scst", scst_edit)
         gloo = ["--dist_backend", "gloo", *dev]
         with env_for(data):
@@ -4414,9 +4524,11 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                 {"name": "ep_sp", "argv": ["--config", ep_sp_cfg, "--model_shards", str(DDP_WORLD),
                                            "--sequence_parallel", "true", *gloo], "deterministic": True,
                  "no_save": True},
+                {"name": "pp", "argv": ["--config", pp_cfg, "--fusion_pipeline_stages", str(DDP_WORLD), *gloo],
+                 "deterministic": True, "no_save": True, "pipeline": True},
             ], os.path.join(tmp, "two"), timeout=1000)
             ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt")))
-                     for k in ("base", "zero", "fsdp", "tp", "ep_sp")}
+                     for k in ("base", "zero", "fsdp", "tp", "ep_sp", "pp")}
             # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps
             resume = ["--resume", "true", "--num_train_steps", str(short + steps), "--zero_optimizer", "true"]
             one = {}
@@ -4432,14 +4544,16 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                      "no_save": True}, *plain,
                 ], os.path.join(tmp, name), timeout=600)[0]
     out["ddp_tiny"] = check_ddp_tiny([r["tiny"] for r in two], device)
-    base, zero, scst, fsdp, tp, ep_sp = ([r[k] for r in two] for k in ("base", "zero", "scst", "fsdp", "tp", "ep_sp"))
+    base, zero, scst, fsdp, tp, ep_sp, pp = ([r[k] for r in two]
+                                             for k in ("base", "zero", "scst", "fsdp", "tp", "ep_sp", "pp"))
     check_ddp_base(base, short, val_batch, n_val, device, ckpts["base"])
     zero_err = check_ddp_zero(zero, base, short, device, ckpts["zero"])
     check_ddp_scst(scst, steps, device)
     fsdp_err = check_ddp_fsdp(fsdp, base, short, device, ckpts["fsdp"], one["plain"]["fsdp_restore"]["digest"])
     tp_err = check_ddp_tp(tp, base, short, val_batch, n_val, device, ckpts["tp"])
     ep_sp_one = one["plain"]["ep_sp_one"]
-    ep_sp_err = check_ddp_ep_sp(ep_sp, ep_sp_one, steps, val_batch, n_val, device, ckpts["ep_sp"])
+    ep_sp_err = check_ddp_ep_sp(ep_sp, ep_sp_one, short, val_batch, n_val, device, ckpts["ep_sp"])
+    pp_err = check_ddp_pp(pp, base, short, val_batch, n_val, device, ckpts["pp"])
     n0, p0 = one["nccl"]["resume"], one["plain"]["resume"]
     if (n0["world"], len(n0["allreduce_ms"]), p0["allreduce_ms"]) != (1, n0["steps"], []) \
             or n0["losses"].keys() != p0["losses"].keys() or not _finite(n0["losses"]):
@@ -4533,7 +4647,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
     out["ddp_ep_sp_train"] = dict(_launch_summary(ep_sp), **ep_sp_err, **{
         "config": f"configs/pretrain-valor-base-moe.json (first train flow), --model_shards {DDP_WORLD} "
                   f"--sequence_parallel true (data 1 x model {DDP_WORLD}), global batch {batch_size} on every rank",
-        "steps": steps, "deterministic": True, "fusion_len": e0["fusion_len"],
+        "steps": short, "deterministic": True, "fusion_len": e0["fusion_len"],
         "losses": e0["losses"], "one_process_losses": ep_sp_one["losses"],
         "expert_split_forwards_by_rank": [r["expert_sharding_applied"] for r in ep_sp],
         "sequence_split_forwards_by_rank": [r["sequence_sharding_applied"] for r in ep_sp],
@@ -4547,6 +4661,34 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
                                               for r in ep_sp],
         "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in ep_sp],
         "report": e0["validations"][0]["report"]})
+    q0 = pp[0]
+    out["ddp_pp_train"] = dict(_launch_summary(pp), **pp_err, **{
+        "config": f"phase f (ii)'s, --fusion_pipeline_stages {DDP_WORLD} (data 1 x pipe {DDP_WORLD}: "
+                  f"{batch_size // DDP_WORLD} rows a rank at the towers, the fusion stack's {q0['fusion_layers']} "
+                  f"layers in {DDP_WORLD} stages, {q0['microbatches']} microbatches of "
+                  f"{batch_size // q0['microbatches']})",
+        "steps": short, "deterministic": True, "transport": q0["transport"],
+        "losses": q0["losses"], "replicated_losses": b0["losses"],
+        "pipelined_passes_by_rank": [r["pipeline_applied"] for r in pp],
+        "stage_sends_a_step_by_rank": [r["pipe_stats"]["sends"] / short for r in pp],
+        "stage_send_bytes_a_step_by_rank": [r["pipe_stats"]["send_bytes"] / short for r in pp],
+        "stage_send_ms_a_step_by_rank": [1e3 * r["pipe_stats"]["send_s"] / short for r in pp],
+        "pipe_gathers_a_step_by_rank": [r["pipe_stats"]["gathers"] / short for r in pp],
+        "pipe_gather_bytes_a_step_by_rank": [r["pipe_stats"]["gather_bytes"] / short for r in pp],
+        "pipe_gather_ms_a_step_by_rank": [1e3 * r["pipe_stats"]["gather_s"] / short for r in pp],
+        "hand_backs_a_step_by_rank": [r["pipe_stats"]["hand_backs"] / short for r in pp],
+        "hand_back_bytes_a_step_by_rank": [r["pipe_stats"]["hand_back_bytes"] / short for r in pp],
+        "hand_back_ms_a_step_by_rank": [1e3 * r["pipe_stats"]["hand_back_s"] / short for r in pp],
+        "bubble_by_rank": [r["bubble"] for r in pp], "bubble_ideal": (DDP_WORLD - 1) / (q0["microbatches"] + DDP_WORLD - 1),
+        "schedule_s_by_rank": [r["pipe_timing"] for r in pp],
+        "max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in pp],
+        "replicated_max_memory_allocated_gib_by_rank": [r["max_memory_allocated_gib"] for r in base],
+        "median_step_s_by_rank": [r["median_step_s"] for r in pp], "step_s_by_rank": [r["step_s"] for r in pp],
+        "replicated_median_step_s_by_rank": [r["median_step_s"] for r in base],
+        "allreduce_ms_by_rank": [r["allreduce_ms"] for r in pp],
+        "ln_per_step_by_rank": [r["ln_per_step_pipelined"] for r in pp],
+        "validate_pt_s_by_rank": [r["validations"][0]["seconds"] for r in pp],
+        "report": q0["validations"][0]["report"]})
     out["seconds"] = time.monotonic() - t0
     for k, v in out.items():
         if isinstance(v, dict) and k != "ddp_tiny":
@@ -4604,7 +4746,7 @@ def phase18_alone() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
-        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=640, n_val=256)
+        paths = write_retrieval_dataset(os.path.join(tmp, "data"), n_train=320, n_val=128)
         phase_cli_pt_prompts(paths, synthetic=pretrain)
 
 
@@ -4618,7 +4760,7 @@ def families_alone() -> None:
 
     phase_card_and_build()
     with tempfile.TemporaryDirectory(prefix="valor_smoke_") as tmp:
-        ret = write_retrieval_dataset(os.path.join(tmp, "ret"), n_train=640, n_val=256)
+        ret = write_retrieval_dataset(os.path.join(tmp, "ret"), n_train=320, n_val=128)
         cap = write_caption_dataset(os.path.join(tmp, "cap"), 320, 128)
         paths = phases_families(ret, cap)
     torch.cuda.empty_cache()

@@ -167,15 +167,18 @@ def _refused(data, argv):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--fusion_pipeline_stages", "2"],
-     "NotImplementedError: fusion_pipeline_stages across 2 processes: ROADMAP item 13e"),
+    (["--fusion_pipeline_stages", "3"],
+     "ValueError: fusion_pipeline_stages 3 x model_shards 1 does not divide the 2 ranks"),
+    (["--fusion_pipeline_stages", "2", "--fusion_moe_experts", "4"],
+     "ValueError: pipeline_stages and moe_experts are mutually exclusive"),
     (["--model_shards", "3"], "ValueError: model_shards 3 does not divide the 2 ranks"),
     (["--dist_backend", "nccl"], "ValueError: --dist_backend nccl needs a CUDA device"),
 ])
 def test_two_ranks_refuse(data, tmp_path, extra, error):
-    """Pipeline stages (a mesh axis still to come) and a model axis that does
-    not divide the ranks raise across ranks, as does NCCL on the CPU: nothing
-    is silently ignored, and no backend switched."""
+    """Pipeline stages or a model axis that do not divide the ranks raise
+    across ranks, as do MoE layers with stages (the JAX package's refusal)
+    and NCCL on the CPU: nothing is silently ignored, and no backend
+    switched."""
     cfg_path = _config(data, tmp_path / "config.json", str(tmp_path / "out"), [])
     for got in run_local(_refused, WORLD, data, ["--config", cfg_path] + extra, timeout=LIMIT):
         assert got.startswith(error), got

@@ -7,7 +7,8 @@ meshes (data 4 x model 1) with ``fsdp``, (2 x 2) and (2 x 2) with ``fsdp``
 and ``zero_optimizer``, on the tiny config widened to ``fusion_hidden=128,
 fusion_intermediate=256`` (as ``tests/test_fsdp.py`` widens it) so that the
 fusion tower's attention and MLP kernels and the tied word table reach the
-2^14-element threshold of ``fsdp``.  At each mesh:
+2^14-element threshold of ``fsdp``, with four fusion layers (the pipelined
+flows below split them into stages and share these meshes' references).  At each mesh:
 
   * one ``pt_contra%tva%tv%ta_caption%tva%tv%ta`` step with dropout and the
     unimlm masks drawn: every loss, the grad norm and every updated parameter
@@ -45,6 +46,22 @@ parameters within the learning rate of JAX's update too); both counts above 0 on
 switches them on.  ``ep_sp_fsdp_2x2`` also validates (greedy captions token for
 token), runs one SCST step (rewards and alpha equal to one process's) and
 writes a whole checkpoint that resumes at ``tp_2x2`` and in one process.
+
+Last, pipeline parallelism of the fusion stack over a pipe axis
+(``parallel/pipeline.py``), with ``fusion_layers=4``: ``pp_2x1x2`` (data 2 x
+pipe 2, GPipe, ``fsdp`` and ``zero_optimizer``; the global batch of 8 spreads
+over data x pipe, 2 rows a rank), ``pp_1x2x2_v2`` (model 2 x pipe 2, the
+interleaved schedule with 2 chunks a device), and ``pp_zero_2x1x2``
+(``pp_2x1x2`` with ZeRO-1 alone, whose split leaves ``fsdp`` would have
+taken).  Each flow: the stack ran
+pipelined on every rank; the step with dropout and masks drawn within 1e-5 of
+one port process (losses, grad norm, every updated parameter); with dropout
+off and the row-local masks within 1e-4 of JAX's single-device step (losses
+and grad norm).  ``pp_2x1x2`` also validates (reports and greedy captions equal
+one process's; the evaluation forward runs the stack whole), runs one SCST
+step (rewards and alpha equal) and writes a whole checkpoint that resumes at
+``tp_2x2`` and in one process (restored bit for bit, the next step within
+1e-5).
 """
 
 import os
@@ -75,6 +92,13 @@ EP_SP = {  # name: (config, model_shards, fsdp)
     "ep_sp_fsdp_2x2": ("moe_sp", 2, True),
 }
 EP_SP_RESUME = ("ep_sp_fsdp_2x2", "tp_2x2")  # the flow whose checkpoint resumes, and where
+PP = {  # name: (model_shards, pipe stages, fsdp, zero_optimizer, config)
+    "pp_2x1x2": (1, 2, True, True, "pp"),
+    "pp_1x2x2_v2": (2, 2, False, False, "pp_v2"),
+    "pp_zero_2x1x2": (1, 2, False, True, "pp"),  # ZeRO-1 splits leaves that fsdp leaves whole
+}
+PP_RESUME = ("pp_2x1x2", "tp_2x2")
+PP_CFG = dict(fusion_layers=4, fusion_pipeline_stages=2)
 MOE = dict(fusion_moe_experts=4, fusion_moe_every=2)
 EVAL_IDS = [f"v{i}" for i in range(6)]
 SCST_IDS = ["a", "b", "c", "d", "a", "d", "b", "c"]
@@ -126,8 +150,9 @@ def _state(cfg, fsdp=False, zero=False):
 
 
 def _rows(batch):
-    """This data rank's rows of a global batch."""
-    d, n = P.data_rank(), P.data_world()
+    """This rank's rows of a global batch (its batch axis's: the data rank's,
+    or its (data, pipe) place's where the pipe folds into the batch)."""
+    d, n = P.batch_rank(), P.batch_world()
     return {k: v[d::n] for k, v in batch.items()}
 
 
@@ -270,6 +295,7 @@ def _rank(cfgs, batches, eval_batch, scst, root):
         o["split"] = {n: (pl.model_dim, pl.data_dim) for n, pl in state.model.placements.items() if pl.split}
         o["zero"] = [bool(s) for s in state.optimizer.sharded]
         o["grid"] = (P.data_rank(), P.data_world(), P.model_rank(), P.model_world())
+        o["rows"] = (P.batch_rank(), P.batch_world())
         state.model.eval()
         o["eval"] = _validate(state.model, cfgs["main"], eval_batch, os.path.join(root, "results"))
         state.model.train()
@@ -327,7 +353,51 @@ def _rank(cfgs, batches, eval_batch, scst, root):
     load_state(state, ModelSaver(os.path.join(root, src)).restore())
     out[src]["restored"] = _kept(_whole(state))
     out[src]["resumed_step"] = _routed_step(state, _rows(batches[1]), cfgs["moe"])[0]
+    for name, (m, s, fsdp, zero, key) in PP.items():
+        out[name] = _pp_flow(name, m, s, fsdp, zero, cfgs[key], cfgs["pp_jax"], batches[0], eval_batch, scst, root)
+    src, dst = PP_RESUME
+    P.make_mesh(MESHES[dst][0], "cpu")
+    state = _state(cfgs["pp"], *MESHES[dst][1:])
+    load_state(state, ModelSaver(os.path.join(root, src)).restore())
+    out[src]["restored"] = _kept(_whole(state))
+    out[src]["resumed_step"] = _step(state, _rows(batches[1]))
     return out
+
+
+def _pp_flow(name, m, s, fsdp, zero, cfg, jax_cfg, batch, eval_batch, scst, root):
+    """One pipelined flow on a (data, model, pipe) grid of ``m`` model and
+    ``s`` pipe ranks: its place, how many stack forwards ran pipelined, the
+    step, and for ``PP_RESUME``'s flow the validation, a checkpoint and an
+    SCST step; then the step of JAX's config with the row-local masks."""
+    import valor_tpu_torch.models.valor as TV
+    from valor_tpu_torch.parallel.pipeline import pipeline_applied
+    from valor_tpu_torch.train.checkpoints import ModelSaver
+
+    P.make_mesh(m, "cpu", s)
+    o = {"grid": (P.data_rank(), P.model_rank(), P.pipe_rank(), P.pipe_world()),
+         "rows": (P.batch_rank(), P.batch_world())}
+    state = _state(cfg, fsdp, zero)
+    if name == PP_RESUME[0]:
+        state.model.eval()
+        o["eval"] = _validate(state.model, cfg, eval_batch, os.path.join(root, "results_" + name))
+        state.model.train()
+        o["eval_applied"] = pipeline_applied()
+    o["zero_split"] = sum(state.optimizer.sharded)
+    o["step"] = _step(state, _rows(batch))
+    o["applied"] = pipeline_applied()
+    o["after"] = _kept(_whole(state)["params"])
+    if name == PP_RESUME[0]:
+        ModelSaver(os.path.join(root, name)).save(state, 1)
+        o["scst"] = _scst(cfg, fsdp, zero, _rows(scst["batch"]), _rows({"i": np.array(SCST_IDS)})["i"].tolist(),
+                          scst["ann"], scst["vocab"])
+    mask0 = TV.mask_tokens
+    TV.mask_tokens = _row_mask_torch
+    try:
+        jstate = _state(jax_cfg, fsdp, zero)
+        o["jax_step"] = _step(jstate, _rows(batch))
+    finally:
+        TV.mask_tokens = mask0
+    return o
 
 
 def _one_scst(cfg, batch, ann, vocab):
@@ -347,14 +417,18 @@ def run(tmp_path_factory):
     ann = {"a": ["A cat sits on the mat.", "the cat sits"], "b": ["The dog runs"], "c": "the mat",
            "d": ["a dog sits on the cat", "dogs run"]}
     (root / "ann.json").write_text(json.dumps(ann))
-    cfgs = {"main": _cfg(dropout=0.1, caption_type="unimlm"), "jax": _cfg(dropout=0.0, caption_type="unimlm"),
+    # four fusion layers: the pipelined flows split them into 2 stages (x 2 chunks), and they share the one
+    # process and JAX references of the dense meshes (the pipeline knobs change neither's arithmetic)
+    cfgs = {"main": _cfg(dropout=0.1, caption_type="unimlm", fusion_layers=4),
+            "jax": _cfg(dropout=0.0, caption_type="unimlm", fusion_layers=4),
             "swin": _cfg(dropout=0.0, caption_type="lm", video_encoder_type="videoswin_tiny_test",
                          txt_encoder_type="bert_base_uncased", init_clip_head=False),
             "gqa": _cfg(dropout=0.1, caption_type="unimlm", fusion_heads=4, fusion_cross_attn_kv_heads=2)}
-    for key, kw in {"moe": MOE, "sp": dict(sequence_parallel=True),
-                    "moe_sp": dict(MOE, sequence_parallel=True)}.items():
+    for key, kw in {"moe": MOE, "sp": dict(sequence_parallel=True, fusion_layers=4),
+                    "moe_sp": dict(MOE, sequence_parallel=True), "pp": PP_CFG}.items():
         cfgs[key] = _cfg(dropout=0.1, caption_type="unimlm", **kw)
         cfgs[key + "_jax"] = _cfg(dropout=0.0, caption_type="unimlm", **kw)
+    cfgs["pp_v2"] = _cfg(dropout=0.1, caption_type="unimlm", fusion_pipeline_interleave=2, **PP_CFG)
     batches = [_batch(60), _batch(61)]
     eval_batch = _batch(62, b=6)
     scst = {"batch": {k: v for k, v in _batch(63).items() if k in ("video_pixels", "audio_spectrograms")},
@@ -391,10 +465,14 @@ def run(tmp_path_factory):
     load_state(st, payload)
     ep_sp_one["resumed"] = {"payload": payload, "restored": _whole(st),
                             "step": _routed_step(st, batches[1], cfgs["moe"])[0]}
-    install_mesh_switches(cfgs["main"])  # both off again for the tests that follow in this process
+    payload = ModelSaver(str(root / "ckpt" / PP_RESUME[0])).restore()
+    st = _state(cfgs["pp"])
+    load_state(st, payload)
+    pp_one = {"resumed": {"payload": payload, "restored": _whole(st), "step": _step(st, batches[1])}}
+    install_mesh_switches(cfgs["main"])  # all off again for the tests that follow in this process
     return {"ranks": ranks, "cfgs": cfgs, "batches": batches, "one_eval": one_eval, "one_step": one_step,
             "one_after": one_after, "one_scst": one_scst, "resumed": resumed, "swin_one": swin_one,
-            "gqa_one": gqa_one, "ep_sp_one": ep_sp_one}
+            "gqa_one": gqa_one, "ep_sp_one": ep_sp_one, "pp_one": pp_one}
 
 
 def _close(a, b, tol, what):
@@ -528,10 +606,10 @@ def test_validation_reports_and_captions_equal(run, mesh):
         {k: sorted(v, key=lambda x: x["video_id"]) for k, v in one["hyps"].items()}
 
 
-def _scst_equal(got_ranks, one, m):
+def _scst_equal(got_ranks, one, rows):
     """Every rank's SCST alpha and rewards equal one process's, its other
-    metrics within ``TOL``, and its advantages its data rank's rows of one
-    process's (``m`` model ranks)."""
+    metrics within ``TOL``, and its advantages its rows of one process's
+    (``rows``: each rank's (batch rank, batch world))."""
     assert len(one["rewards"]) == 2
     for got in got_ranks:
         assert got["alpha"] == one["alpha"]
@@ -541,15 +619,14 @@ def _scst_equal(got_ranks, one, m):
                 assert got["metrics"][k] == v, k
             else:
                 _close(got["metrics"][k], v, TOL, k)
-    for r, got in enumerate(got_ranks):
-        d, n = r // m, WORLD // m
+    for got, (d, n) in zip(got_ranks, rows):
         for mine, whole in zip(got["rewards"], one["rewards"]):
             _close(mine, whole[d::n], 1e-12, "advantage")
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_scst_rewards_and_alpha_equal(run, mesh):
-    _scst_equal([out[mesh]["scst"] for out in run["ranks"]], run["one_scst"], MESHES[mesh][0])
+    _scst_equal([out[mesh]["scst"] for out in run["ranks"]], run["one_scst"], [out[mesh]["rows"] for out in run["ranks"]])
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -653,7 +730,9 @@ def test_ep_sp_fsdp_validation_equals_one_process(run):
 
 def test_ep_sp_fsdp_scst_rewards_and_alpha_equal(run):
     flow = EP_SP_RESUME[0]
-    _scst_equal([out[flow]["scst"] for out in run["ranks"]], run["ep_sp_one"]["moe_sp"]["scst"], EP_SP[flow][1])
+    m = EP_SP[flow][1]
+    _scst_equal([out[flow]["scst"] for out in run["ranks"]], run["ep_sp_one"]["moe_sp"]["scst"],
+                [(r // m, WORLD // m) for r in range(WORLD)])
 
 
 def test_ep_sp_fsdp_checkpoint_resumes_at_tp_and_in_one_process(run):
@@ -662,6 +741,71 @@ def test_ep_sp_fsdp_checkpoint_resumes_at_tp_and_in_one_process(run):
     payload = res["payload"]
     assert {k: tuple(v.shape) for k, v in payload["params"].items()} == \
         {k: tuple(v.shape) for k, v in run["ep_sp_one"]["moe_sp"]["after"].items()}
+    for where in (res["restored"], run["ranks"][0][flow]["restored"]):
+        for k, v in payload["params"].items():
+            assert torch.equal(where["params"][k], v), k
+        for key in ("mu", "nu"):
+            assert len(where[key]) == len(payload["opt_state"][key])
+            for a, b in zip(where[key], payload["opt_state"][key]):
+                assert torch.equal(a, b), key
+    for out in run["ranks"]:
+        _metrics_close(out[flow]["resumed_step"], res["step"], TOL, f"{flow} resumed at {dst}")
+
+
+@pytest.mark.parametrize("flow", list(PP))
+def test_pp_stack_ran_pipelined_on_every_rank(run, flow):
+    m, s = PP[flow][:2]
+    for r, out in enumerate(run["ranks"]):
+        o = out[flow]
+        assert o["grid"] == (r // (m * s), (r // s) % m, r % s, s)
+        assert o["rows"] == (r // (m * s) * s + r % s, WORLD // m)  # the pipe folds into the batch
+        assert o["applied"] > o.get("eval_applied", 0) == 0, flow
+        assert (o["zero_split"] > 0) == (PP[flow][3] and not PP[flow][2]), flow
+
+
+@pytest.mark.parametrize("flow", list(PP))
+def test_pp_step_equals_one_process(run, flow):
+    """The one process of the dense meshes: its config is the pipelined
+    flows' without the pipeline knobs, which one process reads and ignores."""
+    for out in run["ranks"]:
+        _metrics_close(out[flow]["step"], run["one_step"], TOL, flow)
+    after = run["ranks"][0][flow]["after"]
+    assert after.keys() == run["one_after"].keys()
+    for n, p in run["one_after"].items():
+        _close(after[n], p, TOL, f"{flow} updated {n}")
+
+
+@pytest.mark.parametrize("flow", list(PP))
+def test_pp_step_equals_jax(run, jax_ref, flow):
+    """Losses and grad norm (the updates are held to one port process)."""
+    _against_jax([(out[flow]["jax_step"], None) for out in run["ranks"]], (jax_ref[0], None), flow)
+
+
+def test_pp_validation_equals_one_process(run):
+    flow = PP_RESUME[0]
+    one = run["one_eval"]
+    assert one["hyps"] and len({str(x["caption"]) for v in one["hyps"].values() for x in v}) > 1
+    for out in run["ranks"]:
+        got = out[flow]["eval"]
+        assert got["ret"] == one["ret"]
+        assert got["cap"] == one["cap"]
+    got = run["ranks"][0][flow]["eval"]["hyps"]
+    assert {k: sorted(v, key=lambda x: x["video_id"]) for k, v in got.items()} == \
+        {k: sorted(v, key=lambda x: x["video_id"]) for k, v in one["hyps"].items()}
+
+
+def test_pp_scst_rewards_and_alpha_equal(run):
+    flow = PP_RESUME[0]
+    _scst_equal([out[flow]["scst"] for out in run["ranks"]], run["one_scst"],
+                [out[flow]["rows"] for out in run["ranks"]])
+
+
+def test_pp_checkpoint_resumes_at_tp_and_in_one_process(run):
+    flow, dst = PP_RESUME
+    res = run["pp_one"]["resumed"]
+    payload = res["payload"]
+    assert {k: tuple(v.shape) for k, v in payload["params"].items()} == \
+        {k: tuple(v.shape) for k, v in run["one_after"].items()}
     for where in (res["restored"], run["ranks"][0][flow]["restored"]):
         for k, v in payload["params"].items():
             assert torch.equal(where["params"][k], v), k

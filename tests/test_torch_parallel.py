@@ -225,21 +225,38 @@ def test_local_batch_size():
 @pytest.mark.parametrize("knob", ["model_shards", "fusion_pipeline_stages", "sequence_parallel", "fsdp",
                                   "zero_optimizer", "scst_finetuning", "model_shards_moe"])
 def test_other_axes_are_refused_across_processes(knob):
-    """The knob still to come, ``fusion_pipeline_stages``, raises across
-    processes, naming its part of ROADMAP item 13; ZeRO-1, SCST, ``fsdp``,
-    ``model_shards`` (with MoE experts too: expert parallelism) and
-    ``sequence_parallel``, which the mesh now runs, are accepted."""
+    """Every mesh knob runs across processes now: ZeRO-1, SCST, ``fsdp``,
+    ``model_shards`` (with MoE experts too: expert parallelism),
+    ``sequence_parallel`` and ``fusion_pipeline_stages``; what is refused is
+    a grid that does not fit the ranks: pipeline stages times the model
+    shards not dividing them (``ValueError``).  One process reads and ignores
+    them all."""
     from valor_tpu_torch.core.config import load_config
 
     overrides = {"model_shards": {"model_shards": 2}, "fusion_pipeline_stages": {"fusion_pipeline_stages": 2},
                  "model_shards_moe": {"model_shards": 2, "fusion_moe_experts": 4}}.get(knob, {knob: True})
     cfg = load_config(None, overrides)
     P.check_data_parallel(cfg, 1)  # read and ignored by one process
+    P.check_data_parallel(cfg, 2)
     if knob != "fusion_pipeline_stages":
-        P.check_data_parallel(cfg, 2)
         return
-    with pytest.raises(NotImplementedError, match=f"{knob} across 2 processes: ROADMAP item 13e"):
-        P.check_data_parallel(cfg, 2)
+    P.check_data_parallel(load_config(None, dict(overrides, model_shards=2)), 4)
+    with pytest.raises(ValueError, match="fusion_pipeline_stages 2 x model_shards 1 does not divide the 3 ranks"):
+        P.check_data_parallel(cfg, 3)
+    with pytest.raises(ValueError, match="fusion_pipeline_stages 2 x model_shards 2 does not divide the 6 ranks"):
+        P.check_data_parallel(load_config(None, dict(overrides, model_shards=2)), 6)
+
+
+def test_moe_with_pipeline_stages_is_refused():
+    """MoE fusion layers and pipeline stages together raise the JAX
+    package's message when the model is built, in one process too."""
+    from valor_tpu_torch.core.config import load_config
+    from valor_tpu_torch.models.valor import VALORModel
+
+    cfg = load_config(None, {"fusion_pipeline_stages": 2, "fusion_moe_experts": 4, "fusion_hidden": 32,
+                             "fusion_layers": 2, "fusion_heads": 2, "fusion_intermediate": 64})
+    with pytest.raises(ValueError, match="pipeline_stages and moe_experts are mutually exclusive"):
+        VALORModel(cfg.model, device="meta")
 
 
 def test_model_shards_must_divide_the_ranks():

@@ -3,8 +3,10 @@ training state (counterpart of ``valor_tpu/cli/build.py``; the reference's
 train_utils.py glue: create_train_dataloaders :415-516,
 create_val_dataloaders :519-576).
 
-Each process loads its data rank's shard (``parallel/mesh.py``; one process is
-shard 0 of 1; the model ranks of one data rank load the same), and the model
+Each process loads its batch rank's shard (``parallel/mesh.py``: the data
+rank's, or with a pipe axis folded into the batch its (data, pipe) place's;
+one process is shard 0 of 1; the model ranks of one data rank load the same),
+and the model
 is placed on the mesh that ``cli/train.py`` made (``parallel/partition.py``).  The
 tokenizer files come from ``$VALOR_BERT_VOCAB`` and ``$VALOR_CLIP_BPE`` (read
 when the tokenizers are built), public encoder weights from
@@ -25,7 +27,7 @@ from valor_tpu_torch.data.loader import DataLoader, MetaLoader, ShardedBatchSamp
 from valor_tpu_torch.data.pipeline import AudioMapper, TxtMapper, VALORDataset, VideoMapper, valor_collate
 from valor_tpu_torch.data.prompts import maybe_prompt_table, prompted_collate
 from valor_tpu_torch.data.vqa import QATxtMapper, VALORQADataset, valorqa_collate_test, valorqa_collate_train
-from valor_tpu_torch.parallel.mesh import data_rank, data_world, local_batch_size
+from valor_tpu_torch.parallel.mesh import batch_rank, batch_world, local_batch_size
 
 
 def bert_vocab_path() -> str:
@@ -103,15 +105,15 @@ def collate_for(task: str, training: bool):
 def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool = False) -> MetaLoader:
     """The train flows' loaders behind one ``MetaLoader`` (the JAX package's
     seeds and mixing order).  Across processes each rank loads its shard of
-    every global batch (``batch_size`` over the data ranks).  ``pin_memory`` pins
+    every global batch (``batch_size`` over the batch axis's ranks).  ``pin_memory`` pins
     each batch in the loader's background thread, for a CUDA prefetcher."""
     loaders: Dict[str, Tuple[Any, int]] = {}
     prompts = maybe_prompt_table(cfg.model, tokenizers)
-    world = data_world()
+    world = batch_world()
     for i, flow in enumerate(cfg.data_train):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=True)
         sampler = ShardedBatchSampler(len(dataset), batch_size=local_batch_size(max(flow.batch_size, 1), world),
-                                      shard=data_rank(), n_shards=world, shuffle=True, seed=seed)
+                                      shard=batch_rank(), n_shards=world, shuffle=True, seed=seed)
         collate = prompted_collate(collate_for(flow.task, True), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1),
                             pin_memory=pin_memory)
@@ -124,16 +126,16 @@ def build_train_loaders(cfg: Config, tokenizers, seed: int = 0, pin_memory: bool
 
 def build_val_loaders(cfg: Config, tokenizers) -> List[Tuple[str, DataLoader, Any]]:
     """[(name, loader, task spec)] of the evaluation flows, in order.  Across
-    processes the data ranks' shards cover every item once (the last ragged, a
-    rank's maybe empty), each rank's batch ``batch_size`` over the data ranks
+    processes the batch axis's shards cover every item once (the last ragged,
+    a rank's maybe empty), each rank's batch ``batch_size`` over those ranks
     rounded up: batch k of all ranks is one process's batch k (the JAX
     package's hosts each take the whole ``batch_size``)."""
     out = []
     prompts = maybe_prompt_table(cfg.model, tokenizers)
-    world = data_world()
+    world = batch_world()
     for i, flow in enumerate(cfg.data_val):
         dataset = build_dataset(flow, cfg.model, tokenizers, training=False)
-        sampler = ShardedBatchSampler(len(dataset), batch_size=-(-flow.batch_size // world), shard=data_rank(),
+        sampler = ShardedBatchSampler(len(dataset), batch_size=-(-flow.batch_size // world), shard=batch_rank(),
                                       n_shards=world, shuffle=False)
         collate = prompted_collate(collate_for(flow.task, False), prompts, parse_task(flow.task))
         loader = DataLoader(dataset, sampler, collate, n_workers=max(flow.n_workers, 1))
@@ -239,14 +241,19 @@ def model_weights(model_cfg: ModelConfig, checkpoint: Optional[str] = None, devi
 
 def install_mesh_switches(mcfg: ModelConfig) -> None:
     """Expert parallelism where the config has MoE experts, sequence
-    parallelism where it asks for it (``valor_tpu/cli/build.py:280-286``);
-    both split over the model axis and do nothing on a model axis of one
-    rank.  Their counts start again at 0."""
+    parallelism where it asks for it, and the fusion pipeline with
+    ``fusion_pipeline_microbatches`` where it has stages
+    (``valor_tpu/cli/build.py:280-294``); the first two split over the model
+    axis and do nothing on a model axis of one rank, the pipeline runs over
+    the pipe axis and does nothing without one.  Their counts start again at
+    0."""
     from valor_tpu_torch.ops.moe import set_expert_sharding
     from valor_tpu_torch.parallel.activations import set_sequence_sharding
+    from valor_tpu_torch.parallel.pipeline import set_pipeline
 
     set_sequence_sharding(mcfg.sequence_parallel)
     set_expert_sharding(mcfg.fusion_moe_experts > 0)
+    set_pipeline(max(mcfg.fusion_pipeline_stages, 0), mcfg.fusion_pipeline_microbatches)
 
 
 def build_model_and_state(cfg: Config, device, load_weights=None):

@@ -50,7 +50,13 @@ true`` splits the large parameters over the data axis
 rank load the same batches.  On the model axis MoE experts split too
 (``fusion_moe_experts`` divisible by M, ``ops/moe.py``), and ``--sequence_parallel
 true`` splits the fusion sequence between layers (``parallel/activations.py``).
-``fusion_pipeline_stages`` is refused across processes
+``--fusion_pipeline_stages S`` adds a pipe axis of S ranks (rank r's
+pipe rank is r % S): the fusion stack runs S stages over it
+(``parallel/pipeline.py``; ``--fusion_pipeline_interleave V`` the
+interleaved schedule, ``--fusion_pipeline_microbatches M``), and outside the
+stack the pipe ranks split each global batch that divides by data x pipe, as
+extra data parallelism (else the pipe ranks of one data rank load the same
+batches); a grid that does not divide the ranks is refused
 (``parallel/mesh.py:check_data_parallel``).  Without the launcher's environment
 it runs one process, as before; where the caller has joined the group already
 (several runs in one launch), ``main`` runs in it and leaves it up.
@@ -74,7 +80,7 @@ from valor_tpu_torch.core.config import Config, config_to_json, load_config
 from valor_tpu_torch.core.device import resolve_device
 from valor_tpu_torch.core.logging import LOGGER, TB_LOGGER, add_log_to_file, is_main_process
 from valor_tpu_torch.parallel.mesh import (
-    check_data_parallel, data_rank, init_data_parallel, is_initialized, launched, make_mesh, shutdown, world_size,
+    batch_rank, check_data_parallel, init_data_parallel, is_initialized, launched, make_mesh, shutdown, world_size,
 )
 
 
@@ -206,8 +212,12 @@ def _run(argv, device):
         inherited = inherit_pretrain_config(cfg)
         if inherited:
             LOGGER.info(f"inherited from pretrain hps.json: {inherited}")
-    grid = make_mesh(cfg.train.model_shards if world_size() > 1 else 1, device)
-    random.seed(cfg.train.seed + data_rank())
+    many = world_size() > 1
+    stages = max(cfg.model.fusion_pipeline_stages, 1) if many else 1
+    model_shards = cfg.train.model_shards if many else 1
+    folds = all(max(f.batch_size, 1) % (world_size() // model_shards) == 0 for f in cfg.data_train)
+    grid = make_mesh(model_shards, device, stages, fold_pipe=folds)
+    random.seed(cfg.train.seed + batch_rank())
     out_dir = cfg.train.output_dir or "output"
     if is_main_process():
         os.makedirs(out_dir, exist_ok=True)
@@ -216,7 +226,9 @@ def _run(argv, device):
         add_log_to_file(os.path.join(out_dir, "log", "train.log"))
         TB_LOGGER.create(os.path.join(out_dir, "tb"))
     if world_size() > 1:
-        LOGGER.info(f"mesh data={grid.data_world} x model={grid.model_world}")
+        LOGGER.info(f"mesh data={grid.data_world} x model={grid.model_world}"
+                    + (f" x pipe={grid.pipe_world} (batch over {grid.batch_world} ranks)"
+                       if grid.pipe_world > 1 else ""))
 
     from valor_tpu_torch.cli.build import build_model_and_state, build_tokenizers, build_train_loaders
     from valor_tpu_torch.train.checkpoints import ModelSaver, load_state

@@ -12,10 +12,17 @@ Captions (``validate_cap``) and answers (``validate_qa``): generate every
 batch through ``eval/generate.py:Generator``, decode to text on the host and
 score the whole merged set in one call (CIDEr-D's document frequencies are
 those of the set), writing the JAX package's dump files.  The ranks' shards are
-merged before scoring, and rank 0 writes the dumps.  On a (data, model) mesh
-the shards and merges are the data axis's: the model ranks of one data rank
-run the same batches (tensor parallelism's all-reduces) and decode the same
-tokens; ``fsdp``'s parameters are gathered once for a whole validation.
+merged before scoring, and rank 0 writes the dumps.  On a (data, model, pipe)
+mesh the shards and merges are the batch axis's (``parallel/mesh.py``): the
+model ranks of one data rank run the same batches (tensor parallelism's
+all-reduces) and decode the same tokens; ``fsdp``'s parameters are gathered
+once for a whole validation.  Every evaluation forward and every decode runs
+the fusion stack whole on every rank, pipeline stages or not (the pipeline
+engages in a training step's forward only, ``parallel/pipeline.py``): the pipe
+ranks of one data rank may hold different numbers of evaluation batches, and a
+pipelined forward would wait on a rank that has none.  Every rank holds every
+layer, so the reports equal the JAX package's, whose evaluation forward does
+pipeline (ROADMAP Queue 3, F12: a difference of schedule kept on purpose).
 
 Pretraining (``validate_pt``): masked-token accuracies of the caption and MLM
 objectives through ``eval_step``, and a retrieval recall per contrastive group;

@@ -18,13 +18,22 @@
     per-layer cross-attention K/V that the decode projects once per rollout;
     without cross-attention ``precompute_ctx_kv`` and ``decode_with_ctx`` cache
     the [prompt | media] context's self-attention K/V once per rollout.
+  * Pipeline parallelism (``parallel/pipeline.py``): with ``pipeline_stages``
+    S a training step's layer stack runs S stages over the pipe axis where
+    the pipeline is installed and the batch microbatches
+    (``_maybe_pipeline``), the layers split as the JAX package's
+    ``_reshape_stages`` splits them; elsewhere (one process, evaluation, the
+    decode) it runs as a plain stack.  MoE layers and stages are refused
+    together, and so are layers that do not divide into S x V blocks, with the
+    JAX package's messages.
   * Sequence parallelism (``parallel/activations.py``): where
     ``sequence_sharded`` engages, the forward runs the residual stream between
     layers as this model rank's [B, S/M, D] chunk; each sublayer gathers the
     sequence and scatters its output, and the residual adds, dropout and
     LayerNorms run on the chunk.  After the last layer the sequence is
     gathered whole.  The context-K/V decode (``precompute_ctx_kv``,
-    ``decode_with_ctx``) runs unsplit, as the JAX package's does.
+    ``decode_with_ctx``) runs unsplit, as the JAX package's does, and so does
+    a pipelined stack.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from valor_tpu_torch.ops.layers import (
 from valor_tpu_torch.ops.moe import MoEMlpBlock
 from valor_tpu_torch.ops.masks import concat_key_mask, fusion_attention_bias_terms
 from valor_tpu_torch.parallel.activations import gather_sequence, scatter_sequence, sequence_sharded
+from valor_tpu_torch.parallel.pipeline import pipeline_layers
 
 CROSS_ATTN_TYPES = ("va_concate", "va_parallel", "video_audio", "audio_video")
 
@@ -63,6 +73,8 @@ class BertConfig:
     moe_capacity_factor: float = 1.25
     moe_every: int = 1  # 1 = every layer, 2 = every other
     cross_attn_kv_heads: int = 0  # > 0: grouped-query cross-attention K/V heads
+    pipeline_stages: int = 0  # > 0: the layer stack pipelines over that many pipe ranks
+    pipeline_interleave: int = 1  # V > 1: the interleaved schedule, V virtual stages a device
 
 
 class BertEmbeddings(nn.Module):
@@ -212,6 +224,15 @@ class BertFusionEncoder(nn.Module):
 
     def __init__(self, cfg: BertConfig, dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
+        c = cfg
+        if c.pipeline_stages > 0 and c.moe_experts > 0:
+            # MoE capacity is claimed batch-wide, so microbatches would route differently
+            raise ValueError("pipeline_stages and moe_experts are mutually exclusive")
+        if c.pipeline_stages > 0 and c.num_layers % (c.pipeline_stages * max(c.pipeline_interleave, 1)):
+            raise ValueError(
+                f"{c.num_layers} fusion layers do not divide into {c.pipeline_stages} pipeline stages"
+                + (f" x {c.pipeline_interleave} interleaved chunks" if c.pipeline_interleave > 1 else "")
+            )
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
@@ -314,6 +335,10 @@ class BertFusionEncoder(nn.Module):
 
         cross_v = video_feat.to(self.dtype) if (c.has_cross_attn and video_feat is not None) else None
         cross_a = audio_feat.to(self.dtype) if (c.has_cross_attn and audio_feat is not None) else None
+        if cross_kv_list is None:
+            pipelined = self._maybe_pipeline(x, bias, cross_v, cross_a)
+            if pipelined is not None:
+                return pipelined
         sp = sequence_sharded(x)
         if sp:
             x = scatter_sequence(x, partial=False)
@@ -321,6 +346,17 @@ class BertFusionEncoder(nn.Module):
             kv = cross_kv_list[i] if cross_kv_list is not None else None
             x = run_layer(layer, self.remat, x, bias, cross_v, cross_a, kv, None, sp)
         return gather_sequence(x, partial=False) if sp else x
+
+    def _maybe_pipeline(self, x, bias, cross_v, cross_a) -> Optional[torch.Tensor]:
+        """The layer stack through ``parallel/pipeline.py:pipeline_layers``
+        where the config has stages and the pipeline engages; None: the plain
+        stack (sequence parallelism stays off on the pipelined path, as the
+        JAX package returns before ``sequence_sharded``)."""
+        c = self.cfg
+        if c.pipeline_stages <= 0:
+            return None
+        return pipeline_layers(self.layers, self.remat, x, bias, cross_v, cross_a, c.pipeline_stages,
+                               max(c.pipeline_interleave, 1))
 
 
 class BertPredictionHead(nn.Module):

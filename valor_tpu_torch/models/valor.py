@@ -53,7 +53,7 @@ from valor_tpu_torch.models.videoswin import SwinTransformer3D, swin_preset
 from valor_tpu_torch.ops.layers import Dense, LayerNorm, _param, current_rng, remat_for
 from valor_tpu_torch.ops.masking import full_mask, lm_shift_labels, mask_tokens
 from valor_tpu_torch.parallel import collectives as C
-from valor_tpu_torch.parallel.mesh import answer_shard, batch_shard, collective_step, current_shard, data_rank
+from valor_tpu_torch.parallel.mesh import answer_shard, batch_rank, batch_shard, collective_step, current_shard
 from valor_tpu_torch.tasks import losses as L
 
 # BERT special tokens (bert-base-uncased vocab)
@@ -150,6 +150,7 @@ class VALORModel(nn.Module):
             moe_experts=c.fusion_moe_experts, moe_top_k=c.fusion_moe_top_k,
             moe_every=c.fusion_moe_every, moe_capacity_factor=c.fusion_moe_capacity_factor,
             cross_attn_kv_heads=c.fusion_cross_attn_kv_heads,
+            pipeline_stages=c.fusion_pipeline_stages, pipeline_interleave=c.fusion_pipeline_interleave,
         )
         self.multimodal_encoder = BertFusionEncoder(self.bert_cfg, dtype, dev, remat("fusion"))
         h = self.multimodal_dim = c.fusion_hidden
@@ -409,7 +410,7 @@ class VALORModel(nn.Module):
             return sum(ls) / len(ls)
         local = dict(feats, txt_tokens=txt_tokens)
         every = {k: None if v is None else C.all_gather_with_grad(v) for k, v in local.items()}
-        offset = data_rank() * next(v.shape[0] for v in local.values() if v is not None)
+        offset = batch_rank() * next(v.shape[0] for v in local.values() if v is not None)
         ls = [L.sharded_contrastive_loss(self.group_score_matrix(g, local, txt_tokens, every),
                                          self.group_score_matrix(g, every, every["txt_tokens"], local),
                                          temp, offset) for g in groups]

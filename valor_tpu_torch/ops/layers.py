@@ -192,17 +192,31 @@ def sow(value: torch.Tensor) -> None:
         values.append(value)
 
 
+def layer_seed(layer: nn.Module) -> Optional[int]:
+    """The seed of the streams that a training ``layer`` draws from, forked
+    from the enclosing ``rng_scope``'s (one fork a layer call, in call order);
+    None where it draws none."""
+    rng = getattr(_RNG, "streams", None)
+    return rng.fork().seed if layer.training and rng is not None else None
+
+
 def run_layer(layer: nn.Module, remat: bool, *args):
     """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is set
     and autograd records.  A training layer draws its dropout from streams of
-    its own, forked here, which the recompute draws again, in the enclosing
-    ``batch_shard`` (the recompute may run in autograd's device thread).  A
-    checkpointed layer returns what it sows beside its output, so the values of
-    the forward reach the enclosing ``sow_scope`` once and the recompute's go
-    nowhere."""
+    its own, forked here (``layer_seed``), which the recompute draws again, in
+    the enclosing ``batch_shard`` (the recompute may run in autograd's device
+    thread).  A checkpointed layer returns what it sows beside its output, so
+    the values of the forward reach the enclosing ``sow_scope`` once and the
+    recompute's go nowhere."""
+    return run_layer_in(layer, remat, layer_seed(layer), current_shard(), *args)
+
+
+def run_layer_in(layer: nn.Module, remat: bool, seed: Optional[int], shard, *args):
+    """``run_layer`` with the layer's streams from ``seed`` (the enclosing
+    ones where None) and its draws in ``shard``: a pipeline stage runs one
+    layer on each microbatch with the seed of the layer's one fork, and the
+    microbatch's rows of the global batch."""
     rng = getattr(_RNG, "streams", None)
-    seed = rng.fork().seed if layer.training and rng is not None else None
-    shard = current_shard()
 
     def fn(*a):
         with rng_scope(rng if seed is None else RNGStreams(seed)), batch_shard(shard):

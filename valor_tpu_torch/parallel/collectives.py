@@ -1,16 +1,19 @@
 """Collectives of the mesh's axes (counterpart of ``valor_tpu/parallel/collectives.py``).
 
-Every function takes the axis it reduces over, ``axis`` ("data", the
-default, or "model"): its process group is this rank's model column (the
-data axis) or data row (the model axis) of ``parallel/mesh.py:make_mesh``'s
-grid, the default group where there is no model axis.
+Every function takes the axis it reduces over, ``axis``: its process group is
+this rank's line of that axis in ``parallel/mesh.py:make_mesh``'s grid, the
+default group where the line holds every rank.  "batch" (the default of the
+batch's arithmetic: its rows, losses and evaluation gathers) is data x pipe
+where the pipe folds into the batch, else "data"; "replica" is every rank of
+one model rank (the gradients' mean); "data" alone carries ``fsdp`` and
+ZeRO-1, "model" tensor parallelism and "pipe" the pipeline's gathers.
 
 Host objects and evaluation arrays (the JAX package's ``process_allgather``
 uses): ``all_gather_objects``, ``all_gather_lists``, ``gather_arrays`` and
 ``all_gather_ragged``, which pads every rank's rows to the largest shard,
 gathers and trims.  Every one of them short-circuits at one rank.
 
-A training step's global arithmetic over the data axis, which XLA derives
+A training step's global arithmetic over the batch axis, which XLA derives
 from the global array in the JAX package:
 
   * ``all_gather_with_grad``: the batch's rows from every rank; its backward
@@ -20,7 +23,8 @@ from the global array in the JAX package:
   * ``sharded_mean``: this rank's share of a mean over the global batch, so that
     the mean over ranks of every rank's loss is the global loss and the mean of
     their gradients its gradient;
-  * ``all_reduce_mean_``: the gradients averaged over ranks in fp32 buckets;
+  * ``all_reduce_mean_``: the gradients averaged over the replicas in fp32
+    buckets;
   * ``mean_over_ranks``: the step's reported losses, as global values.
 
 Tensor parallelism over the model axis (the Megatron pair, ``ops/layers.py``):
@@ -46,41 +50,70 @@ row, and gathers through the list form of ``all_gather``.  Each element is the
 same sum of the same values on both paths.  ``gather_blocks_`` takes
 ``dist.gather`` on both.
 
+Pipeline parallelism over the pipe axis (``parallel/pipeline.py``):
+
+  * ``pipe_all_gather``: the stack's input and side inputs, every pipe rank's
+    rows (as many or not) concatenated in pipe order; backward, this rank's
+    rows of the gradient summed over the pipe ranks (every stage reads the
+    cross-attention memories, so each adds to their gradient);
+  * ``pipe_hand_back``: the last stage's outputs, each pipe rank its rows (the
+    JAX package's ``psum`` of the masked outputs, then a slice); backward,
+    every pipe rank's output gradient collected at the last stage;
+  * ``exchange``: one round of point-to-point sends and receives between
+    neighbouring stages, all posted before any is waited on
+    (``batch_isend_irecv``), so that no rank blocks in a send while its
+    neighbour blocks in its own.  NCCL moves device tensors; gloo sends host
+    tensors only, so a CUDA tensor goes through pinned host memory
+    (``transport()`` names the path), and a CPU one as it is.  ``PIPE_STATS``
+    counts the sends, the pipe collectives, their bytes and seconds.
+
 The backend's own rules hold: NCCL reduces CUDA tensors only, gloo both.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+import time
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from valor_tpu_torch.parallel import mesh as P
-from valor_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, collective_step, is_initialized
+from valor_tpu_torch.parallel.mesh import (
+    BATCH_AXIS, DATA_AXIS, MODEL_AXIS, PIPE_AXIS, REPLICA_AXIS, collective_step, is_initialized,
+)
 
 BUCKET_ELEMS = 1 << 25  # fp32 elements a gradient bucket (128 MiB)
 
 
+_AXES = {
+    DATA_AXIS: (P.data_rank, P.data_world),
+    MODEL_AXIS: (P.model_rank, P.model_world),
+    PIPE_AXIS: (P.pipe_rank, P.pipe_world),
+    BATCH_AXIS: (P.batch_rank, P.batch_world),
+    REPLICA_AXIS: (lambda: P.data_rank() * P.pipe_world() + P.pipe_rank(),
+                   lambda: P.data_world() * P.pipe_world()),
+}
+
+
 def _axis(axis: str):
     """(process group, this rank's index in it, its size) of ``axis``."""
-    if axis == MODEL_AXIS:
-        return P.model_group(), P.model_rank(), P.model_world()
-    if axis != DATA_AXIS:
-        raise ValueError(f"axis {axis!r}: {DATA_AXIS!r} or {MODEL_AXIS!r}")
-    return P.data_group(), P.data_rank(), P.data_world()
+    if axis not in _AXES:
+        raise ValueError(f"axis {axis!r}: one of {sorted(_AXES)}")
+    index, size = _AXES[axis]
+    return P.group(axis), index(), size()
 
 
 def process_count() -> int:
     return P.world_size()
 
 
-def axis_size(axis: str = DATA_AXIS) -> int:
+def axis_size(axis: str = BATCH_AXIS) -> int:
     """The ranks of ``axis``."""
     return _axis(axis)[2]
 
 
-def all_gather_objects(obj: Any, axis: str = DATA_AXIS) -> List[Any]:
+def all_gather_objects(obj: Any, axis: str = BATCH_AXIS) -> List[Any]:
     """One picklable object a rank -> the list in rank order."""
     group, _, world = _axis(axis)
     if world == 1:
@@ -90,7 +123,7 @@ def all_gather_objects(obj: Any, axis: str = DATA_AXIS) -> List[Any]:
     return out
 
 
-def all_gather_lists(items: Sequence[Any], axis: str = DATA_AXIS) -> List[Any]:
+def all_gather_lists(items: Sequence[Any], axis: str = BATCH_AXIS) -> List[Any]:
     """Every rank's list, concatenated in rank order."""
     return [x for chunk in all_gather_objects(list(items), axis) for x in chunk]
 
@@ -102,13 +135,13 @@ def all_gather_rows(items: Sequence[Any], shard) -> List[Any]:
     if shard is None:
         return list(items)
     out: List[Any] = [None] * shard.rows
-    rows = all_gather_lists(zip(range(shard.rows)[shard.index], items))
+    rows = all_gather_lists(zip(shard.row_ids(), items))
     for i, x in rows:
         out[i] = x
     return out
 
 
-def gather_arrays(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+def gather_arrays(x: torch.Tensor, axis: str = BATCH_AXIS) -> torch.Tensor:
     """A tensor of one shape on every rank, stacked in rank order."""
     group, _, world = _axis(axis)
     if world == 1:
@@ -118,7 +151,7 @@ def gather_arrays(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     return torch.stack(out)
 
 
-def all_gather_ragged(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_gather_ragged(x: torch.Tensor, axis: str = BATCH_AXIS) -> torch.Tensor:
     """Every rank's rows concatenated in rank order, where ranks hold
     different numbers of rows (ragged evaluation shards, an empty one
     included)."""
@@ -145,7 +178,7 @@ class _AllGather(torch.autograd.Function):
         return grad[r * ctx.rows : (r + 1) * ctx.rows], None
 
 
-def all_gather_with_grad(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_gather_with_grad(x: torch.Tensor, axis: str = BATCH_AXIS) -> torch.Tensor:
     """Every rank's rows (as many on each) concatenated in rank order; the
     gradient of this rank's rows is their gradient summed over every rank's
     loss."""
@@ -169,12 +202,12 @@ class _AllReduceMean(torch.autograd.Function):
         return grad / world, None
 
 
-def all_reduce_mean_with_grad(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_reduce_mean_with_grad(x: torch.Tensor, axis: str = BATCH_AXIS) -> torch.Tensor:
     """The mean over ranks, with the gradient of every rank's loss."""
     return x if _axis(axis)[2] == 1 else _AllReduceMean.apply(x, axis)
 
 
-def all_reduce_sum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, axis: str = BATCH_AXIS) -> torch.Tensor:
     """The sum over ranks, outside autograd (counts)."""
     group, _, world = _axis(axis)
     x = x.detach().clone()
@@ -183,7 +216,7 @@ def all_reduce_sum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     return x
 
 
-def sharded_mean(total: torch.Tensor, count, axis: str = DATA_AXIS) -> torch.Tensor:
+def sharded_mean(total: torch.Tensor, count, axis: str = BATCH_AXIS) -> torch.Tensor:
     """``total / count`` (count at least 1).  In a training step across
     ranks, this rank's share of the mean over the global batch: ``world *
     total / (count summed over ranks)``, whose mean over ranks is the global
@@ -194,7 +227,7 @@ def sharded_mean(total: torch.Tensor, count, axis: str = DATA_AXIS) -> torch.Ten
     return _axis(axis)[2] * total / all_reduce_sum(count, axis).clamp_min(1.0)
 
 
-def global_means(plain: torch.Tensor, with_grad: torch.Tensor, n: int, axis: str = DATA_AXIS):
+def global_means(plain: torch.Tensor, with_grad: torch.Tensor, n: int, axis: str = BATCH_AXIS):
     """Two means over ``n`` rows of this rank as means over the global batch
     (rows weighted by rank), the second with its gradient; as they are in one
     process."""
@@ -291,7 +324,7 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
     return [b for b in buckets if b]
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], axis: str = DATA_AXIS, divide: int = 0) -> int:
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], axis: str = REPLICA_AXIS, divide: int = 0) -> int:
     """Average ``tensors`` over ranks in place (or, with ``divide``, sum them
     and divide by it), through flat fp32 buckets of up to ``BUCKET_ELEMS``
     elements; returns the bytes reduced.  Runs whenever a process group is
@@ -379,7 +412,7 @@ def gather_blocks_(blocks: Sequence[torch.Tensor], wholes: Sequence[torch.Tensor
     return nbytes
 
 
-def mean_over_ranks(values: Dict[str, torch.Tensor], axis: str = DATA_AXIS) -> Dict[str, torch.Tensor]:
+def mean_over_ranks(values: Dict[str, torch.Tensor], axis: str = BATCH_AXIS) -> Dict[str, torch.Tensor]:
     """Scalars averaged over ranks, in one collective."""
     group, _, world = _axis(axis)
     if world == 1 or not values:
@@ -387,3 +420,149 @@ def mean_over_ranks(values: Dict[str, torch.Tensor], axis: str = DATA_AXIS) -> D
     stacked = torch.stack([v.float() for v in values.values()])
     dist.all_reduce(stacked, group=group)
     return dict(zip(values, stacked / world))
+
+
+# -- pipeline parallelism over the pipe axis -----------------------------------
+
+_STAT_KEYS = ("sends", "send_bytes", "send_s", "gathers", "gather_bytes", "gather_s",
+              "hand_backs", "hand_back_bytes", "hand_back_s")
+PIPE_STATS: Dict[str, float] = dict.fromkeys(_STAT_KEYS, 0)
+_PINNED: Dict[Tuple, torch.Tensor] = {}  # (shape, dtype, slot) -> a pinned host buffer, reused
+
+
+def reset_pipe_stats() -> None:
+    """Start ``PIPE_STATS`` again at 0."""
+    PIPE_STATS.update(dict.fromkeys(_STAT_KEYS, 0))
+
+
+def _count(kind: str, nbytes: int, t0: float) -> None:
+    PIPE_STATS[kind + "s"] += 1
+    PIPE_STATS[kind + "_bytes"] += nbytes
+    PIPE_STATS[kind + "_s"] += time.perf_counter() - t0
+
+
+def transport(device) -> str:
+    """How the point-to-point sends of a tensor on ``device`` travel: "nccl"
+    (device to device), "gloo-pinned-host" (a CUDA tensor copied through
+    pinned host memory: gloo sends host tensors only) or "gloo-host"."""
+    if _nccl():
+        return "nccl"
+    return "gloo-pinned-host" if torch.device(device).type == "cuda" else "gloo-host"
+
+
+def _pinned(shape, dtype, slot) -> torch.Tensor:
+    key = (tuple(shape), dtype, slot)
+    if key not in _PINNED:
+        _PINNED[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+    return _PINNED[key]
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[tuple, torch.dtype, int]],
+             device, count: bool = True) -> List[torch.Tensor]:
+    """One round of point-to-point traffic: each ``(tensor, dst)`` of
+    ``sends`` to global rank dst, and a tensor of each ``(shape, dtype,
+    src)`` of ``recvs`` from global rank src, all posted at once and then
+    waited on; returns the received tensors on ``device``, in ``recvs``
+    order.  ``count``: the sends are stage traffic (``PIPE_STATS``)."""
+    if not sends and not recvs:
+        return []
+    t0 = time.perf_counter()
+    staged = transport(device) == "gloo-pinned-host"
+    ops, bufs, nbytes = [], [], 0
+    for i, (t, dst) in enumerate(sends):
+        buf = t.detach().contiguous()
+        if staged:
+            buf = _pinned(buf.shape, buf.dtype, ("send", i)).copy_(buf)
+        ops.append(dist.P2POp(dist.isend, buf, dst))
+        nbytes += buf.numel() * buf.element_size()
+    for i, (shape, dtype, src) in enumerate(recvs):
+        buf = _pinned(shape, dtype, ("recv", i)) if staged else torch.empty(shape, dtype=dtype, device=device)
+        ops.append(dist.P2POp(dist.irecv, buf, src))
+        bufs.append(buf)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    out = [b.to(device, copy=True) if staged else b for b in bufs]
+    if count:
+        PIPE_STATS["sends"] += len(sends)
+        PIPE_STATS["send_bytes"] += nbytes
+        PIPE_STATS["send_s"] += time.perf_counter() - t0
+    return out
+
+
+class _PipeGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sizes):
+        t0 = time.perf_counter()
+        group, r, world = _axis(PIPE_AXIS)
+        ctx.sizes, ctx.rank = sizes, r
+        pad = x.new_zeros((max(sizes),) + tuple(x.shape[1:]))
+        pad[: x.shape[0]] = x
+        parts = [torch.empty_like(pad) for _ in range(world)]
+        dist.all_gather(parts, pad, group=group)
+        out = torch.cat([part[:n] for part, n in zip(parts, sizes)])
+        _count("gather", out.numel() * out.element_size(), t0)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        t0 = time.perf_counter()
+        group, _, _ = _axis(PIPE_AXIS)
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=group)
+        off = sum(ctx.sizes[: ctx.rank])
+        _count("gather", grad.numel() * grad.element_size(), t0)
+        return grad[off : off + ctx.sizes[ctx.rank]], None
+
+
+def pipe_all_gather(x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """Every pipe rank's rows (``sizes[p]`` of them on pipe rank p)
+    concatenated in pipe order; the gradient of this rank's rows is theirs
+    summed over the pipe ranks."""
+    return _PipeGather.apply(x, list(sizes))
+
+
+class _HandBack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, spans):
+        t0 = time.perf_counter()
+        _, r, world = _axis(PIPE_AXIS)
+        last = world - 1
+        ctx.spans, ctx.rank, ctx.shape = spans, r, out.shape
+        rest = tuple(out.shape[1:])
+        if r == last:
+            exchange([(out[a:b], P.global_rank(PIPE_AXIS, p)) for p, (a, b) in enumerate(spans) if p != last],
+                     [], out.device, count=False)
+            a, b = spans[last]
+            mine = out[a:b].clone()
+        else:
+            a, b = spans[r]
+            mine, = exchange([], [((b - a,) + rest, out.dtype, P.global_rank(PIPE_AXIS, last))], out.device,
+                             count=False)
+        _count("hand_back", mine.numel() * mine.element_size(), t0)
+        return mine
+
+    @staticmethod
+    def backward(ctx, grad):
+        t0 = time.perf_counter()
+        _, r, world = _axis(PIPE_AXIS)
+        last, spans = world - 1, ctx.spans
+        grad = grad.contiguous()
+        full = grad.new_zeros(ctx.shape)
+        if r == last:
+            others = [p for p in range(world) if p != last]
+            got = exchange([], [((spans[p][1] - spans[p][0],) + tuple(ctx.shape[1:]), grad.dtype,
+                                 P.global_rank(PIPE_AXIS, p)) for p in others], grad.device, count=False)
+            for p, g in zip(others + [last], got + [grad]):
+                full[spans[p][0] : spans[p][1]] += g
+        else:
+            exchange([(grad, P.global_rank(PIPE_AXIS, last))], [], grad.device, count=False)
+        _count("hand_back", grad.numel() * grad.element_size(), t0)
+        return full, None
+
+
+def pipe_hand_back(out: torch.Tensor, spans: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The last stage's outputs ``out`` (whatever the other pipe ranks pass),
+    rows ``spans[p]`` of them to pipe rank p; backward, every pipe rank's
+    output gradient summed into the last stage's (the other ranks' input
+    gradient is zeros)."""
+    return _HandBack.apply(out, [tuple(s) for s in spans])

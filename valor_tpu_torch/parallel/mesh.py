@@ -1,4 +1,4 @@
-"""The data axis across processes (counterpart of ``valor_tpu/parallel/mesh.py``).
+"""The mesh across processes (counterpart of ``valor_tpu/parallel/mesh.py``).
 
 The JAX package trains data-parallel over a device mesh: its loaders give each
 process a shard of every global batch, XLA averages the gradients over the
@@ -19,22 +19,28 @@ makes that arithmetic explicit:
     (``parallel/collectives.py``), and the gradients are averaged over ranks
     before the update (``train/step.py``).
 
-The parameter axes (``make_mesh``): ``model_shards`` M splits the W ranks
-into a (data, model) grid with ``model`` innermost, as the JAX package's
-``make_mesh`` reshapes its devices: rank r is data rank r // M and model rank
-r % M.  One ``torch.distributed`` group a data row (the M ranks of one data
-rank: tensor parallelism's all-reduces) and one a model column (the W / M ranks
-of one model rank: the data axis's collectives) are made in the same order on
-every rank.  Batch shards, the loaders and random draws follow the data axis:
-the M ranks of one data rank hold the same rows and make the same draws.
-``parallel/partition.py`` places the parameters over both axes (tensor
-parallelism over ``model``, ``fsdp`` over ``data``) and keeps the ZeRO-1 rule
-of ``zero_optimizer``; MoE experts (``ops/moe.py``) and, with
-``sequence_parallel``, the fusion sequence (``parallel/activations.py``) split
-over ``model`` too.  The knob still to come, ``fusion_pipeline_stages``, is
-read and ignored by one process and refused across processes
-(``check_data_parallel``), naming the part of ROADMAP item 13 that will bring
-it.
+The parameter axes (``make_mesh``): ``model_shards`` M and
+``fusion_pipeline_stages`` P split the W ranks into a (data, model, pipe) grid
+with ``pipe`` innermost, as the JAX package's ``make_mesh`` reshapes its
+devices to (n_data, n_model, n_pipe): rank r is data rank r // (M P), model
+rank (r // P) % M and pipe rank r % P.  One ``torch.distributed`` group a line
+of each axis (a data row's M model ranks: tensor parallelism's all-reduces; a
+(model, pipe) column's D data ranks: ``fsdp`` and ZeRO-1; a (data, model)
+row's P pipe ranks: the pipeline's gathers) and one of every rank of one model
+rank (the D P replicas of a parameter: the gradients' mean) are made in the
+same order on every rank.  The M ranks of one data rank hold the same rows and
+make the same draws.  The pipe axis acts on the batch as the JAX package's
+``shard_batch`` does: where the global batch divides D P (``fold_pipe``), its
+rows spread over data x pipe (the ``batch`` axis is the D P replicas: the
+loaders, random draws, loss normalisers and evaluation gathers follow it), so
+the towers and heads run on B / (D P) rows; otherwise the P ranks of one data
+rank hold the same rows, as the model ranks do, and the ``batch`` axis is the
+data axis.  ``parallel/partition.py`` places the parameters over the data and
+model axes (tensor parallelism over ``model``, ``fsdp`` over ``data``) and
+keeps the ZeRO-1 rule of ``zero_optimizer``; MoE experts (``ops/moe.py``) and,
+with ``sequence_parallel``, the fusion sequence (``parallel/activations.py``)
+split over ``model`` too; the fusion stack's layers split into stages over
+``pipe`` (``parallel/pipeline.py``), every rank holding every layer.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import dataclasses
 import math
 import os
 import threading
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -52,16 +58,16 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 ZERO_MIN_ELEMS = 1 << 14  # smaller leaves stay whole on every rank (replication is cheaper)
 MODEL_AXIS = "model"
-LATER_PART = {  # knob -> the part of ROADMAP item 13 that brings it
-    "fusion_pipeline_stages": "ROADMAP item 13e, pipeline parallelism",
-}
+PIPE_AXIS = "pipe"
+BATCH_AXIS = "batch"  # the ranks a step's rows spread over: data x pipe where the pipe folds, else data
+REPLICA_AXIS = "replica"  # every rank of one model rank: the replicas whose gradients are averaged
 
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
     """This process's place in the group and, after ``make_mesh``, in the
-    (data, model) grid: both ranks, both worlds and both groups (None: the
-    default group, or no group)."""
+    (data, model, pipe) grid: its ranks, the worlds and the groups of the data
+    and model axes (None: the default group, or no group)."""
 
     rank: int
     world: int
@@ -74,6 +80,8 @@ class DataParallel:
     model_world: int = 1
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    pipe_world: int = 1
+    batch_world: int = 1
 
 
 def launched() -> bool:
@@ -99,39 +107,64 @@ def rank() -> int:
 @dataclasses.dataclass(frozen=True)
 class _Grid:
     model_shards: int
+    pipe_stages: int
     world: int
-    data_group: Optional[object]
-    model_group: Optional[object]
+    groups: Dict[str, Optional[object]]  # axis -> this rank's group (None: the default group)
+    fold_pipe: bool = True
 
 
-_GRID: Dict[tuple, _Grid] = {}  # (group's world, model_shards) -> its groups, made once
+_GRID: Dict[tuple, _Grid] = {}  # (world, model_shards, pipe_stages) -> its groups, made once
 _CURRENT: list = [None]  # the grid of the last make_mesh, while the group lives
 
 
-def make_mesh(model_shards: int, device) -> DataParallel:
-    """The (data, model) grid of this process group with ``model_shards`` M
-    ranks on the model axis (the counterpart of ``valor_tpu/parallel/mesh.py:
-    make_mesh``): rank r is data rank r // M and model rank r % M.  Every rank
-    calls it with the same M (it makes groups, a collective); one process, or
-    M = 1, makes none.  ``ValueError`` where M does not divide the ranks.
-    Returns this process's place in it, on ``device``."""
+def _lines(world: int, m: int, p: int) -> Dict[str, List[List[int]]]:
+    """Every line of each axis of the (data, model, pipe) grid, as global
+    ranks in axis order (rank r is (r // (m p), (r // p) % m, r % p))."""
+    d = world // (m * p)
+    at = lambda i, j, k: (i * m + j) * p + k  # noqa: E731
+    return {
+        DATA_AXIS: [[at(i, j, k) for i in range(d)] for j in range(m) for k in range(p)],
+        MODEL_AXIS: [[at(i, j, k) for j in range(m)] for i in range(d) for k in range(p)],
+        PIPE_AXIS: [[at(i, j, k) for k in range(p)] for i in range(d) for j in range(m)],
+        REPLICA_AXIS: [[at(i, j, k) for i in range(d) for k in range(p)] for j in range(m)],
+    }
+
+
+def make_mesh(model_shards: int, device, pipe_stages: int = 1, fold_pipe: bool = True) -> DataParallel:
+    """The (data, model, pipe) grid of this process group with
+    ``model_shards`` M ranks on the model axis and ``pipe_stages`` P on the
+    pipe axis (the counterpart of ``valor_tpu/parallel/mesh.py:make_mesh``):
+    rank r is data rank r // (M P), model rank (r // P) % M and pipe rank
+    r % P.  ``fold_pipe``: the step's rows spread over data x pipe (the
+    caller's global batches divide D P), else the pipe ranks of one data rank
+    hold the same rows.  Every rank calls it with the same arguments (it makes
+    groups, a collective); one process, or M = P = 1, makes none.
+    ``ValueError`` where M P does not divide the ranks.  Returns this
+    process's place in it, on ``device``."""
     world = world_size()
-    if model_shards < 1 or world % model_shards:
-        raise ValueError(f"model_shards {model_shards} does not divide the {world} ranks")
-    if not is_initialized() or model_shards == 1:
+    if model_shards < 1 or pipe_stages < 1 or world % (model_shards * pipe_stages):
+        what = f"model_shards {model_shards}" + (f" x pipe stages {pipe_stages}" if pipe_stages != 1 else "")
+        raise ValueError(f"{what} does not divide the {world} ranks")
+    if not is_initialized() or model_shards * pipe_stages == 1:
         _CURRENT[0] = None
     else:
-        key = (world, model_shards)
+        key = (world, model_shards, pipe_stages)
         if key not in _GRID:
-            m = model_shards
-            rows = [dist.new_group(list(range(d * m, (d + 1) * m))) for d in range(world // m)]
-            cols = [dist.new_group(list(range(j, world, m))) for j in range(m)]
             r = rank()
-            _GRID[key] = _Grid(m, world, cols[r % m], rows[r // m])
-        _CURRENT[0] = _GRID[key]
+            groups: Dict[str, Optional[object]] = {}
+            made: Dict[tuple, Optional[object]] = {tuple(range(world)): None}  # one group a set of ranks
+            for axis, lines in _lines(world, model_shards, pipe_stages).items():
+                for line in lines:
+                    if tuple(line) not in made:
+                        made[tuple(line)] = dist.new_group(line)
+                    if r in line:
+                        groups[axis] = made[tuple(line)]
+            _GRID[key] = _Grid(model_shards, pipe_stages, world, groups)
+        _CURRENT[0] = dataclasses.replace(_GRID[key], fold_pipe=bool(fold_pipe))
     return DataParallel(rank(), world_size(), int(os.environ.get("LOCAL_RANK", rank())),
                         dist.get_backend() if is_initialized() else "none", torch.device(device),
-                        data_rank(), data_world(), model_rank(), model_world(), data_group(), model_group())
+                        data_rank(), data_world(), model_rank(), model_world(), data_group(), model_group(),
+                        pipe_world(), batch_world())
 
 
 def _grid() -> Optional[_Grid]:
@@ -144,30 +177,71 @@ def model_world() -> int:
     return g.model_shards if g is not None else 1
 
 
+def pipe_world() -> int:
+    g = _grid()
+    return g.pipe_stages if g is not None else 1
+
+
 def model_rank() -> int:
-    return rank() % model_world()
+    return (rank() // pipe_world()) % model_world()
+
+
+def pipe_rank() -> int:
+    return rank() % pipe_world()
 
 
 def data_world() -> int:
-    return world_size() // model_world()
+    return world_size() // (model_world() * pipe_world())
 
 
 def data_rank() -> int:
-    return rank() // model_world()
+    return rank() // (model_world() * pipe_world())
+
+
+def pipe_folds() -> bool:
+    """Whether the step's rows spread over data x pipe (else the pipe ranks of
+    one data rank hold the same rows)."""
+    g = _grid()
+    return g is not None and g.pipe_stages > 1 and g.fold_pipe
+
+
+def batch_world() -> int:
+    """The ranks a step's rows spread over (the ``batch`` axis)."""
+    return data_world() * (pipe_world() if pipe_folds() else 1)
+
+
+def batch_rank() -> int:
+    return data_rank() * pipe_world() + pipe_rank() if pipe_folds() else data_rank()
+
+
+def group(axis: str):
+    """The process group of this rank's line of ``axis`` (None: the default
+    group, which is that line where the axis spans every rank, or where there
+    is no grid)."""
+    g = _grid()
+    if g is None:
+        return None
+    if axis == BATCH_AXIS:
+        axis = REPLICA_AXIS if pipe_folds() else DATA_AXIS
+    return g.groups[axis]
 
 
 def data_group():
-    """The process group of this rank's model column (the data axis); None,
-    the default group, where there is no model axis."""
-    g = _grid()
-    return g.data_group if g is not None else None
+    """The process group of this rank's (model, pipe) column (the data axis);
+    None, the default group, where there is no model or pipe axis."""
+    return group(DATA_AXIS)
 
 
 def model_group():
     """The process group of this rank's data row (the model axis); None where
     there is no model axis."""
-    g = _grid()
-    return g.model_group if g is not None else None
+    return group(MODEL_AXIS)
+
+
+def global_rank(axis: str, index: int) -> int:
+    """The global rank of member ``index`` of this rank's line of ``axis``."""
+    grp = group(axis)
+    return index if grp is None else dist.get_global_rank(grp, index)
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
@@ -213,7 +287,7 @@ def init_data_parallel(backend: Optional[str] = None, device=None) -> DataParall
     if not joined:
         dist.init_process_group(backend, rank=r, world_size=world)
     return DataParallel(r, world, local, backend, dev, data_rank(), data_world(), model_rank(), model_world(),
-                        data_group(), model_group())
+                        data_group(), model_group(), pipe_world(), batch_world())
 
 
 def shutdown() -> None:
@@ -230,25 +304,26 @@ def barrier() -> None:
 
 
 def local_batch_size(global_batch: int, world: int) -> int:
-    """A rank's rows of a global training batch (``world``: the data axis's ranks)."""
+    """A rank's rows of a global training batch (``world``: the batch axis's ranks)."""
     if global_batch % world:
         raise ValueError(f"global batch {global_batch} not divisible by the {world} ranks "
-                         f"of the {DATA_AXIS!r} axis")
+                         f"of the {BATCH_AXIS!r} axis")
     return global_batch // world
 
 
 def check_data_parallel(cfg, world: int) -> None:
-    """Refuse, across processes, the mesh knobs still to come, each with the
-    part of ROADMAP item 13 that will bring it, and a ``model_shards`` that
-    does not divide the ranks (``ValueError``).  One process reads and ignores
-    every mesh knob.  SCST, ``zero_optimizer``, ``fsdp``, ``model_shards``
-    (with MoE experts too) and ``sequence_parallel`` run across processes."""
+    """Refuse, across processes, a grid that does not fit the ranks: a
+    ``model_shards`` M, times the ``fusion_pipeline_stages`` S where there are
+    stages, that does not divide them (``ValueError``).  One process reads and
+    ignores every mesh knob.  SCST, ``zero_optimizer``, ``fsdp``,
+    ``model_shards`` (with MoE experts too), ``sequence_parallel`` and pipeline
+    stages run across processes (MoE with stages is refused by the model,
+    ``models/bert.py``, as the JAX package's)."""
     if world <= 1:
         return
-    knob = "fusion_pipeline_stages"
-    if cfg.model.fusion_pipeline_stages > 0:
-        raise NotImplementedError(f"{knob} across {world} processes: {LATER_PART[knob]}")
-    m = cfg.train.model_shards
+    m, s = cfg.train.model_shards, cfg.model.fusion_pipeline_stages
+    if s > 0 and (m < 1 or world % (m * s)):
+        raise ValueError(f"fusion_pipeline_stages {s} x model_shards {m} does not divide the {world} ranks")
     if m < 1 or world % m:
         raise ValueError(f"model_shards {m} does not divide the {world} ranks")
 
@@ -266,18 +341,23 @@ def zero_sharded(shape, world: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
-    """This rank's ``index`` of the ``rows`` rows of a global batch;
-    ``collective``: the forward's losses reduce over ranks (a training step;
-    an evaluation forward runs no collective, since ranks may hold different
-    numbers of evaluation batches)."""
+    """This rank's ``index`` of the ``rows`` rows of a global batch (a slice,
+    or a tuple of rows: a pipeline microbatch's); ``collective``: the
+    forward's losses reduce over ranks (a training step; an evaluation forward
+    runs no collective, since ranks may hold different numbers of evaluation
+    batches)."""
 
     rows: int
-    index: slice
+    index: Union[slice, Tuple[int, ...]]
     collective: bool = False
+
+    def row_ids(self) -> List[int]:
+        """The global rows this rank holds, in its order."""
+        return list(range(self.rows)[self.index]) if isinstance(self.index, slice) else list(self.index)
 
     @property
     def local(self) -> int:
-        return len(range(self.rows)[self.index])
+        return len(self.row_ids())
 
 
 _SHARD = threading.local()  # .shard: the enclosing batch_shard's, per thread
@@ -308,14 +388,16 @@ _ROW_KEYS = ("video_pixels", "audio_spectrograms", "audio_waveforms", "bert_toke
 
 
 def step_shard(batch) -> Optional[BatchShard]:
-    """The shard of a training step's batch across the data axis (None with
-    one data rank): every rank holds the same number of rows, its rows of the
-    global batch strided as the sampler's shards."""
-    world = data_world()
-    if world == 1:
+    """The shard of a training step's batch across the batch axis (None with
+    one rank there and no pipe axis): every rank holds the same number of
+    rows, its rows of the global batch strided as the sampler's shards.  With
+    a pipe axis the step is always collective, so that the fusion stack
+    pipelines (``parallel/pipeline.py``)."""
+    world = batch_world()
+    if world == 1 and pipe_world() == 1:
         return None
     n = next(batch[k].shape[0] for k in _ROW_KEYS if batch.get(k) is not None)
-    return BatchShard(n * world, slice(data_rank(), n * world, world), collective=True)
+    return BatchShard(n * world, slice(batch_rank(), n * world, world), collective=True)
 
 
 def sampler_shard(sampler, k: int) -> Optional[BatchShard]:
@@ -331,9 +413,9 @@ def sampler_shard(sampler, k: int) -> Optional[BatchShard]:
 
 
 def answer_shard(n: int, counts: Sequence[int]) -> BatchShard:
-    """The shard of a QA step's tiled answer rows: the data ranks' rows
+    """The shard of a QA step's tiled answer rows: the batch axis's rows
     (``counts``, ``n`` of them this rank's) concatenated in rank order."""
-    off = sum(counts[: data_rank()])
+    off = sum(counts[: batch_rank()])
     return BatchShard(sum(counts), slice(off, off + n), collective=True)
 
 
@@ -350,5 +432,6 @@ def draw_rows(draw: Callable[[tuple], torch.Tensor], shape) -> torch.Tensor:
     if not s.local or n % s.local:
         raise ValueError(f"a draw of {n} rows in a shard of {s.local} rows")
     k = n // s.local
-    full = draw((s.rows * k,) + rest)
-    return full.reshape((s.rows, k) + rest)[s.index].reshape(shape)
+    full = draw((s.rows * k,) + rest).reshape((s.rows, k) + rest)
+    index = s.index if isinstance(s.index, slice) else torch.tensor(s.index, device=full.device)
+    return full[index].reshape(shape)

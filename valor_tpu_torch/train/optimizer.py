@@ -29,9 +29,10 @@ every k calls.  The arithmetic is plain tensor code over lists
 Placed parameters (``parallel/partition.py``: tensor parallelism over the
 model axis, ``fsdp`` over the data axis) are this rank's blocks, and the
 moments and the accumulator are shaped like them.  ``reduce_grads`` averages
-the gradients over the data axis only: an ``fsdp`` block's gradient arrives
-summed over the data ranks (``parallel/fsdp.py``'s reduce-scatter) and is
-divided, a model-split leaf's is its own and is averaged over its data ranks,
+the gradients over the data and pipe axes only (a parameter's replicas): an
+``fsdp`` block's gradient arrives summed over the data ranks
+(``parallel/fsdp.py``'s reduce-scatter) and is summed over the pipe ranks and
+divided, a model-split leaf's is its own and is averaged over its replicas,
 and a replicated leaf whose use is split by heads (VideoSwin's bias tables) is
 first summed over the model axis.  The flat clip's norm is the global one: the
 squares of model-split leaves summed over the model axis, of data-split
@@ -270,22 +271,32 @@ class GroupedAdam:
         self._waits.append(event)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Every parameter's gradient averaged over the data axis (where a
-        process group is set): in place through ``all_reduce_mean_``; an
-        ``fsdp`` block's gradient, summed over the data ranks already, divided
-        by them; a model-partial leaf's summed over the model axis first; under
-        ZeRO-1 a split leaf's gradient handed as this rank's block
-        (``reduce_scatter_mean``)."""
+        """Every parameter's gradient averaged over its replicas, the data x
+        pipe ranks of its model rank (where a process group is set): in place
+        through ``all_reduce_mean_``; an ``fsdp`` block's gradient, summed over
+        the data ranks already, summed over the pipe ranks and divided by both;
+        a model-partial leaf's summed over the model axis first; under ZeRO-1 a
+        split leaf's gradient averaged over the pipe ranks, then handed as this
+        rank's block of its mean over the data ranks (``reduce_scatter_mean``).
+        A fusion layer's gradient arises on its stage's pipe ranks only, the
+        others giving zeros, and each stage's is over its data rank's rows
+        (``parallel/pipeline.py``), so the mean over the replicas is one
+        process's gradient on the global batch."""
         grads = list(grads)
+        pipe = P.pipe_world() > 1
         partial = [g for g, pl in zip(grads, self.place) if pl.model_partial]
         if partial and P.model_world() > 1:
             C.all_reduce_mean_(partial, C.MODEL_AXIS, divide=1)
         fsdp = [g for g, pl in zip(grads, self.place) if pl.data_dim is not None]
-        if fsdp and P.data_world() > 1:
-            torch._foreach_div_(fsdp, float(P.data_world()))
+        if fsdp and pipe:
+            C.all_reduce_mean_(fsdp, C.PIPE_AXIS, divide=1)
+        if fsdp and P.data_world() * P.pipe_world() > 1:
+            torch._foreach_div_(fsdp, float(P.data_world() * P.pipe_world()))
         rest = [i for i, pl in enumerate(self.place) if pl.data_dim is None]
         C.all_reduce_mean_([grads[i] for i in rest if not self.sharded[i]])
         split = [i for i in rest if self.sharded[i]]
+        if split and pipe:
+            C.all_reduce_mean_([grads[i] for i in split], C.PIPE_AXIS)
         if split:
             for i, block in zip(split, C.reduce_scatter_mean([grads[i] for i in split])):
                 grads[i] = block.to(grads[i].dtype)

@@ -19,10 +19,12 @@ in fp32 before the cast and the update (``GroupedAdam.reduce_grads``: under
 ZeRO-1 a split leaf's gradient as this rank's block), and the reported losses
 are the global batch's.  Every rank then makes the same update, the one a
 single process makes on the global batch.  ``scst_update`` does the same with
-the SCST loss normalised over the global batch.  On a (data, model) mesh
+the SCST loss normalised over the global batch.  On a (data, model, pipe) mesh
 (``parallel/partition.py``) the step runs unchanged in form over this rank's
 tensors: the model axis's collectives sit in the layers, ``fsdp``'s in the
-reads of its parameters, and ``reduce_grads`` reduces over the data axis.
+reads of its parameters, the pipeline's in the fusion stack
+(``parallel/pipeline.py``: a fusion layer's gradient arises on its stage's
+ranks), and ``reduce_grads`` averages over the data and pipe axes.
 """
 
 from __future__ import annotations

@@ -213,10 +213,12 @@ class Trainer:
         every rank holds the same alpha), and the update's loss is normalised
         over the global batch with its gradients averaged over ranks
         (``train/step.py:scst_update``): W ranks make one process's step.  On
-        a (data, model) mesh the rows, draws and gathers are the data axis's,
-        so the model ranks of one data rank sample the same tokens; the
-        rollouts read ``fsdp``'s parameters gathered once
-        (``parallel/fsdp.py:unsharded``)."""
+        a (data, model, pipe) mesh the rows, draws and gathers are the batch
+        axis's, so the model ranks of one data rank sample the same tokens;
+        the rollouts read ``fsdp``'s parameters gathered once
+        (``parallel/fsdp.py:unsharded``) and decode the fusion stack whole,
+        while the update's forward pipelines it over the pipe axis where
+        there is one (its shard is a training step's)."""
         if self.scorer is None:
             raise ValueError("SCST needs a Scorer over the training annotations")
         c = self.cfg.model
