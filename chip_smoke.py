@@ -50,10 +50,15 @@ line:
      1k-A shapes of the four fine groups (tva, tv, vta, atv; 1000 x 1000) and
      the MSCOCO 5k gallery (25000 captions x 5000 images, V = 1), and tva at
      VALOR-large's D = 768, fp32 and tva also bf16, plus the three edge cases
-     of tests/test_pallas.py at D = 512,
+     of tests/test_pallas.py at D = 512 and negative_rows at D = 4096 (fp32
+     and bf16),
      with its device time (CUDA graph replays) beside the plain version's, the
      fp32 GEMM of the same product (``torch.matmul``, TF32 off; a yardstick,
-     not the same function), both bounds, and the wrapper's host cost a call;
+     not the same function; for fp32 also one TF32 GEMM, for bf16 the bf16
+     GEMM), the bounds (fp32:
+     the FMA units' and 3xTF32's, the faster one the bound), the share of
+     the bound, the TFLOP/s reached and the rate at which the kernel's tiles
+     read their operands, and the wrapper's host cost a call;
   11. the tiny config on the card against the CPU, fp32 with TF32 off: one
      ``ret%tva%tv`` training step (losses, gradients and updated parameters to
      phase 7's tolerances) and ``validate_ret`` over a 12-item gallery (score
@@ -372,6 +377,7 @@ PT_TASK = "pt_contra%tva%tv%ta_caption%tva%tv%ta"
 RET_TASK = "ret%tva%tv"
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores (fp32 accumulation), dense
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 FS_SHAPES = [  # name, A, B, T, V, D: what the retrieval evaluation hands the fine-score kernel
     ("msrvtt_tva", 1000, 1000, 32, 10, 512),  # captions x (8 frames + 2 clips)
     ("msrvtt_tv", 1000, 1000, 32, 8, 512),
@@ -380,11 +386,20 @@ FS_SHAPES = [  # name, A, B, T, V, D: what the retrieval evaluation hands the fi
     ("mscoco_5k", 25000, 5000, 32, 1, 512),  # 5 captions an image, one image token
     ("msrvtt_tva_d768", 1000, 1000, 32, 10, 768),  # VALOR-large's CLIP-L embedding
 ]
-FS_EDGES = [  # name, A, B, T, V: the cases of tests/test_pallas.py::TestFineScoreFused, at D = 512
-    ("unaligned", 9, 21, 7, 5), ("negative_rows", 4, 4, 3, 2), ("masked_tokens_zero", 5, 6, 4, 3),
+FS_EDGES = [  # name, A, B, T, V, D, dtype: the cases of tests/test_pallas.py::TestFineScoreFused, at
+    # D = 512, and negative_rows at D = 4096 in both types, whose dots' terms all share a sign (no
+    # cancellation hides the rounding of the tensor cores' accumulators; bf16 sums a whole dot in
+    # one accumulator, the route with the least margin)
+    ("unaligned", 9, 21, 7, 5, 512, "float32"), ("negative_rows", 4, 4, 3, 2, 512, "float32"),
+    ("masked_tokens_zero", 5, 6, 4, 3, 512, "float32"),
+    ("negative_rows", 4, 4, 3, 2, 4096, "float32"), ("negative_rows", 4, 4, 3, 2, 4096, "bfloat16"),
 ]
-# kernel against plain version: fp32 FMAs in another order on unit-norm features
-# (|dot| <= 1); bf16 features are upcast exactly on both sides, so the same holds
+# kernel against plain version, on unit-norm features (|dot| <= 1): bf16 products are
+# exact in fp32 on the tensor cores, and fp32 features run as 3xTF32 (hi.hi + hi.lo +
+# lo.hi of x = hi + lo), whose dropped lo.lo is about 2**-22 of a term, below fp32's own
+# rounding of the sum; only the order of the sum differs from the plain version's.  One
+# TF32 product (2**-11 a term) would miss this tolerance
+# (tests/test_torch_fine_score.py::test_single_tf32_misses_the_tolerance).
 FS_TOL = "abs 1e-5 + rel 1e-5"
 
 
@@ -1246,17 +1261,24 @@ def check_fine(args, what: str) -> float:
 
 def fine_bounds(a, b, t, v, d, feat_dtype) -> dict:
     """The least time of the fine score on the card: 2*A*B*T*V*D flops at the
-    card's peak for the feature type (bf16 products are exact in fp32, so the
-    tensor cores' bf16 rate; fp32 outside the tensor cores, since TF32 would
-    miss the tolerance), against the bytes of every input read once
-    (features, masks, raw weights) and the output written once."""
+    card's peak for the feature type, against the bytes of every input read
+    once (features, masks, raw weights) and the output written once.  bf16
+    products are exact in fp32, so bf16 runs at the tensor cores' bf16 rate.
+    fp32 has two ways: the FMA units, and 3xTF32 (three TF32 products, which
+    hold the tolerance, ``FS_TOL``); its operations bound is the faster of the
+    two, and ``ops_peak`` names it."""
     import torch
 
     flop = 2 * a * b * t * v * d
-    peak = BF16_FLOPS_PER_S if feat_dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    if feat_dtype == torch.bfloat16:
+        ways = {"bf16 tensor cores": flop / BF16_FLOPS_PER_S * 1e3}
+    else:
+        ways = {"fp32 FMA": flop / FP32_FLOPS_PER_S * 1e3, "3xTF32 tensor cores": 3 * flop / TF32_FLOPS_PER_S * 1e3}
+    ops_peak = min(ways, key=ways.get)
     nbytes = (a * t + b * v) * (d * feat_dtype.itemsize + 8) + a * b * 4
-    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"flop": flop, "bytes": nbytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+    ops_ms, bytes_ms = ways[ops_peak], nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flop": flop, "bytes": nbytes, "ops_bound_ms": ops_ms, "ops_peak": ops_peak,
+            "ops_bound_ms_by_peak": ways, "bytes_bound_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -1285,18 +1307,35 @@ def phase_fine_score():
                 "kernel_host_us": host_us(lambda: K2.fine_score_fused(*args), 5 if big else 20),
                 **fine_bounds(a, b, t, v, d, args[0].dtype),
             }
+            if dt == "bfloat16":  # the bare bf16 product beside the fp32 one (yardsticks)
+                del prod
+                qh, gh = args[0].reshape(a * t, d), args[1].reshape(b * v, d)
+                prod = torch.empty(a * t, b * v, device="cuda", dtype=torch.bfloat16)
+                row["gemm_bf16_ms"] = graph_ms(lambda: torch.matmul(qh, gh.t(), out=prod), iters, reps)
+            else:  # one TF32 product: what cuBLAS reaches in TF32 (3xTF32 does three)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    row["gemm_tf32_ms"] = graph_ms(lambda: torch.matmul(qa, gb.t(), out=prod), iters, reps)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["tflop_per_s"] = row["flop"] / row["kernel_ms"] / 1e9
+            # the bytes that the product's tiles copy from the packed operands, and their rate:
+            # the operand traffic that a tile's size sets
+            row["tile_read_bytes"] = K2.layout(a, b, t, v, d, dt == "bfloat16")["read_bytes"]
+            row["tile_read_tb_per_s"] = row["tile_read_bytes"] / row["kernel_ms"] / 1e9
             rows.append(row)
             log("fine_score " + json.dumps(row))
             del args, qa, gb, prod
             gc.collect()
             torch.cuda.empty_cache()
-    for name, a, b, t, v in FS_EDGES:
-        args = _fs_inputs(a, b, t, v, 512, torch.float32, gen, edge=name)
-        err = check_fine(args, f"fine_score edge case {name}")
+    for name, a, b, t, v, d, dt in FS_EDGES:
+        args = _fs_inputs(a, b, t, v, d, getattr(torch, dt), gen, edge=name)
+        err = check_fine(args, f"fine_score edge case {name} D={d} {dt}")
         if name == "negative_rows" and not float(K2.fine_score_fused(*args).max()) < 0:
             raise AssertionError("negative_rows: the edge case is not live (a score is >= 0)")
-        row = {"shape": f"{name} A={a} B={b} T={t} V={v} D=512 float32",
-               "sig": [a, b, t, v, 512, "float32"], "max_abs_err": err, "tol": FS_TOL}
+        row = {"shape": f"{name} A={a} B={b} T={t} V={v} D={d} {dt}",
+               "sig": [a, b, t, v, d, dt], "max_abs_err": err, "tol": FS_TOL}
         rows.append(row)
         log("fine_score " + json.dumps(row))
     return rows
@@ -4461,7 +4500,7 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
     """Phase f: (i), then (ii), (v), (iv), (vi), (vii), (viii) and (ix) in one
     launch of two gloo ranks, then (iii), (v)'s checkpoint resumed at one NCCL
     rank and in a plain process (which also restores (vi)'s and runs (viii)'s
-    flow for its reference); a summary a path.  (ii) and (v) train on a dataset written here
+    flow for its reference), the two processes side by side; a summary a path.  (ii) and (v) train on a dataset written here
     that draws nothing at random on the host (one caption an id, 4 frames and
     one audio clip an item), the same batches in both, and (iii) trains on it
     too; (iv)
@@ -4529,20 +4568,25 @@ def phase_ddp(cap_paths: dict, cap_run: str, pt=None, device: str = "cuda", over
             ], os.path.join(tmp, "two"), timeout=1000)
             ckpts = {k: sorted(os.listdir(os.path.join(tmp, k, "ckpt")))
                      for k in ("base", "zero", "fsdp", "tp", "ep_sp", "pp")}
-            # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps
+            # (iii): one NCCL rank and one plain process, each resuming (v)'s checkpoint for ``steps`` more steps,
+            # side by side (each only reads what the two ranks wrote, and saves nothing)
             resume = ["--resume", "true", "--num_train_steps", str(short + steps), "--zero_optimizer", "true"]
-            one = {}
-            for name, nproc, group in (("nccl", 1, ["--dist_backend", "nccl" if cuda else "gloo"]),
-                                       ("plain", None, [])):
+
+            def one_process(name, nproc, group):
                 # the plain process also restores (vi)'s checkpoint, training nothing, and runs (viii)'s flow
                 plain = [{"name": "fsdp_restore", "restore": os.path.join(tmp, "fsdp"), "config": fsdp_cfg,
                           "argv": dev},
                          {"name": "ep_sp_one", "argv": ["--config", ep_sp_one_cfg, *dev], "deterministic": True,
                           "no_save": True}] if nproc is None else []
-                one[name] = run_ranks(nproc, [
+                return run_ranks(nproc, [
                     {"name": "resume", "argv": ["--config", zero_cfg, *resume, *group, *dev], "deterministic": True,
                      "no_save": True}, *plain,
                 ], os.path.join(tmp, name), timeout=600)[0]
+
+            with ThreadPoolExecutor(2) as pool:
+                futures = {name: pool.submit(one_process, name, nproc, group) for name, nproc, group in (
+                    ("nccl", 1, ["--dist_backend", "nccl" if cuda else "gloo"]), ("plain", None, []))}
+                one = {name: f.result() for name, f in futures.items()}
     out["ddp_tiny"] = check_ddp_tiny([r["tiny"] for r in two], device)
     base, zero, scst, fsdp, tp, ep_sp, pp = ([r[k] for r in two]
                                              for k in ("base", "zero", "scst", "fsdp", "tp", "ep_sp", "pp"))

@@ -172,6 +172,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K2.fine_score_fused(fa, fb, ma, mb, wa, wb.to("meta"))
 
 
+# -- the kernel's tiles, from its source on the card ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("t,v,rows,cols", [(32, 10, 128, (250, 120)), (32, 8, 128, (256, 128)),
+                                           (8, 34, 128, (238, 102)), (2, 40, 128, (240, 120)),
+                                           (32, 1, 128, (256, 128)), (100, 3, 100, (255, 126))])
+def test_layout_holds_whole_items(t, v, rows, cols, bf16):
+    """MSR-VTT tva, tv, vta, atv and MSCOCO's tiles: whole items on both sides
+    of a [128, 256] tile for bf16 and a [128, 128] one for fp32."""
+    _cuda()
+    lay = K2.layout(1000, 1000, t, v, 512, bf16=bf16)
+    assert (lay["rows"], lay["cols"]) == (rows, cols[0] if bf16 else cols[1])
+    assert lay["a_tiles"] == -(-1000 // lay["ta"]) and lay["b_tiles"] == -(-1000 // lay["tb"])
+    width, value_bytes = (256, 2) if bf16 else (128, 8)
+    assert lay["scratch_bytes"] == (lay["a_tiles"] * 128 + lay["b_tiles"] * width) * 512 * value_bytes
+    assert lay["read_bytes"] == lay["a_tiles"] * lay["b_tiles"] * (128 + width) * 512 * value_bytes
+
+
+@pytest.mark.cuda
+def test_layout_pads_d_to_a_row():
+    _cuda()
+    assert K2.layout(3, 4, 5, 6, 13, bf16=True)["d_pad"] == 64
+    assert K2.layout(3, 4, 5, 6, 12, bf16=False)["d_pad"] == 32
+    assert K2.layout(3, 4, 5, 6, 4096, bf16=False)["d_pad"] == 4096
+    assert K2.layout(3, 4, 5, 6, 13, bf16=True)["scratch_bytes"] == (128 + 256) * 64 * 2
+    assert K2.layout(3, 4, 5, 6, 12, bf16=False)["scratch_bytes"] == (128 + 128) * 32 * 8
+
+
+# -- the kernel's fp32 arithmetic, on the CPU ------------------------------------
+
+def test_tf32_split():
+    """hi and lo carry no bit below TF32's 10-bit mantissa, hi + lo is x to
+    about 2**-22, ties round to even, and inf stays inf with lo 0."""
+    x = torch.from_numpy(np.random.RandomState(20).randn(4096).astype(np.float32))
+    hi, lo = K2.tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert float(((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()) < 2.0 ** -21
+    ties = torch.tensor([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, float("inf")])  # halfway cases
+    hi, lo = K2.tf32_split(ties)
+    assert hi.tolist() == [1.0, 1 + 4 * 2.0 ** -11, float("inf")] and float(lo[2]) == 0.0
+
+
+@pytest.mark.parametrize("d", [512, 768])
+def test_3xtf32_holds_the_tolerance(d):
+    """The kernel's fp32 route emulated: hi.hi + hi.lo + lo.hi at MSR-VTT tva's
+    token counts, unit-norm features, within 1e-5 + 1e-5 relative of the plain
+    version (about 1e-3 of it: the dropped lo.lo is 2**-22 of a term)."""
+    args = _torch(_inputs(15, 16, 16, 32, 10, d, unit=True))
+    ref = K2.fine_score_fused_plain(*args)
+    diff = (K2.fine_score_3xtf32_emulated(*args) - ref).abs()
+    assert bool((diff <= TOL + TOL * ref.abs()).all()), float(diff.max())
+    assert float(diff.max()) < TOL / 20
+
+
+def test_single_tf32_misses_the_tolerance():
+    """One TF32 product (hi.hi) keeps 11 bits a value: at D = 512 its error is
+    of the order of the tolerance itself, and here it exceeds it."""
+    args = _torch(_inputs(15, 16, 16, 32, 10, 512, unit=True))
+    ref = K2.fine_score_fused_plain(*args)
+    diff = (K2.fine_score_3xtf32_emulated(*args, terms=1) - ref).abs()
+    assert not bool((diff <= TOL + TOL * ref.abs()).all())
+
+
 # -- the build of several sources ---------------------------------------------
 
 @pytest.fixture
@@ -248,8 +313,10 @@ def _cuda():
 
 
 def _close_on_card(got, ref):
-    """1e-5 absolute plus 1e-5 relative: fp32 FMAs in another order than the
-    plain version's matmul, on unit-norm features (|dot| <= 1)."""
+    """1e-5 absolute plus 1e-5 relative on unit-norm features (|dot| <= 1):
+    bf16 products are exact in fp32 and fp32 ones 3xTF32 (about 2**-22 a
+    term, ``test_3xtf32_holds_the_tolerance``), summed in another order than
+    the plain version's matmul."""
     diff = (got - ref).abs()
     assert bool((diff <= TOL + TOL * ref.abs()).all()), float(diff.max())
 
@@ -257,7 +324,13 @@ def _close_on_card(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(9, 21, 7, 5, 48), (33, 70, 32, 10, 512), (40, 30, 2, 40, 512),
                                    (5, 3, 128, 128, 1024), (70, 300, 32, 1, 512), (6, 7, 1, 1, 5),
-                                   (4, 9, 3, 6, 13)])
+                                   (4, 9, 3, 6, 13),
+                                   # gallery items straddling the 256-column tile (25 a tile)
+                                   (9, 26, 32, 10, 512),
+                                   (6, 40, 64, 10, 512),  # T = 64: two query items a tile
+                                   (5, 30, 32, 10, 4096),
+                                   (7, 11, 32, 10, 12), (7, 11, 32, 10, 13),  # D padded by the pack
+                                   (1, 30, 32, 10, 512), (20, 1, 32, 10, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(shape, dtype):
     dev = _cuda()
@@ -269,6 +342,21 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     assert K2.LAUNCHES == before + 1 and got.shape == (a, b) and got.dtype == torch.float32
     _close_on_card(got, K2.fine_score_fused_plain(*args))
     assert torch.equal(got, K2.fine_score_fused(*args))  # no atomics: the same bits again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [512, 4096])
+def test_kernel_same_sign_long_dots_on_card(d, dtype):
+    """Every term of every dot of one sign (negative_rows at D up to 4096): no
+    cancellation hides the rounding of the tensor cores' accumulators."""
+    dev = _cuda()
+    fa, fb, ma, mb, wa, wb = _inputs(13, 6, 9, 3, 2, d, unit=True)
+    args = _torch([np.abs(fa), -np.abs(fb), np.ones_like(ma), mb, wa, wb], dtype, dev)
+    got = K2.fine_score_fused(*args)
+    ref = K2.fine_score_fused_plain(*args)
+    assert float(ref.max()) < 0
+    _close_on_card(got, ref)
 
 
 @pytest.mark.cuda
